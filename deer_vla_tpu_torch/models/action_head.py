@@ -1,0 +1,87 @@
+"""Deterministic LSTM action head, streaming step (action_head.py:408-611).
+
+(B, lang_len, d) --max-pool over tokens--> (B, d) --LSTM step--> (B, H)
+--> MLP+tanh -> arm (B, 1, 6k);  MLP+sigmoid -> gripper (B, 1, k).
+The caller commits the returned carry only for the exit that fires.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from deer_vla_tpu_torch.core.config import HeadConfig
+from deer_vla_tpu_torch.ops.layers import (init_layernorm, init_linear,
+                                           layernorm, linear)
+from deer_vla_tpu_torch.ops.lstm import Carry, init_lstm, lstm_step, zero_carry
+
+
+class HeadOutput(NamedTuple):
+    actions: torch.Tensor        # (B, W, 6*multi_step) tanh arm action
+    gripper_probs: torch.Tensor  # (B, W, multi_step) sigmoid
+    gripper_logits: torch.Tensor
+
+
+def _init_mlp_head(gen, cfg: HeadConfig, out_dim: int, device, dtype) -> dict:
+    dims = ((cfg.hidden_size,)
+            + tuple(cfg.mlp_hidden_dims[:cfg.mlp_num_hidden_layers])
+            + (out_dim,))
+    layers = [init_linear(gen, dims[i], dims[i + 1], True, device, dtype)
+              for i in range(len(dims) - 1)]
+    lns = [init_layernorm(dims[i + 1], device=device, dtype=dtype)
+           if cfg.mlp_layernorm else None for i in range(len(dims) - 2)]
+    return {"layers": layers, "lns": lns}
+
+
+def init_head(gen, cfg: HeadConfig, device="cpu",
+              dtype=torch.float32) -> dict:
+    if cfg.use_state:
+        raise NotImplementedError("proprio-state heads are not ported")
+    return {
+        "rnn": init_lstm(gen, cfg.in_features, cfg.hidden_size,
+                         cfg.lstm_num_layers, cfg.lstm_layernorm, device,
+                         dtype),
+        "actions": _init_mlp_head(
+            gen, cfg, cfg.out_features * cfg.multi_step_action, device, dtype),
+        "gripper": _init_mlp_head(gen, cfg, cfg.multi_step_action, device,
+                                  dtype),
+    }
+
+
+def _mlp_head_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Hidden Linear(+LN)+ReLU layers, then the final Linear (pre-activation;
+    no dropout at serving)."""
+    n = len(p["layers"])
+    for i in range(n - 1):
+        x = linear(p["layers"][i], x)
+        if p["lns"][i] is not None:
+            x = layernorm(p["lns"][i], x)
+        x = torch.relu(x)
+    return linear(p["layers"][-1], x)
+
+
+def pool_tokens(feat: torch.Tensor, pooling: str = "max") -> torch.Tensor:
+    """(..., lang_len, d) -> (..., d), padding positions included."""
+    if pooling == "max":
+        return feat.amax(dim=-2)
+    return feat.mean(dim=-2)
+
+
+def head_step(p: dict, feat: torch.Tensor, carry: Optional[Carry],
+              cfg: HeadConfig, state: Optional[torch.Tensor] = None
+              ) -> Tuple[HeadOutput, Carry]:
+    """One frame: feat (B, lang_len, d) or (B, d) -> (output with W == 1,
+    new carry)."""
+    if state is not None:
+        raise NotImplementedError("proprio-state heads are not ported")
+    if feat.ndim == 3:
+        feat = pool_tokens(feat, cfg.pooling)
+    if carry is None:
+        carry = zero_carry(cfg.lstm_num_layers, feat.shape[0],
+                           cfg.hidden_size, feat.dtype, feat.device)
+    y, new_carry = lstm_step(p["rnn"], feat, carry)
+    y = y[:, None, :]
+    act = torch.tanh(_mlp_head_forward(p["actions"], y))
+    glog = _mlp_head_forward(p["gripper"], y)
+    return HeadOutput(act, torch.sigmoid(glog), glog), new_carry

@@ -1,0 +1,127 @@
+"""Truncated MPT decoder blocks with interleaved gated cross-attention.
+
+MPT block = pre-LN attention (fused Wqkv, ALiBi bias, no biases when
+``no_bias``) + pre-LN exact-GELU MLP, residual both times.  The stacked
+variant selects layer ``i`` of (L, ...) weights: its four big products go
+through the layer-indexed kernel K2 with a device-side index, the small
+LayerNorm leaves are sliced on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deer_vla_tpu_torch.core.config import DeerConfig, MPTConfig
+from deer_vla_tpu_torch.models.gated_xattn import init_gated_xattn
+from deer_vla_tpu_torch.ops.alibi import causal_padding_bias, full_attn_bias
+from deer_vla_tpu_torch.ops.attention import (dot_attention, merge_heads,
+                                              split_heads)
+from deer_vla_tpu_torch.ops.kernels.indexed_matmul import indexed_matmul
+from deer_vla_tpu_torch.ops.layers import (embedding, gelu, init_layernorm,
+                                           init_linear, layer_slice,
+                                           layernorm, linear, trunc_normal)
+
+
+def init_mpt_block(gen, cfg: MPTConfig, device="cpu",
+                   dtype=torch.float32) -> dict:
+    bias = not cfg.no_bias
+    d = cfg.d_model
+
+    def lin(i, o):
+        return init_linear(gen, i, o, bias, device, dtype, init="normal02")
+
+    p = {"ln_1": init_layernorm(d, bias, device, dtype),
+         "wqkv": lin(d, 3 * d),
+         "out_proj": lin(d, d),
+         "ln_2": init_layernorm(d, bias, device, dtype),
+         "mlp_up": lin(d, cfg.mlp_ratio * d),
+         "mlp_down": lin(cfg.mlp_ratio * d, d)}
+    if cfg.qk_ln:
+        p["q_ln"] = init_layernorm(d, bias, device, dtype)
+        p["k_ln"] = init_layernorm(d, bias, device, dtype)
+    return p
+
+
+def init_decoder(gen, cfg: DeerConfig, device="cpu",
+                 dtype=torch.float32) -> dict:
+    """wte + [xattn?, block] * n_layers + ln_f (MPT arch only)."""
+    mpt = cfg.mpt
+    if mpt.arch != "mpt":
+        raise NotImplementedError(f"decoder arch {mpt.arch!r} is not ported")
+    params = {
+        "wte": {"w": trunc_normal((mpt.vocab_size, mpt.d_model), 0.02, gen,
+                                  device, dtype)},
+        "ln_f": init_layernorm(mpt.d_model, not mpt.no_bias, device, dtype),
+        "blocks": [],
+        "xattn": [],
+    }
+    for i in range(mpt.n_layers):
+        params["blocks"].append(init_mpt_block(gen, mpt, device, dtype))
+        params["xattn"].append(
+            init_gated_xattn(gen, mpt.d_model, cfg.vis_dim,
+                             cfg.xattn_dim_head, cfg.xattn_heads,
+                             cfg.xattn_ff_mult, device, dtype)
+            if cfg.has_xattn(i) else None)
+    return params
+
+
+def _attn_mlp(p: dict, x: torch.Tensor, attn_bias: torch.Tensor,
+              cfg: MPTConfig, mm) -> torch.Tensor:
+    """The block body; ``mm(name, h)`` applies the named big product."""
+    q, k, v = mm("wqkv", layernorm(p["ln_1"], x)).chunk(3, dim=-1)
+    if "q_ln" in p:
+        q = layernorm(p["q_ln"], q)
+        k = layernorm(p["k_ln"], k)
+    attn = merge_heads(dot_attention(
+        split_heads(q, cfg.n_heads), split_heads(k, cfg.n_heads),
+        split_heads(v, cfg.n_heads), bias=attn_bias,
+        scale=cfg.head_dim ** -0.5))
+    x = x + mm("out_proj", attn)
+    h = mm("mlp_down", gelu(mm("mlp_up", layernorm(p["ln_2"], x))))
+    return x + h
+
+
+def mpt_block_forward(p: dict, x: torch.Tensor, attn_bias: torch.Tensor,
+                      cfg: MPTConfig) -> torch.Tensor:
+    return _attn_mlp(p, x, attn_bias, cfg, lambda name, h: linear(p[name], h))
+
+
+def mpt_block_forward_stacked(stacked: dict, i: int, x: torch.Tensor,
+                              attn_bias: torch.Tensor, cfg: MPTConfig,
+                              layer_idx: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """mpt_block_forward over STACKED (L, ...) weights at layer ``i``.
+
+    The four big products run ``indexed_matmul(h, W, layer_idx)`` with
+    ``layer_idx`` a 0-dim int32 tensor holding ``i`` on x's device (built
+    here when not given); the LayerNorm leaves and biases are host slices."""
+    if layer_idx is None:
+        layer_idx = torch.tensor(i, dtype=torch.int32, device=x.device)
+    small = {k: layer_slice(v, i) for k, v in stacked.items()
+             if k in ("ln_1", "ln_2", "q_ln", "k_ln")}
+
+    def imm(name, h):
+        p = stacked[name]
+        y = indexed_matmul(h, p["w"], layer_idx)
+        if p.get("b") is not None:
+            y = y + p["b"][i].to(y.dtype)
+        return y
+
+    return _attn_mlp(small, x, attn_bias, cfg, imm)
+
+
+def embed_tokens(params: dict, input_ids: torch.Tensor,
+                 compute_dtype) -> torch.Tensor:
+    return embedding(params["wte"], input_ids, compute_dtype)
+
+
+def make_attn_bias(attention_mask: torch.Tensor, cfg: MPTConfig,
+                   dtype) -> torch.Tensor:
+    """(B, H|1, S, S) fused ALiBi + causal + padding bias in ``dtype``."""
+    s = attention_mask.shape[-1]
+    if cfg.alibi and cfg.arch == "mpt":
+        return full_attn_bias(attention_mask, cfg.n_heads, s,
+                              cfg.alibi_bias_max, dtype)
+    return causal_padding_bias(attention_mask, s, dtype)

@@ -1,0 +1,155 @@
+"""Primitive layers as plain functions over dicts of tensors.
+
+Parameters keep the JAX package's (in, out) linear layout, so ``linear`` is
+``x @ w`` and a bridged tree needs no transposes.  LayerNorm statistics are
+always fp32 and the output comes back in the input dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# tree helpers (nested dicts / lists / tuples of tensors; None kept)
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leaf-wise over matching nested dict/list/tuple trees.
+    ``None`` passes through unchanged."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(tree, *rest)
+
+
+# ---------------------------------------------------------------------------
+# initializers (seeded torch.Generator; same distributions as the JAX init)
+# ---------------------------------------------------------------------------
+
+
+def trunc_normal(shape, std: float, gen: torch.Generator,
+                 device, dtype=torch.float32) -> torch.Tensor:
+    """Normal(0, std) truncated to +-2 std, by inverse CDF."""
+    lo = 0.5 * (1 + math.erf(-2 / math.sqrt(2)))
+    hi = 0.5 * (1 + math.erf(2 / math.sqrt(2)))
+    u = torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+    return (torch.erfinv(2 * u - 1) * (math.sqrt(2) * std)).to(dtype)
+
+
+def uniform(shape, bound: float, gen: torch.Generator, device,
+            dtype=torch.float32) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=device)
+    return ((2 * u - 1) * bound).to(dtype)
+
+
+def normal(shape, std: float, gen: torch.Generator, device,
+           dtype=torch.float32) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+
+def init_linear(gen, in_dim: int, out_dim: int, bias: bool = True,
+                device="cpu", dtype=torch.float32, init: str = "torch") -> dict:
+    if init == "torch":  # kaiming_uniform(a=sqrt(5)) on (in, out) weights
+        w = uniform((in_dim, out_dim), 1.0 / math.sqrt(in_dim), gen, device,
+                    dtype)
+    elif init == "normal02":
+        w = trunc_normal((in_dim, out_dim), 0.02, gen, device, dtype)
+    else:
+        raise ValueError(f"unknown init {init!r}")
+    p = {"w": w}
+    if bias:
+        p["b"] = uniform((out_dim,), 1.0 / math.sqrt(in_dim), gen, device,
+                         dtype)
+    return p
+
+
+def init_layernorm(dim: int, bias: bool = True, device="cpu",
+                   dtype=torch.float32) -> dict:
+    p = {"scale": torch.ones(dim, device=device, dtype=dtype)}
+    if bias:
+        p["bias"] = torch.zeros(dim, device=device, dtype=dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Floating-point linear: ``x @ w`` in x.dtype (+ bias)."""
+    if "w" not in p:
+        raise NotImplementedError(
+            f"quantized linear ({sorted(p)}) is not ported")
+    y = x @ p["w"].to(x.dtype)
+    if p.get("b") is not None:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def layernorm(p: Optional[dict], x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, output in the input dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    if p is not None:
+        y = y * p["scale"].float()
+        if p.get("bias") is not None:
+            y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def embedding(p: dict, ids: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """Row gather; the cast happens after the gather (elementwise, so the
+    result equals casting the table first)."""
+    y = p["w"][ids]
+    return y.to(compute_dtype) if compute_dtype is not None else y
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, torch nn.GELU()'s default."""
+    return F.gelu(x)
+
+
+# ---------------------------------------------------------------------------
+# layer stacking
+# ---------------------------------------------------------------------------
+
+
+def stack_layer_tree(layers: Sequence, dtype: Optional[torch.dtype] = None):
+    """List of per-layer param dicts -> one tree with a leading L dim.
+
+    ``dtype`` pre-casts the matmul weights (per-layer ndim >= 2) to the
+    compute dtype.  1-D leaves (LayerNorm scales, biases, gates) keep their
+    own dtype, because ``layernorm`` reads them in fp32."""
+    def stack(*xs):
+        s = torch.stack(xs)
+        if dtype is not None and xs[0].ndim >= 2 and s.is_floating_point():
+            s = s.to(dtype)
+        return s
+
+    return tree_map(stack, layers[0], *layers[1:])
+
+
+def layer_slice(stacked, i: int):
+    """Per-layer views of a stacked (L, ...) tree at a host index (no
+    copies)."""
+    return tree_map(lambda s: s[i], stacked)

@@ -1,0 +1,96 @@
+"""PyTorch port: it imports neither JAX nor the JAX package, its entry
+points never drop to the CPU on their own, and its kernel modules import
+on a host with no CUDA compiler and no Triton."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "deer_vla_tpu_torch"
+
+
+def port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def run_python(code: str, env=None) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    mods = port_modules()
+    assert "deer_vla_tpu_torch.eval.scan_policy" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'deer_vla_tpu' or m.startswith('deer_vla_tpu.'))\n"
+        "print('BAD', bad)\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
+    """No compiler on PATH and a CUDA_HOME without one: the kernel modules
+    still import, run their plain versions on CPU tensors, and only the
+    build itself reports the missing compiler."""
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
+    code = (
+        "import sys, torch\n"
+        "from deer_vla_tpu_torch.ops.kernels import build\n"
+        "from deer_vla_tpu_torch.ops.kernels.flash_attention import "
+        "flash_attention\n"
+        "from deer_vla_tpu_torch.ops.kernels.indexed_matmul import "
+        "indexed_matmul\n"
+        "assert 'triton' not in sys.modules\n"
+        "q = torch.randn(1, 2, 130, 16)\n"
+        "assert flash_attention(q, q, q).shape == q.shape\n"
+        "w = torch.randn(3, 16, 8)\n"
+        "assert indexed_matmul(q[0, 0], w, 1).shape == (130, 8)\n"
+        "assert flash_attention.launches == indexed_matmul.launches == 0\n"
+        "try:\n"
+        "    build.find_nvcc()\n"
+        "except RuntimeError:\n"
+        "    print('NO_NVCC')\n")
+    out = run_python(code, env)
+    assert out.returncode == 0, out.stderr
+    assert "NO_NVCC" in out.stdout
+
+
+def test_policy_without_device_raises_when_no_card(monkeypatch):
+    from deer_vla_tpu_torch.core.config import deer_tiny
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.models.flamingo import init_deer
+
+    cfg = deer_tiny()
+    params = init_deer(cfg, seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScanDeerPolicy(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_deer(cfg, seed=0)
+    pol = ScanDeerPolicy(params, cfg, device="cpu")
+    assert pol.device == torch.device("cpu")
+    assert all(b.device.type == "cpu" for b in pol.buffers())
+    r = np.random.RandomState(0)
+    img = r.randn(1, 1, 1, 3, 28, 28).astype(np.float32)
+    ids = np.full((1, cfg.text_len), 7, np.int32)
+    ids[0, 0] = cfg.media_token_id
+    act = pol.step(img, img, ids, np.ones_like(ids))
+    assert act.shape == (7,) and np.isfinite(act).all()
+    assert pol.last_exit_layer in cfg.all_exit_ids()
