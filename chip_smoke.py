@@ -3,12 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``deer_vla_tpu_torch/csrc/``, holds each
-against its plain PyTorch version at the shapes the serving step gives it,
-then serves ``deer_3b`` at full width (24-layer ViT-L/14, 6-layer perceiver,
-12-layer d_model-2048 MPT) from seeded random weights: 8 single-stream steps
-and 4 eight-stream batched steps with per-stream dynamic exits.  Last, one
-full-depth step is compared with the same weights run in fp32 on the CPU
-through the plain versions.
+against its plain PyTorch version at the shapes the serving step gives it
+(K1 flash attention, K2 / K3 / K4 the bf16 / int8 / int4 layer-indexed
+matmuls), then serves ``deer_3b`` at full width (24-layer ViT-L/14, 6-layer
+perceiver, 12-layer d_model-2048 MPT) from seeded random weights: 8
+single-stream steps and 4 eight-stream batched steps with per-stream
+dynamic exits, in bf16 and quantized to int8 and int4 (the decoder through
+K3 / K4), and 4 eight-stream steps in each w8a8 mode.  Last, one full-depth
+step is compared with the same weights run in fp32 on the CPU through the
+plain versions, unquantized and (after checking that the card and the CPU
+quantize to the same bits) in int8 and int4.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last line is
@@ -152,17 +156,69 @@ def k1_cases(torch):
     return cases
 
 
+DECODER_PRODUCTS = (("wqkv", 2048, 6144), ("out_proj", 2048, 2048),
+                    ("mlp_up", 2048, 8192), ("mlp_down", 8192, 2048))
+# (streams, x dtype) of the indexed-matmul cases: M = 32 text rows a stream
+INDEXED_CASES = ((1, "bfloat16"), (8, "bfloat16"), (32, "bfloat16"),
+                 (1, "float32"))
+
+
 def k2_cases(torch, streams: int, dt):
     """(name, x, w) for the decoder's four stacked products."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + streams)
-    d = 2048
     out = []
-    for name, k, n in (("wqkv", d, 3 * d), ("out_proj", d, d),
-                       ("mlp_up", d, 4 * d), ("mlp_down", 4 * d, d)):
+    for name, k, n in DECODER_PRODUCTS:
         x = torch.randn(32 * streams, k, generator=gen, device="cuda").to(dt)
         w = (torch.randn(12, k, n, generator=gen, device="cuda")
              * k ** -0.5).to(dt)
         out.append((f"{name}_b{streams}_{str(dt)[6:]}", x, w))
+    return out
+
+
+def indexed_case(torch, kernel: str, name: str, x, n: int, nbytes: int,
+                 run, plain, library, idxs) -> dict:
+    """One layer-indexed product: every one of the 12 layers checked
+    against the plain version (tolerance relative to max|y|), then the
+    kernel, the plain version and the library call timed cycling through
+    the layers, so each call reads a slice the previous call did not, as
+    the decoder loop does (a stack of 12 exceeds the 50 MB L2).  ``run``
+    and ``plain`` take the 0-dim int32 layer tensor, ``library`` the
+    layer as an int (a tensor index would sync the host each call)."""
+    dts = str(x.dtype)[6:]
+    err = 0.0
+    scale = 0.0
+    for i in range(12):
+        got = run(idxs[i])
+        ref = plain(idxs[i])
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+        scale = max(scale, ref.float().abs().max().item())
+    tol = K2_REL_TOL[dts] * scale
+    check(err <= tol, f"{kernel} {name}: max abs err {err} > {tol}")
+    m, kk = x.shape
+    row = {"kernel": kernel, "case": name, "m": m, "k": kk, "n": n,
+           "layers": 12, "max_abs_err": err, "tolerance": tol}
+    row.update(bound(nbytes, 2 * m * kk * n, dts))
+    it = iter(range(10 ** 9))
+    row["kernel_ms"] = time_ms(torch, lambda: run(idxs[next(it) % 12]), 48)
+    row["reference_ms"] = time_ms(
+        torch, lambda: plain(idxs[next(it) % 12]), 24)
+    row["library_ms"] = time_ms(torch, lambda: library(next(it) % 12), 48)
+    return row
+
+
+def layer_summary(rows: list) -> dict:
+    """One deer_3b decoder layer at B=1 in bf16: the four products'
+    times, bytes and operations summed, and their bound."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "flops": 0, "max_abs_err": 0.0}
+    for row in rows:
+        if row["m"] == 32 and row["case"].endswith("bfloat16"):
+            for key, src in (("ms", "kernel_ms"), ("plain_ms", "reference_ms"),
+                             ("library_ms", "library_ms"),
+                             ("bytes", "bytes"), ("flops", "flops")):
+                out[key] += row[src]
+            out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+    out.update(bound(out["bytes"], out["flops"], "bfloat16"))
     return out
 
 
@@ -205,53 +261,70 @@ def phase_kernels(torch) -> dict:
 
     idxs = [torch.tensor(i, dtype=torch.int32, device="cuda")
             for i in range(12)]
-    layer_sum = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-                 "flops": 0, "max_abs_err": 0.0}
-    for streams, dt in ((1, torch.bfloat16), (8, torch.bfloat16),
-                        (32, torch.bfloat16), (1, torch.float32)):
-        for name, x, w in k2_cases(torch, streams, dt):
-            dts = str(dt)[6:]
-            err = 0.0
-            scale = 0.0
-            for i in range(12):
-                got = indexed_matmul(x, w, idxs[i])
-                ref = indexed_matmul_reference(x, w, idxs[i])
-                err = max(err, (got.float() - ref.float()).abs().max().item())
-                scale = max(scale, ref.float().abs().max().item())
-            tol = K2_REL_TOL[dts] * scale
-            check(err <= tol, f"K2 {name}: max abs err {err} > {tol}")
+    k2_rows = []
+    for streams, dts in INDEXED_CASES:
+        for name, x, w in k2_cases(torch, streams, getattr(torch, dts)):
             m, kk = x.shape
             n = w.shape[2]
-            es = x.element_size()
-            row = {"kernel": "indexed_matmul", "case": name, "m": m, "k": kk,
-                   "n": n, "layers": 12, "max_abs_err": err,
-                   "tolerance": tol}
-            row.update(bound((kk * n + m * kk + m * n) * es, 2 * m * kk * n,
-                             dts))
-            # cycle through the 12 layers: each call reads a slice the
-            # previous call did not, as the decoder loop does (the stack of
-            # 12 exceeds the 50 MB L2)
-            it = iter(range(10 ** 9))
-            row["kernel_ms"] = time_ms(
-                torch, lambda: indexed_matmul(x, w, idxs[next(it) % 12]), 48)
-            row["reference_ms"] = time_ms(
-                torch, lambda: indexed_matmul_reference(
-                    x, w, idxs[next(it) % 12]), 24)
-            row["library_ms"] = time_ms(
-                torch, lambda: x @ w[next(it) % 12], 48)
-            rows.append(row)
-            if streams == 1 and dt == torch.bfloat16:
-                for key, src in (("ms", "kernel_ms"),
-                                 ("plain_ms", "reference_ms"),
-                                 ("library_ms", "library_ms"),
-                                 ("bytes", "bytes"), ("flops", "flops")):
-                    layer_sum[key] += row[src]
-                layer_sum["max_abs_err"] = max(layer_sum["max_abs_err"], err)
-    layer_sum.update(bound(layer_sum["bytes"], layer_sum["flops"],
-                           "bfloat16"))
-    summary["indexed_matmul"] = layer_sum
-    emit({"phase": "kernels", "cases": rows})
+            k2_rows.append(indexed_case(
+                torch, "indexed_matmul", name, x, n,
+                (kk * n + m * kk + m * n) * x.element_size(),
+                lambda i: indexed_matmul(x, w, i),
+                lambda i: indexed_matmul_reference(x, w, i),
+                lambda i: x @ w[i], idxs))
+    summary["indexed_matmul"] = layer_summary(k2_rows)
+    emit({"phase": "kernels", "cases": rows + k2_rows})
+    summary.update(phase_kernels_quantized(torch, idxs))
     return summary
+
+
+def phase_kernels_quantized(torch, idxs) -> dict:
+    """K3 and K4 at the four decoder products.  The library call is
+    cuBLAS's ``x @ Wd[idx]`` over the same stack dequantized to x's dtype
+    beforehand: the product that quantized serving exists to beat."""
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+        indexed_matmul_q4, indexed_matmul_q4_reference, indexed_matmul_q8,
+        indexed_matmul_q8_reference)
+    from deer_vla_tpu_torch.ops.quant import (dequantize_weight,
+                                              dequantize_weight4,
+                                              quantize_weight,
+                                              quantize_weight4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    rows = {"indexed_matmul_q8": [], "indexed_matmul_q4": []}
+    for prod, k, n in DECODER_PRODUCTS:
+        w = torch.randn(12, k, n, generator=gen, device="cuda") * k ** -0.5
+        q8, s8 = quantize_weight(w)
+        q4, s4 = quantize_weight4(w)
+        del w
+        xs = {(streams, dts): torch.randn(32 * streams, k, generator=gen,
+                                          device="cuda").to(getattr(torch,
+                                                                    dts))
+              for streams, dts in INDEXED_CASES}
+        for kernel, fn, plain, wq, s, deq, wbytes in (
+                ("indexed_matmul_q8", indexed_matmul_q8,
+                 indexed_matmul_q8_reference, q8, s8,
+                 lambda dt: dequantize_weight(q8, s8, dt), k * n),
+                ("indexed_matmul_q4", indexed_matmul_q4,
+                 indexed_matmul_q4_reference, q4, s4,
+                 lambda dt: dequantize_weight4(q4, s4, dt), k * n // 2)):
+            wd = {}
+            for (streams, dts), x in xs.items():
+                if dts not in wd:
+                    wd[dts] = deq(getattr(torch, dts))
+                m = x.shape[0]
+                es = x.element_size()
+                rows[kernel].append(indexed_case(
+                    torch, kernel, f"{prod}_b{streams}_{dts}", x, n,
+                    wbytes + 4 * n + (m * k + m * n) * es,
+                    lambda i: fn(x, wq, s, i),
+                    lambda i: plain(x, wq, s, i),
+                    lambda i: x @ wd[dts][i], idxs))
+            del wd
+    emit({"phase": "kernels_quantized",
+          "library": "x @ Wd[idx], Wd dequantized to x.dtype beforehand "
+                     "(cuBLAS)",
+          "cases": rows["indexed_matmul_q8"] + rows["indexed_matmul_q4"]})
+    return {kernel: layer_summary(r) for kernel, r in rows.items()}
 
 
 def make_policy_inputs(np, cfg, b: int, seed: int):
@@ -279,58 +352,108 @@ def build_weights(torch, cfg):
     return params
 
 
-def phase_serve(torch, np, cfg, pol) -> dict:
+def kernel_counters():
     from deer_vla_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import indexed_matmul
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+        indexed_matmul, indexed_matmul_q4, indexed_matmul_q8)
+    return {f.__name__: f for f in (flash_attention, indexed_matmul,
+                                    indexed_matmul_q8, indexed_matmul_q4)}
+
+
+# the decoder kernel each serving mode must launch (w8a8 modes: none, their
+# decoder products are int8 x int8 -> int32 products outside the kernels)
+DECODER_KERNEL = {None: "indexed_matmul", "int8": "indexed_matmul_q8",
+                  "int4": "indexed_matmul_q4"}
+
+
+def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
+                b8_steps=4) -> dict:
+    """Serve ``b1_steps`` single-stream steps, then ``b8_steps`` eight-stream
+    steps, with every kernel's launch count set to 0 just before and read
+    just after."""
+    from deer_vla_tpu_torch.ops.quant import tree_bytes
     n_exits = len(pol.exits)
     # one threshold per step (per stream at B=8), over three decades: with
     # these random heads the exit deltas lie around 1e-5 (the first full
     # run), so the dynamic exit has room to pick different layers
     sweep = [10.0 ** (-6 + 3 * s / 7) for s in range(8)]
-
-    flash_attention.launches = 0
-    indexed_matmul.launches = 0
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
     b1_ms, b1_exits = [], []
     pol.reset()
-    for s in range(8):
+    for s in range(b1_steps):
         pol.set_thresholds([sweep[s]] * n_exits)
         inputs = make_policy_inputs(np, cfg, 1, seed=100 + s)
         t0 = time.perf_counter()
         act = pol.step(*inputs)
         b1_ms.append((time.perf_counter() - t0) * 1e3)
         check(act.shape == (7,) and bool(np.isfinite(act).all()),
-              f"B=1 step {s}: action {act}")
+              f"{quantize} B=1 step {s}: action {act}")
         b1_exits.append(pol.last_exit_layer)
     b8_ms, b8_exits = [], []
     pol.set_thresholds_batch([[t] * n_exits for t in sweep])
     pol.reset()
-    for s in range(4):
+    for s in range(b8_steps):
         inputs = make_policy_inputs(np, cfg, 8, seed=200 + s)
         t0 = time.perf_counter()
         acts, exits = pol.step_batch(*inputs)
         b8_ms.append((time.perf_counter() - t0) * 1e3)
         check(acts.shape == (8, 7) and bool(np.isfinite(acts).all()),
-              f"B=8 step {s}: non-finite actions")
+              f"{quantize} B=8 step {s}: non-finite actions")
         b8_exits.append(exits.tolist())
-    launches = {"flash_attention": flash_attention.launches,
-                "indexed_matmul": indexed_matmul.launches}
+    launches = {name: f.launches for name, f in counters.items()}
     every = set(b1_exits) | {e for row in b8_exits for e in row}
     check(every <= set(pol.exits), f"exit layers {every} not in {pol.exits}")
-    check(len(set(b1_exits)) > 1, f"B=1 exits all at {b1_exits}")
-    check(launches["flash_attention"] > 0 and launches["indexed_matmul"] > 0,
-          f"kernels not launched on the main path: {launches}")
-    out = {"phase": "serve", "config": "deer_3b",
+    if b1_steps:
+        check(len(set(b1_exits)) > 1, f"{quantize} B=1 exits all at "
+                                      f"{b1_exits}")
+    decoder = DECODER_KERNEL.get(quantize)
+    check(launches["flash_attention"] > 0
+          and (decoder is None or launches[decoder] > 0),
+          f"{quantize}: kernels not launched on the main path: {launches}")
+    if quantize:
+        check(launches["indexed_matmul"] == 0,
+              f"{quantize}: the bf16 kernel K2 ran: {launches}")
+    out = {"phase": "serve" if quantize is None else f"serve_{quantize}",
+           "config": "deer_3b", "quantize": quantize,
            "vit": [cfg.vit.layers, cfg.vit.width], "mpt": [cfg.n_layers,
                                                            cfg.mpt.d_model],
            "compute": str(cfg.dtypes.cdt)[6:],
            "params": str(cfg.dtypes.pdt)[6:],
-           "b1_thresholds": sweep, "b1_exit_layers": b1_exits,
-           "b1_step_ms": b1_ms, "b1_median_ms": statistics.median(b1_ms),
+           "b1_thresholds": sweep[:b1_steps], "b1_exit_layers": b1_exits,
+           "b1_step_ms": b1_ms,
+           "b1_median_ms": statistics.median(b1_ms) if b1_ms else None,
            "b8_stream_thresholds": sweep, "b8_exit_layers": b8_exits,
            "b8_step_ms": b8_ms, "b8_median_ms": statistics.median(b8_ms),
-           "launches": launches,
+           "launches": launches, "stacked_bytes": tree_bytes(pol.stacked),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
+    return out
+
+
+def phase_serve_quantized(torch, np, cfg, params, bf16_bytes: int) -> dict:
+    """int8 and int4 at B=1 and B=8 through K3 / K4, then the w8a8 modes at
+    B=8; each policy is freed before the next is built."""
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    out = {}
+    for mode, b1_steps in (("int8", 8), ("int4", 8), ("int8_w8a8", 0),
+                           ("int4_w8a8", 0)):
+        pol = ScanDeerPolicy(params, cfg, indexed_mm=True, quantize=mode)
+        torch.cuda.reset_peak_memory_stats()
+        res = phase_serve(torch, np, cfg, pol, mode, b1_steps=b1_steps)
+        res["stacked_bytes_vs_bf16"] = res["stacked_bytes"] / bf16_bytes
+        out[mode] = res
+        del pol
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_quantized_summary",
+          "stacked_bytes_bf16": bf16_bytes,
+          "modes": {m: {"b1_median_ms": r["b1_median_ms"],
+                        "b8_median_ms": r["b8_median_ms"],
+                        "stacked_bytes": r["stacked_bytes"],
+                        "stacked_bytes_vs_bf16": r["stacked_bytes_vs_bf16"],
+                        "launches": r["launches"]}
+                    for m, r in out.items()}})
     return out
 
 
@@ -349,8 +472,7 @@ def compare(np, torch, act, hid, act_ref, hid_ref) -> dict:
                                    / torch.linalg.vector_norm(hid_ref))}
 
 
-def phase_cross_check(torch, np, cfg, params, pol) -> None:
-    from deer_vla_tpu_torch.bridge import to_torch
+def phase_cross_check(torch, np, cfg, params, cpu_params, pol) -> None:
     from deer_vla_tpu_torch.core.config import FP32
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     inputs = make_policy_inputs(np, cfg, 1, seed=300)
@@ -360,8 +482,7 @@ def phase_cross_check(torch, np, cfg, params, pol) -> None:
     act_f32, hid_f32 = full_depth_step(np, card32, cfg32, inputs)
     del card32
     t0 = time.perf_counter()
-    cpu = ScanDeerPolicy(to_torch(params, "cpu"), cfg32, indexed_mm=True,
-                         device="cpu")
+    cpu = ScanDeerPolicy(cpu_params, cfg32, indexed_mm=True, device="cpu")
     act_ref, hid_ref = full_depth_step(np, cpu, cfg32, inputs)
     cpu_s = time.perf_counter() - t0
     bf16 = compare(np, torch, act_bf16, hid_bf16, act_ref, hid_ref)
@@ -377,31 +498,79 @@ def phase_cross_check(torch, np, cfg, params, pol) -> None:
             check(got[key] <= limit, f"cross_check {what} {key} {got[key]}")
 
 
+def phase_cross_check_quantized(torch, np, cfg, params, cpu_params) -> None:
+    """int8 and int4: the same fp32 weights quantized on the card and on the
+    CPU must give the same codes and scales bit for bit; then one
+    full-depth fp32 step on each (K3 / K4's fp32 paths on the card, their
+    plain versions on the CPU) must agree within CROSS_TOL_FP32."""
+    from deer_vla_tpu_torch.core.config import FP32
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    inputs = make_policy_inputs(np, cfg, 1, seed=300)
+    cfg32 = dataclasses.replace(cfg, dtypes=FP32)
+    for mode, keys in (("int8", ("q", "s")), ("int4", ("q4", "s4"))):
+        card = ScanDeerPolicy(params, cfg32, indexed_mm=True, quantize=mode)
+        act_card, hid_card = full_depth_step(np, card, cfg32, inputs)
+        t0 = time.perf_counter()
+        cpu = ScanDeerPolicy(cpu_params, cfg32, indexed_mm=True,
+                             quantize=mode, device="cpu")
+        cpu_bufs = dict(cpu.named_buffers())
+        codes = [(name, buf) for name, buf in card.named_buffers()
+                 if name.rsplit("__", 1)[-1] in keys]
+        differ = [name for name, buf in codes
+                  if not torch.equal(buf.cpu(), cpu_bufs[name])]
+        check(len(codes) > 0 and not differ,
+              f"{mode}: card and CPU quantization differ in {differ[:5]}")
+        act_ref, hid_ref = full_depth_step(np, cpu, cfg32, inputs)
+        cpu_s = time.perf_counter() - t0
+        got = compare(np, torch, act_card, hid_card, act_ref, hid_ref)
+        emit({"phase": f"cross_check_{mode}", "exit_layer": cfg.n_layers - 1,
+              "quantized_leaves_bit_equal": len(codes),
+              "quantized_bytes": sum(b.numel() * b.element_size()
+                                     for _, b in codes),
+              "card_fp32_vs_cpu_fp32": got, "tol_fp32": CROSS_TOL_FP32,
+              "cpu_seconds": cpu_s})
+        for key, limit in CROSS_TOL_FP32.items():
+            check(got[key] <= limit, f"cross_check {mode} {key} {got[key]}")
+        del card, cpu
+        torch.cuda.empty_cache()
+
+
 def kernels_line(summary: dict, launches: dict) -> dict:
-    k1, k2 = summary["flash_attention"], summary["indexed_matmul"]
-    return {"kernels": [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "deer_vla_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "deer_vla_tpu/ops/pallas/flash_attention.py:109",
-         "launches": launches["flash_attention"],
-         "max_abs_err": k1["max_abs_err"], "tolerance": k1["tolerance"],
-         "ms": k1["kernel_ms"], "plain_ms": k1["reference_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"], "bytes": k1["bytes"],
-         "flops": k1["flops"],
-         "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)"},
-        {"name": "indexed_matmul", "route": "cuda",
-         "source": "deer_vla_tpu_torch/csrc/indexed_matmul.cu",
-         "replaces": "deer_vla_tpu/ops/pallas/indexed_matmul.py:289",
-         "launches": launches["indexed_matmul"],
-         "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"], "bytes": k2["bytes"],
-         "flops": k2["flops"],
-         "shape": "one decoder layer's four products, x (32, K) bf16, "
-                  "W (12, K, N) bf16, B=1"},
-    ]}
+    """``launches`` maps each kernel to its count on the serve path that
+    runs it: K1 and K2 on the bf16 serve, K3 on int8's, K4 on int4's."""
+    k1 = summary["flash_attention"]
+    out = [{"name": "flash_attention", "route": "cuda",
+            "source": "deer_vla_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "deer_vla_tpu/ops/pallas/flash_attention.py:109",
+            "launches": launches["flash_attention"],
+            "max_abs_err": k1["max_abs_err"], "tolerance": k1["tolerance"],
+            "ms": k1["kernel_ms"], "plain_ms": k1["reference_ms"],
+            "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+            "library_ms": k1["library_ms"], "bytes": k1["bytes"],
+            "flops": k1["flops"],
+            "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)"}]
+    for name, source, line, weights, library in (
+            ("indexed_matmul", "indexed_matmul.cu", 289,
+             "W (12, K, N) bf16", "x @ W[i]"),
+            ("indexed_matmul_q8", "indexed_matmul_quant.cu", 153,
+             "Wq (12, K, N) int8, s (12, N) fp32",
+             "x @ Wd[i], Wd dequantized to bf16 beforehand"),
+            ("indexed_matmul_q4", "indexed_matmul_quant.cu", 258,
+             "Wq4 (12, K/2, N) packed int4, s (12, N) fp32",
+             "x @ Wd[i], Wd dequantized to bf16 beforehand")):
+        k = summary[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"deer_vla_tpu_torch/csrc/{source}",
+            "replaces": f"deer_vla_tpu/ops/pallas/indexed_matmul.py:{line}",
+            "launches": launches[name], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "library": library,
+            "bytes": k["bytes"], "flops": k["flops"],
+            "shape": f"one decoder layer's four products, x (32, K) bf16, "
+                     f"{weights}, B=1"})
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -416,6 +585,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import numpy as np
 
+    from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.core.config import deer_3b
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
 
@@ -430,9 +600,20 @@ def main() -> int:
     emit({"phase": "weights", "seconds": time.perf_counter() - t0,
           "seed": SEED, "exits": pol.exits})
     serve = phase_serve(torch, np, cfg, pol)
-    phase_cross_check(torch, np, cfg, params, pol)
+    quantized = phase_serve_quantized(torch, np, cfg, params,
+                                      serve["stacked_bytes"])
+    cpu_params = to_torch(params, "cpu")
+    phase_cross_check(torch, np, cfg, params, cpu_params, pol)
+    del pol
+    torch.cuda.empty_cache()
+    phase_cross_check_quantized(torch, np, cfg, params, cpu_params)
 
-    emit(kernels_line(summary, serve["launches"]))
+    launches = dict(serve["launches"])
+    launches["indexed_matmul_q8"] = \
+        quantized["int8"]["launches"]["indexed_matmul_q8"]
+    launches["indexed_matmul_q4"] = \
+        quantized["int4"]["launches"]["indexed_matmul_q4"]
+    emit(kernels_line(summary, launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

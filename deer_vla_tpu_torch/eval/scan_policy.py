@@ -40,6 +40,7 @@ from deer_vla_tpu_torch.models.value_net import get_delta
 from deer_vla_tpu_torch.models.vit import stack_vit_blocks
 from deer_vla_tpu_torch.ops.layers import (layer_slice, stack_layer_tree,
                                            tree_map)
+from deer_vla_tpu_torch.ops.quant import quantize_serving_stacked
 
 
 def xattn_index(cfg: DeerConfig) -> np.ndarray:
@@ -213,20 +214,29 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
 class ScanDeerPolicy(nn.Module):
     """Dynamic-exit policy over B >= 1 streams.  The weights (stacked
     layers and the pruned unstacked leaves) are registered buffers; the
-    device is explicit and defaults to the card."""
+    device is explicit and defaults to the card.  ``quantize`` is None or
+    one of ``ops.quant.QUANT_MODES``: "int8" and "int4" serve the decoder
+    through K3 / K4 when ``indexed_mm`` is on, the w8a8 modes through
+    int8 x int8 -> int32 products."""
 
     def __init__(self, params: dict, cfg: DeerConfig,
                  exit_ids: Optional[List[int]] = None,
                  thresholds=None, threshold_type: str = "L2",
                  max_layer: Optional[int] = None, steps_per_stage: int = 1,
-                 indexed_mm: bool = False, device=None):
+                 indexed_mm: bool = False, quantize: Optional[str] = None,
+                 device=None):
         super().__init__()
         check_serving_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         params = to_torch(params, self.device)
-        self._stacked_def = self._register_tree(
-            "stacked", stack_decoder_layers(params, cfg, include_encoders=True))
+        # quantized serving (ops/quant.py QUANT_MODES): the decoder,
+        # cross-attention, ViT and perceiver stacks; the embedding and the
+        # exit head stay in full precision
+        stacked = quantize_serving_stacked(
+            stack_decoder_layers(params, cfg, include_encoders=True),
+            quantize)
+        self._stacked_def = self._register_tree("stacked", stacked)
         self._params_def = self._register_tree(
             "params", prune_serving_params(params, cfg))
         exit_ids = list(exit_ids or cfg.all_exit_ids())

@@ -3,8 +3,9 @@
 MPT block = pre-LN attention (fused Wqkv, ALiBi bias, no biases when
 ``no_bias``) + pre-LN exact-GELU MLP, residual both times.  The stacked
 variant selects layer ``i`` of (L, ...) weights: its four big products go
-through the layer-indexed kernel K2 with a device-side index, the small
-LayerNorm leaves are sliced on the host.
+through the layer-indexed kernels (K2, or K3 / K4 for int8 / int4 weights)
+with a device-side index, the small LayerNorm leaves are sliced on the
+host.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from deer_vla_tpu_torch.models.gated_xattn import init_gated_xattn
 from deer_vla_tpu_torch.ops.alibi import causal_padding_bias, full_attn_bias
 from deer_vla_tpu_torch.ops.attention import (dot_attention, merge_heads,
                                               split_heads)
-from deer_vla_tpu_torch.ops.kernels.indexed_matmul import indexed_matmul
+from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+    indexed_matmul, indexed_matmul_q4, indexed_matmul_q8)
 from deer_vla_tpu_torch.ops.layers import (embedding, gelu, init_layernorm,
                                            init_linear, layer_slice,
                                            layernorm, linear, trunc_normal)
@@ -94,9 +96,13 @@ def mpt_block_forward_stacked(stacked: dict, i: int, x: torch.Tensor,
                               ) -> torch.Tensor:
     """mpt_block_forward over STACKED (L, ...) weights at layer ``i``.
 
-    The four big products run ``indexed_matmul(h, W, layer_idx)`` with
-    ``layer_idx`` a 0-dim int32 tensor holding ``i`` on x's device (built
-    here when not given); the LayerNorm leaves and biases are host slices."""
+    The four big products are routed by the stacked dict's keys, as the
+    JAX package routes them: ``w`` -> K2 ``indexed_matmul``, ``q``/``s`` ->
+    K3 ``indexed_matmul_q8``, ``q4``/``s4`` -> K4 ``indexed_matmul_q4``,
+    each with ``layer_idx`` a 0-dim int32 tensor holding ``i`` on x's device
+    (built here when not given); ``s8``/``s48`` (w8a8, w4a8) -> ``linear``
+    on the host slice of layer ``i``.  The LayerNorm leaves and biases are
+    host slices."""
     if layer_idx is None:
         layer_idx = torch.tensor(i, dtype=torch.int32, device=x.device)
     small = {k: layer_slice(v, i) for k, v in stacked.items()
@@ -104,7 +110,15 @@ def mpt_block_forward_stacked(stacked: dict, i: int, x: torch.Tensor,
 
     def imm(name, h):
         p = stacked[name]
-        y = indexed_matmul(h, p["w"], layer_idx)
+        if "s8" in p or "s48" in p:
+            # w8a8 / w4a8: the layer's slice through linear's int8 products
+            y = linear({k: v[i] for k, v in p.items() if k != "b"}, h)
+        elif "q4" in p:
+            y = indexed_matmul_q4(h, p["q4"], p["s4"], layer_idx)
+        elif "q" in p:
+            y = indexed_matmul_q8(h, p["q"], p["s"], layer_idx)
+        else:
+            y = indexed_matmul(h, p["w"], layer_idx)
         if p.get("b") is not None:
             y = y + p["b"][i].to(y.dtype)
         return y

@@ -92,11 +92,13 @@ def stack_perceiver_layers(params: dict, dtype=None) -> dict:
 def perceiver_forward_stacked(params: dict, stacked_layers: dict,
                               x: torch.Tensor,
                               cfg: PerceiverConfig) -> torch.Tensor:
-    """perceiver_forward over stacked (depth, ...) layer weights."""
+    """perceiver_forward over stacked (depth, ...) layer weights.  The depth
+    is read from a LayerNorm scale, which quantization leaves as it is (a
+    quantized tree has ``q``/``q4`` where ``w`` was)."""
     b, t, f, v, d = x.shape
     x = x.reshape(b * t, f * v, d)
     latents = params["latents"].to(x.dtype).expand(b * t, cfg.num_latents, d)
-    for i in range(stacked_layers["to_q"]["w"].shape[0]):
+    for i in range(stacked_layers["norm_latents"]["scale"].shape[0]):
         latents = _layer_forward(layer_slice(stacked_layers, i), x, latents,
                                  cfg)
     return layernorm(params["norm"], latents).reshape(b, t, cfg.num_latents, d)

@@ -18,7 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-SOURCES = ("flash_attention.cu", "indexed_matmul.cu")
+SOURCES = ("flash_attention.cu", "indexed_matmul.cu",
+           "indexed_matmul_quant.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

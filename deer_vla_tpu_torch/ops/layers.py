@@ -13,6 +13,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from deer_vla_tpu_torch.ops.quant import fp32_reciprocal, unpack_nibbles
+
 
 # ---------------------------------------------------------------------------
 # tree helpers (nested dicts / lists / tuples of tensors; None kept)
@@ -88,12 +90,68 @@ def init_layernorm(dim: int, bias: bool = True, device="cpu",
 # ---------------------------------------------------------------------------
 
 
+def int8_rows(x: torch.Tensor):
+    """Dynamic symmetric per-row int8 activations: (xi int8, sx fp32
+    (..., 1)), with the scale computed as ``quant.quantize_weight`` does."""
+    x32 = x.float()
+    sx = torch.clamp(x32.abs().amax(-1, keepdim=True) * fp32_reciprocal(127),
+                     min=1e-12)
+    return torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8), sx
+
+
+# torch._int_mm on the card needs M > 16; on an H100 cuBLASLt also refused
+# M = 17 with a row-major (K, N) second operand and took M = 32 and 514
+_INT_MM_MIN_ROWS = 32
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 (..., K) @ int8 (K, N) -> int32 (..., N) through
+    ``torch._int_mm``.  On the card its rules are met by padding fewer than
+    32 rows with zeros and passing contiguous operands; K or N not a
+    multiple of 8 raises there."""
+    k, n = b.shape
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, k).contiguous()
+    m = a2.shape[0]
+    if a2.is_cuda:
+        if k % 8 or n % 8:
+            raise ValueError(f"int8 matmul on the card needs K and N "
+                             f"multiples of 8, got K={k} N={n}")
+        if m < _INT_MM_MIN_ROWS:
+            a2 = torch.cat([a2, a2.new_zeros(_INT_MM_MIN_ROWS - m, k)])
+    return torch._int_mm(a2, b.contiguous())[:m].reshape(*lead, n)
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Floating-point linear: ``x @ w`` in x.dtype (+ bias)."""
-    if "w" not in p:
-        raise NotImplementedError(
-            f"quantized linear ({sorted(p)}) is not ported")
-    y = x @ p["w"].to(x.dtype)
+    """``x @ w`` in x.dtype (+ bias), for a float weight ``w`` or one of the
+    quantized layouts of ``ops.quant`` (the JAX package's math for each):
+
+      ``q``/``s``    ``(x @ q) * s``, both in x.dtype;
+      ``q4``/``s4``  two products against the x halves, then ``* s4``;
+      ``q``/``s8``   int8 activations per row, int8 x int8 -> int32,
+                     rescaled in fp32 by ``sx * s8``;
+      ``q4``/``s48`` the same as two int32 products over the halves.
+    """
+    if "s8" in p:
+        xi, sx = int8_rows(x)
+        y = (int8_matmul(xi, p["q"]).float() * sx
+             * p["s8"].float()).to(x.dtype)
+    elif "s48" in p:
+        kp = p["q4"].shape[-2]
+        xi, sx = int8_rows(x)
+        lo, hi = unpack_nibbles(p["q4"])
+        acc = (int8_matmul(xi[..., :kp], lo.to(torch.int8))
+               + int8_matmul(xi[..., kp:], hi.to(torch.int8)))
+        y = (acc.float() * sx * p["s48"].float()).to(x.dtype)
+    elif "q4" in p:
+        kp = p["q4"].shape[-2]
+        lo, hi = unpack_nibbles(p["q4"])
+        y = ((x[..., :kp] @ lo.to(x.dtype) + x[..., kp:] @ hi.to(x.dtype))
+             * p["s4"].to(x.dtype))
+    elif "q" in p:
+        y = (x @ p["q"].to(x.dtype)) * p["s"].to(x.dtype)
+    else:
+        y = x @ p["w"].to(x.dtype)
     if p.get("b") is not None:
         y = y + p["b"].to(x.dtype)
     return y

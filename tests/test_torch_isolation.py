@@ -56,13 +56,18 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
         "from deer_vla_tpu_torch.ops.kernels.flash_attention import "
         "flash_attention\n"
         "from deer_vla_tpu_torch.ops.kernels.indexed_matmul import "
-        "indexed_matmul\n"
+        "indexed_matmul, indexed_matmul_q4, indexed_matmul_q8\n"
         "assert 'triton' not in sys.modules\n"
         "q = torch.randn(1, 2, 130, 16)\n"
         "assert flash_attention(q, q, q).shape == q.shape\n"
         "w = torch.randn(3, 16, 8)\n"
         "assert indexed_matmul(q[0, 0], w, 1).shape == (130, 8)\n"
+        "wq = torch.ones(3, 16, 8, dtype=torch.int8)\n"
+        "s = torch.ones(3, 8)\n"
+        "assert indexed_matmul_q8(q[0, 0], wq, s, 1).shape == (130, 8)\n"
+        "assert indexed_matmul_q4(q[0, 0], wq[:, :8], s, 1).shape == (130, 8)\n"
         "assert flash_attention.launches == indexed_matmul.launches == 0\n"
+        "assert indexed_matmul_q8.launches == indexed_matmul_q4.launches == 0\n"
         "try:\n"
         "    build.find_nvcc()\n"
         "except RuntimeError:\n"
