@@ -2,10 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``deer_vla_tpu_torch/csrc/``, holds each
-against its plain PyTorch version at the shapes the serving step gives it
-(K1 flash attention, K2 / K3 / K4 the bf16 / int8 / int4 layer-indexed
-matmuls), then serves ``deer_3b`` at full width (24-layer ViT-L/14, 6-layer
+Builds the port's CUDA kernels from ``deer_vla_tpu_torch/csrc/`` and counts
+the tensor-core instructions (HMMA / HGMMA) in the SASS of the bf16 K1 and
+K2 kernels, holds each kernel against its plain PyTorch version at the
+shapes the serving step gives it (K1 flash attention, also on the ViT's
+strided views of a fused qkv and at ragged and other head-dim shapes; K2 /
+K3 / K4 the bf16 / int8 / int4 layer-indexed matmuls; K2 also for
+bit-identical repeat launches, under CUDA-graph replay with a changing
+device-side layer index, and in each of its three block configs at 32-256
+rows, timed side by side), then serves ``deer_3b`` at full width (24-layer ViT-L/14, 6-layer
 perceiver, 12-layer d_model-2048 MPT) from seeded random weights: 8
 single-stream steps and 4 eight-stream batched steps with per-stream
 dynamic exits, in bf16 and quantized to int8 and int4 (the decoder through
@@ -48,6 +53,11 @@ K1_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # output dtype, in different summation orders (bf16: two ulps).
 K2_REL_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 
+# the bf16 kernels redesigned for the tensor cores, by SASS function names
+TENSOR_CORE_KERNELS = {"flash_attention": ("flash_attention_bf16",),
+                       "indexed_matmul": ("indexed_matmul_bf16",
+                                          "indexed_matmul_wgmma")}
+
 # The step at deer_3b: full depth on the card in bf16 against fp32 on the
 # CPU.  bf16 keeps 8 bits of mantissa through 24 + 12 residual layers.
 CROSS_TOL_BF16 = {"arm_max_abs": 5e-2, "hidden_rel_l2": 5e-2}
@@ -66,7 +76,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Device time of one call, from CUDA events around ``iters`` calls."""
+    """Time of one call from CUDA events around ``iters`` eager calls: the
+    device time, or the host's time to issue a call where that is longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -78,6 +89,34 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int, replays: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured once in a CUDA
+    graph (after two warm-up calls on a side stream) and replayed
+    ``replays`` times between CUDA events, so the host's cost of issuing
+    each call is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(nbytes: int, flops: int, dtype: str) -> dict:
@@ -108,7 +147,26 @@ def phase_device(torch) -> str:
     return smi
 
 
-def phase_build() -> None:
+def sass_tensor_core_counts(lib_path) -> dict:
+    """HMMA / HGMMA instructions per kernel function in the library's SASS
+    (``cuobjdump -sass``, next to nvcc)."""
+    from deer_vla_tpu_torch.ops.kernels import build
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    (OUT_DIR / "kernels.sass").write_text(sass)
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            counts.setdefault(current, 0)
+        elif current is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[current] += 1
+    return counts
+
+
+def phase_build() -> dict:
     from deer_vla_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
     build.library()
@@ -117,8 +175,38 @@ def phase_build() -> None:
     (OUT_DIR / "build_log.txt").write_text(info["log"])
     usage = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln]
+    counts = sass_tensor_core_counts(build.build_library())
+    tc = {}
+    for kernel, fns in TENSOR_CORE_KERNELS.items():
+        per_fn = {name: n for name, n in counts.items()
+                  if any(fn in name for fn in fns)}
+        check(bool(per_fn) and all(per_fn.values()),
+              f"{kernel}: no tensor-core instructions in {per_fn}")
+        tc[kernel] = {"instances": len(per_fn),
+                      "hmma_hgmma": sum(per_fn.values()),
+                      "per_instance": per_fn}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": info["seconds"], "ptxas": usage})
+          "nvcc_seconds": info["seconds"], "ptxas": usage,
+          "tensor_core_sass": tc})
+    return tc
+
+
+def k1_times(torch, q, k, v, scale) -> dict:
+    """K1 without bias, its plain version and SDPA on the same q, k, v:
+    device time of one call from CUDA-graph replays, and K1's eager time."""
+    from deer_vla_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    F = torch.nn.functional
+    return {"kernel_ms": graph_ms(
+                torch, lambda: flash_attention(q, k, v, None, scale), 48),
+            "kernel_eager_ms": time_ms(
+                torch, lambda: flash_attention(q, k, v, None, scale), 48),
+            "reference_ms": graph_ms(
+                torch, lambda: flash_attention_reference(q, k, v, None,
+                                                         scale), 12),
+            "library_ms": graph_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale), 48)}
 
 
 def k1_cases(torch):
@@ -153,14 +241,40 @@ def k1_cases(torch):
                       rand(2, 8, 32, 64, dtype=dt),
                       rand(2, 8, 128, 64, dtype=dt),
                       rand(2, 8, 128, 64, dtype=dt), xbias, 0.125))
+    # ragged q and k tiles with a bias broadcast over heads; head dims the
+    # bf16 kernel zero-pads (16: deer_tiny, and 48 to 64; 96 to 128)
+    rbias = rand(3, 1, 100, 79, dtype=torch.float32) * 2
+    cases.append(("ragged_sq100_sk79_bcast_bias_bfloat16",
+                  rand(3, 4, 100, 64, dtype=bf), rand(3, 4, 79, 64, dtype=bf),
+                  rand(3, 4, 79, 64, dtype=bf), rbias, 0.125))
+    for d, sq in ((16, 130), (48, 70), (96, 129)):
+        cases.append((f"d{d}_s{sq}_bfloat16", rand(2, 2, sq, d, dtype=bf),
+                      rand(2, 2, sq, d, dtype=bf), rand(2, 2, sq, d, dtype=bf),
+                      None, d ** -0.5))
     return cases
+
+
+def vit_strided_qkv(torch, streams: int):
+    """q, k, v as the ViT hands them to K1: ``split_heads`` views of one
+    fused (2B, 257, 3 * 1024) qkv projection, no copy."""
+    from deer_vla_tpu_torch.ops.attention import split_heads
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * streams)
+    qkv = torch.randn(2 * streams, 257, 3 * 1024, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (split_heads(t, 16) for t in qkv.chunk(3, dim=-1))
+    check(not q.is_contiguous() and q.data_ptr() == qkv.data_ptr(),
+          "split_heads did not give a view")
+    return q, k, v
 
 
 DECODER_PRODUCTS = (("wqkv", 2048, 6144), ("out_proj", 2048, 2048),
                     ("mlp_up", 2048, 8192), ("mlp_down", 8192, 2048))
 # (streams, x dtype) of the indexed-matmul cases: M = 32 text rows a stream
-INDEXED_CASES = ((1, "bfloat16"), (8, "bfloat16"), (32, "bfloat16"),
-                 (1, "float32"))
+INDEXED_CASES = ((1, "bfloat16"), (2, "bfloat16"), (4, "bfloat16"),
+                 (8, "bfloat16"), (32, "bfloat16"), (1, "float32"))
+# row counts at which each of K2's block configs is checked and timed: 1-4
+# and 8 streams (96 rows fill a 128-row block partly)
+K2_CONFIG_ROWS = (32, 64, 96, 128, 256)
 
 
 def k2_cases(torch, streams: int, dt):
@@ -175,15 +289,28 @@ def k2_cases(torch, streams: int, dt):
     return out
 
 
+def k2_times(torch, run, plain, library, idxs) -> dict:
+    """A layer-indexed product timed cycling through the 12 layers, so each
+    call reads a slice the previous call did not, as the decoder loop does
+    (a stack of 12 exceeds the 50 MB L2): the kernel, its plain version and
+    the library call, device time of one call from CUDA-graph replays, and
+    the kernel's eager time.  ``run`` takes the 0-dim int32 layer tensor,
+    ``plain`` and ``library`` the layer as an int (a tensor index would sync
+    the host each call)."""
+    it = iter(range(10 ** 9))
+    return {"kernel_ms": graph_ms(torch, lambda: run(idxs[next(it) % 12]), 48),
+            "kernel_eager_ms": time_ms(
+                torch, lambda: run(idxs[next(it) % 12]), 48),
+            "reference_ms": graph_ms(torch, lambda: plain(next(it) % 12), 24),
+            "library_ms": graph_ms(torch, lambda: library(next(it) % 12),
+                                   48)}
+
+
 def indexed_case(torch, kernel: str, name: str, x, n: int, nbytes: int,
                  run, plain, library, idxs) -> dict:
     """One layer-indexed product: every one of the 12 layers checked
-    against the plain version (tolerance relative to max|y|), then the
-    kernel, the plain version and the library call timed cycling through
-    the layers, so each call reads a slice the previous call did not, as
-    the decoder loop does (a stack of 12 exceeds the 50 MB L2).  ``run``
-    and ``plain`` take the 0-dim int32 layer tensor, ``library`` the
-    layer as an int (a tensor index would sync the host each call)."""
+    against the plain version (tolerance relative to max|y|), then timed
+    by ``k2_times``."""
     dts = str(x.dtype)[6:]
     err = 0.0
     scale = 0.0
@@ -198,22 +325,19 @@ def indexed_case(torch, kernel: str, name: str, x, n: int, nbytes: int,
     row = {"kernel": kernel, "case": name, "m": m, "k": kk, "n": n,
            "layers": 12, "max_abs_err": err, "tolerance": tol}
     row.update(bound(nbytes, 2 * m * kk * n, dts))
-    it = iter(range(10 ** 9))
-    row["kernel_ms"] = time_ms(torch, lambda: run(idxs[next(it) % 12]), 48)
-    row["reference_ms"] = time_ms(
-        torch, lambda: plain(idxs[next(it) % 12]), 24)
-    row["library_ms"] = time_ms(torch, lambda: library(next(it) % 12), 48)
+    row.update(k2_times(torch, run, plain, library, idxs))
     return row
 
 
-def layer_summary(rows: list) -> dict:
-    """One deer_3b decoder layer at B=1 in bf16: the four products'
-    times, bytes and operations summed, and their bound."""
-    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-           "flops": 0, "max_abs_err": 0.0}
+def layer_summary(rows: list, m: int = 32) -> dict:
+    """One deer_3b decoder layer in bf16 at ``m`` rows (32 a stream): the
+    four products' times, bytes and operations summed, and their bound."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0, "flops": 0, "max_abs_err": 0.0}
     for row in rows:
-        if row["m"] == 32 and row["case"].endswith("bfloat16"):
-            for key, src in (("ms", "kernel_ms"), ("plain_ms", "reference_ms"),
+        if row["m"] == m and row["case"].endswith("bfloat16"):
+            for key, src in (("ms", "kernel_ms"),
+                             ("plain_ms", "reference_ms"),
                              ("library_ms", "library_ms"),
                              ("bytes", "bytes"), ("flops", "flops")):
                 out[key] += row[src]
@@ -227,13 +351,25 @@ def phase_kernels(torch) -> dict:
         flash_attention, flash_attention_reference)
     from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
         indexed_matmul, indexed_matmul_reference)
-    F = torch.nn.functional
     rows = []
     summary = {}
 
-    for name, q, k, v, bias, scale in k1_cases(torch):
+    from deer_vla_tpu_torch.ops.attention import merge_heads
+    from deer_vla_tpu_torch.ops.kernels.flash_attention import TC_HEAD_DIMS
+    cases = k1_cases(torch)
+    for streams in (1, 8):
+        q, k, v = vit_strided_qkv(torch, streams)
+        cases.append((f"vit_strided_b{streams}_bfloat16", q, k, v, None,
+                      0.125))
+    for name, q, k, v, bias, scale in cases:
         dt = str(q.dtype)[6:]
         got = flash_attention(q, k, v, bias, scale)
+        if dt == "bfloat16" and q.shape[-1] in TC_HEAD_DIMS:
+            # the (B, H, Sq, D) view of a (B, Sq, H, D) buffer: merge_heads
+            # is a view of it, no copy
+            check(merge_heads(got).data_ptr() == got.data_ptr()
+                  and got.transpose(1, 2).is_contiguous(),
+                  f"K1 {name}: output is not merge_heads-ready")
         ref = flash_attention_reference(q, k, v, bias, scale)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
@@ -247,17 +383,19 @@ def phase_kernels(torch) -> dict:
             b, h, sq, dd = q.shape
             nbytes = 4 * q.numel() * q.element_size()
             row.update(bound(nbytes, 4 * b * h * sq * k.shape[2] * dd, dt))
-            row["kernel_ms"] = time_ms(
-                torch, lambda: flash_attention(q, k, v, None, scale), 50)
-            row["reference_ms"] = time_ms(
-                torch, lambda: flash_attention_reference(q, k, v, None,
-                                                         scale), 20)
-            row["library_ms"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=scale), 50)
+            row.update(k1_times(torch, q, k, v, scale))
             if name == "vit_b1_bfloat16":
                 summary["flash_attention"] = row
+            elif name == "vit_b8_bfloat16":
+                summary["flash_attention_b8"] = row
         rows.append(row)
+    big = torch.zeros(1, 1, 8, 144, dtype=torch.bfloat16, device="cuda")
+    try:
+        flash_attention(big, big, big)
+    except ValueError:
+        pass
+    else:
+        check(False, "K1 took a bf16 head dim of 144")
 
     idxs = [torch.tensor(i, dtype=torch.int32, device="cuda")
             for i in range(12)]
@@ -273,9 +411,115 @@ def phase_kernels(torch) -> dict:
                 lambda i: indexed_matmul_reference(x, w, i),
                 lambda i: x @ w[i], idxs))
     summary["indexed_matmul"] = layer_summary(k2_rows)
+    summary["indexed_matmul_b8"] = layer_summary(k2_rows, m=256)
     emit({"phase": "kernels", "cases": rows + k2_rows})
+    phase_k2_determinism_and_graph(torch, idxs)
+    phase_k2_configs(torch, idxs)
     summary.update(phase_kernels_quantized(torch, idxs))
     return summary
+
+
+def phase_k2_determinism_and_graph(torch, idxs) -> None:
+    """K2's split-K sums are combined in a fixed order: two launches give
+    bit-identical outputs.  The four products of a layer captured once in a
+    CUDA graph, replayed after ``idx.fill_(j)`` for each of the 12 layers,
+    equal the eager launches bit for bit and the plain version within
+    K2_REL_TOL: the layer index is read on the device at every replay."""
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+        indexed_matmul, indexed_matmul_plan, indexed_matmul_reference)
+    out = {"phase": "k2_determinism_and_graph", "cases": []}
+    for streams in (1, 2, 3, 4, 8):
+        prods = k2_cases(torch, streams, torch.bfloat16)
+        splits = [indexed_matmul_plan(x.shape[0], x.shape[1],
+                                      w.shape[2]).splits
+                  for _, x, w in prods]
+        for (name, x, w), sp in zip(prods, splits):
+            a = indexed_matmul(x, w, idxs[5])
+            b = indexed_matmul(x, w, idxs[5])
+            check(torch.equal(a, b), f"K2 {name}: two launches differ "
+                                     f"(splits {sp})")
+        idx = torch.zeros((), dtype=torch.int32, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up outside the capture
+            for _ in range(2):
+                [indexed_matmul(x, w, idx) for _, x, w in prods]
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ys = [indexed_matmul(x, w, idx) for _, x, w in prods]
+        worst = 0.0
+        for j in range(12):
+            idx.fill_(j)
+            graph.replay()
+            torch.cuda.synchronize()
+            for (name, x, w), y in zip(prods, ys):
+                check(torch.equal(y, indexed_matmul(x, w, idxs[j])),
+                      f"K2 {name}: graph replay at layer {j} differs from "
+                      f"the eager launch")
+                ref = indexed_matmul_reference(x, w, idxs[j]).float()
+                err = (y.float() - ref).abs().max().item()
+                tol = K2_REL_TOL["bfloat16"] * ref.abs().max().item()
+                check(err <= tol, f"K2 {name}: graph replay at layer {j}: "
+                                  f"{err} > {tol}")
+                worst = max(worst, err / tol)
+        out["cases"].append({"streams": streams,
+                             "products": [p[0] for p in prods],
+                             "splits": splits, "repeat_bit_identical": True,
+                             "graph_layers_replayed": 12,
+                             "graph_equals_eager": True,
+                             "graph_worst_err_over_tol": worst})
+        del graph, ys, prods
+    emit(out)
+
+
+def phase_k2_configs(torch, idxs) -> None:
+    """Each of K2's block configs (``indexed_matmul_plan(..., config=c)``)
+    on the decoder's four products at ``K2_CONFIG_ROWS`` rows: checked
+    against the plain version at the first and last layer, then timed
+    cycling through the layers, so the config the plan picks for a row
+    count is seen beside the others."""
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+        K2_CONFIGS, indexed_matmul, indexed_matmul_plan,
+        indexed_matmul_reference)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    rows = []
+    layer = {m: [0.0] * len(K2_CONFIGS) for m in K2_CONFIG_ROWS}
+    planned = {}
+    for prod, k, n in DECODER_PRODUCTS:
+        w = (torch.randn(12, k, n, generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        xs = torch.randn(max(K2_CONFIG_ROWS), k, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        for m in K2_CONFIG_ROWS:
+            x = xs[:m]
+            planned[m] = indexed_matmul_plan(m, k, n).config
+            for c in range(len(K2_CONFIGS)):
+                plan = indexed_matmul_plan(m, k, n, config=c)
+                err = tol = 0.0
+                for j in (0, 11):
+                    got = indexed_matmul(x, w, idxs[j], plan=plan).float()
+                    ref = indexed_matmul_reference(x, w, idxs[j]).float()
+                    err = max(err, (got - ref).abs().max().item())
+                    tol = max(tol, K2_REL_TOL["bfloat16"]
+                              * ref.abs().max().item())
+                check(err <= tol, f"K2 {prod} m={m} config {c}: max abs "
+                                  f"err {err} > {tol}")
+                it = iter(range(10 ** 9))
+                ms = graph_ms(torch, lambda: indexed_matmul(
+                    x, w, idxs[next(it) % 12], plan=plan), 48)
+                layer[m][c] += ms
+                rows.append({"product": prod, "m": m, "config": c,
+                             "instruction": plan.instruction,
+                             "splits": plan.splits, "blocks": plan.blocks,
+                             "planned": c == planned[m], "ms": ms,
+                             "max_abs_err": err, "tolerance": tol})
+        del w, xs
+    emit({"phase": "k2_configs", "configs": [c._asdict() for c in K2_CONFIGS],
+          "layer_ms": {m: {"planned": planned[m], "by_config": ms,
+                           "fastest": min(range(len(ms)), key=ms.__getitem__)}
+                       for m, ms in layer.items()},
+          "rows": rows})
 
 
 def phase_kernels_quantized(torch, idxs) -> dict:
@@ -535,7 +779,7 @@ def phase_cross_check_quantized(torch, np, cfg, params, cpu_params) -> None:
         torch.cuda.empty_cache()
 
 
-def kernels_line(summary: dict, launches: dict) -> dict:
+def kernels_line(summary: dict, launches: dict, tc: dict) -> dict:
     """``launches`` maps each kernel to its count on the serve path that
     runs it: K1 and K2 on the bf16 serve, K3 on int8's, K4 on int4's."""
     k1 = summary["flash_attention"]
@@ -548,6 +792,9 @@ def kernels_line(summary: dict, launches: dict) -> dict:
             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": k1["library_ms"], "bytes": k1["bytes"],
             "flops": k1["flops"],
+            "b8_ms": summary["flash_attention_b8"]["kernel_ms"],
+            "b8_library_ms": summary["flash_attention_b8"]["library_ms"],
+            "tensor_core_sass": tc["flash_attention"]["hmma_hgmma"],
             "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)"}]
     for name, source, line, weights, library in (
             ("indexed_matmul", "indexed_matmul.cu", 289,
@@ -570,6 +817,10 @@ def kernels_line(summary: dict, launches: dict) -> dict:
             "bytes": k["bytes"], "flops": k["flops"],
             "shape": f"one decoder layer's four products, x (32, K) bf16, "
                      f"{weights}, B=1"})
+    k2 = out[1]
+    k2["b8_ms"] = summary["indexed_matmul_b8"]["ms"]
+    k2["b8_library_ms"] = summary["indexed_matmul_b8"]["library_ms"]
+    k2["tensor_core_sass"] = tc["indexed_matmul"]["hmma_hgmma"]
     return {"kernels": out}
 
 
@@ -590,7 +841,7 @@ def main() -> int:
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
 
     smi = phase_device(torch)
-    phase_build()
+    tc = phase_build()
     summary = phase_kernels(torch)
 
     cfg = deer_3b()
@@ -613,7 +864,7 @@ def main() -> int:
         quantized["int8"]["launches"]["indexed_matmul_q8"]
     launches["indexed_matmul_q4"] = \
         quantized["int4"]["launches"]["indexed_matmul_q4"]
-    emit(kernels_line(summary, launches))
+    emit(kernels_line(summary, launches, tc))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ Query blocks of 128 rows or more (the ViT's 257 tokens) go to the fused
 kernel (``ops/kernels/flash_attention``); shorter ones (decoder text 32,
 perceiver latents 64, cross-attention text) use the plain einsum with an
 fp32 softmax, as the JAX package's ``_xla_attention`` does.  A shape the
-kernel cannot take on the card raises: there is no fallback.
+kernel cannot take on the card raises: there is no fallback.  The kernel
+reads ``split_heads`` views through their strides and returns a view that
+``merge_heads`` reshapes for free, so neither side copies.
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.shape[-2] >= KERNEL_MIN_SQ:
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               bias=bias, scale=scale)
+        return flash_attention(q, k, v, bias=bias, scale=scale)
     return plain_attention(q, k, v, bias, scale)
 
 

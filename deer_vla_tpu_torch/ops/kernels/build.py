@@ -20,6 +20,7 @@ from typing import Dict, List, Optional
 
 SOURCES = ("flash_attention.cu", "indexed_matmul.cu",
            "indexed_matmul_quant.cu")
+HEADERS = ("hopper_mma.cuh",)  # included by the sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -46,7 +47,7 @@ def find_nvcc() -> str:
 
 def _source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
 

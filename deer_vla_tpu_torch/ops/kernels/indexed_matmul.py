@@ -22,7 +22,8 @@ the scale applied in fp32 and one rounding to x.dtype).
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+import functools
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -31,11 +32,108 @@ from deer_vla_tpu_torch.ops.quant import unpack_nibbles
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
-_BM = 16        # bf16 row tile (x is zero-padded to a multiple)
-_K_ALIGN = 64   # four warps x 16-deep MMA steps
-_N_ALIGN = 16   # one 16-column fragment per block
+K2_BK = 64                  # K-tile depth
+K2_MAX_SPLITS = 8           # a portable thread-block cluster
+H100_SMS = 132
+SMEM_PER_BLOCK = 232_448    # 227 KB, the most a block can have on Hopper
+
+
+class K2Config(NamedTuple):
+    """One block configuration of csrc/indexed_matmul.cu."""
+    instruction: str    # "mma.sync" (warps) or "wgmma" (warpgroups)
+    bm: int             # rows a block
+    bn: int             # columns a block
+    threads: int
+    stages: int         # shared-memory ring depth
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared bytes: the ring, or the fp32 partial tile that
+        reuses it, whichever is larger (wgmma: + 1 KB to align the ring
+        to its 1024-byte swizzle atoms)."""
+        partials = self.bm * (self.bn + 8) * 4
+        if self.instruction == "mma.sync":  # rows padded by 16 bytes
+            ring = self.stages * (self.bm * (K2_BK + 8)
+                                  + K2_BK * (self.bn + 8)) * 2
+            return max(ring, partials)
+        ring = self.stages * (self.bm + self.bn) * K2_BK * 2
+        return max(ring, partials) + 1024
+
+
+# in the order of the C++ dispatch (config 0-2)
+K2_CONFIGS = (K2Config("mma.sync", 32, 64, 128, 4),
+              K2Config("wgmma", 128, 128, 256, 4),
+              K2Config("wgmma", 256, 128, 512, 4))
+
+
+class Plan(NamedTuple):
+    """How K2 runs one bf16 product: block config, grid and shared bytes."""
+    config: int
+    instruction: str
+    bm: int
+    bn: int
+    threads: int
+    stages: int
+    splits: int     # K split = cluster size; partials summed in rank order
+    m_chunks: int
+    strips: int
+    smem: int
+    blocks: int
+    k_slice: int
+
+
+@functools.lru_cache(maxsize=None)
+def indexed_matmul_plan(m: int, k: int, n: int,
+                        config: Optional[int] = None) -> Plan:
+    """The tiling, split and grid of K2 for ``x (m, k) @ W (k, n)`` in bf16.
+
+    A block keeps all ``m`` rows up to 256 (256-row chunks beyond), so at
+    B <= 8 each weight byte is read from device memory once.  The block
+    config is the one measured fastest for the row count (``chip_smoke.py``
+    times each at 32-256 rows: PERF.md section 6): up to 32 rows (one
+    stream) mma.sync warps, whose small blocks spread the weight stream
+    over every SM; above, one wgmma warpgroup per 64 rows (mma.sync, which
+    issues at about a third of the card's bf16 rate, was slower from 64
+    rows on), and mma.sync also wherever N % 128 != 0.  K is split
+    over a cluster of blocks: for mma.sync blocks in the fewest powers of
+    two (at most 8) that put a block on each of the 132 SMs; for wgmma
+    blocks (one fits an SM) in the most (at most 4) that keep the grid
+    within one wave, since a cluster of 8 such blocks waits for 8 free SMs
+    of one GPC.  ``config`` forces one of ``K2_CONFIGS`` instead."""
+    if k % K2_BK or n % 64:
+        raise ValueError(f"bf16 indexed_matmul needs K % {K2_BK} == 0 and "
+                         f"N % 64 == 0, got K={k} N={n}")
+    if config is None:
+        if m <= 32 or n % 128:
+            config = 0
+        elif m <= 128:
+            config = 1
+        else:
+            config = 2
+    c = K2_CONFIGS[config]
+    if n % c.bn:
+        raise ValueError(f"K2 config {config} needs N % {c.bn} == 0, "
+                         f"got N={n}")
+    chunks = -(-m // c.bm)
+    strips = n // c.bn
+    splits = 1
+
+    def can_double():
+        return (splits < K2_MAX_SPLITS and k % (2 * splits * K2_BK) == 0
+                and c.bm % (2 * splits) == 0)
+
+    if c.instruction == "mma.sync":
+        while strips * chunks * splits < H100_SMS and can_double():
+            splits *= 2
+    else:
+        while (splits < 4 and strips * chunks * splits * 2 <= H100_SMS
+               and can_double()):
+            splits *= 2
+    return Plan(config, c.instruction, c.bm, c.bn, c.threads, c.stages,
+                splits, chunks, strips, c.smem, splits * chunks * strips,
+                k // splits)
 
 
 def indexed_matmul_reference(x: torch.Tensor, w: torch.Tensor,
@@ -45,9 +143,13 @@ def indexed_matmul_reference(x: torch.Tensor, w: torch.Tensor,
 
 
 def indexed_matmul(x: torch.Tensor, w: torch.Tensor,
-                   idx: Union[int, torch.Tensor]) -> torch.Tensor:
+                   idx: Union[int, torch.Tensor], *,
+                   plan: Optional[Plan] = None) -> torch.Tensor:
     """``x (..., K) @ w (L, K, N)[idx] -> (..., N)``.  On the card ``idx``
-    must be a 0-dim int32 tensor on the same device."""
+    must be a 0-dim int32 tensor on the same device; in bf16, K % 64 == 0,
+    N % 64 == 0, and x and w 16-byte aligned (x rows of any count).
+    ``plan`` replaces ``indexed_matmul_plan``'s choice for a bf16 launch
+    (``chip_smoke.py`` checks and times every block config with it)."""
     if w.ndim != 3 or x.shape[-1] != w.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match stacked w "
                          f"{tuple(w.shape)}")
@@ -65,28 +167,24 @@ def indexed_matmul(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"w must be contiguous on {x.device}")
     nl, kdim, n = w.shape
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, kdim)
+    x2 = x.reshape(-1, kdim).contiguous()
     m = x2.shape[0]
-    mp = m
+    config, splits = 0, 1
     if x.dtype == torch.bfloat16:
-        if kdim % _K_ALIGN or n % _N_ALIGN:
-            raise ValueError(f"bf16 indexed_matmul needs K % {_K_ALIGN} == 0 "
-                             f"and N % {_N_ALIGN} == 0, got K={kdim} N={n}")
-        mp = -(-m // _BM) * _BM
-        if mp != m:
-            x2 = torch.cat([x2, x2.new_zeros(mp - m, kdim)])
-    x2 = x2.contiguous()
-    if x.dtype == torch.bfloat16 and (x2.data_ptr() % 32 or w.data_ptr() % 32):
-        raise ValueError("bf16 indexed_matmul needs 32-byte aligned x and w")
-    y = torch.empty(mp, n, dtype=x.dtype, device=x.device)
+        plan = plan or indexed_matmul_plan(m, kdim, n)
+        config, splits = plan.config, plan.splits
+        if x2.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("bf16 indexed_matmul needs 16-byte aligned x "
+                             "and w")
+    y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     err = function("deer_indexed_matmul", _ARGTYPES)(
-        x2.data_ptr(), w.data_ptr(), idx.data_ptr(), y.data_ptr(), mp, kdim,
-        n, nl, _DTYPE_CODE[x.dtype],
+        x2.data_ptr(), w.data_ptr(), idx.data_ptr(), y.data_ptr(), m, kdim,
+        n, nl, _DTYPE_CODE[x.dtype], config, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"indexed_matmul launch failed: CUDA error {err}")
     indexed_matmul.launches += 1
-    return y[:m].reshape(*lead, n)
+    return y.reshape(*lead, n)
 
 
 indexed_matmul.launches = 0
@@ -98,6 +196,8 @@ indexed_matmul.launches = 0
 
 _Q_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _Q_CHUNK = 256  # bf16: eight warps x 32 weight rows staged a step
+_BM = 16        # bf16 row tile (x is zero-padded to a multiple)
+_N_ALIGN = 16   # one 16-column fragment per block
 
 
 def indexed_matmul_q8_reference(x: torch.Tensor, wq: torch.Tensor,

@@ -11,12 +11,25 @@ steps after 2 warm-up steps) and, from torch.profiler over 3 more steps,
 the device time that kernels took, the device's idle share of the wall
 time, the kernel launches per step, and the kernels that took the most
 device time.  The last line names the card and its power limit.  The JSON
-lines are also written to ``chiprun_out/torch_step_profile.jsonl``.  Needs
-a CUDA device.
+lines are also written to ``--out`` (default
+``chiprun_out/torch_step_profile.jsonl``).  Needs a CUDA device.
+
+``--kernels`` first times K1 (``flash_attention`` on the ViT's
+(2B, 16, 257, 64) bf16 layer) and K2 (``indexed_matmul`` over one decoder
+layer's four products, x (32B, K) bf16) at B=1 and B=8, beside their plain
+versions, SDPA and ``x @ W[i]``, with ``chip_smoke.py``'s timing routines
+(``k1_times``, ``k2_times``) and inputs.  ``--root DIR`` profiles the port
+found under DIR (for example another commit unpacked with ``git archive``
+into an ignored directory) while the inputs, weights and timing stay this
+checkout's, so two commits are compared in one run on one card:
+
+    python3 scripts/torch_step_profile.py --kernels --root build/parent \
+        --out runs/profile_parent.jsonl
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import statistics
 import sys
@@ -25,7 +38,6 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 OUT = REPO / "chiprun_out" / "torch_step_profile.jsonl"
-sys.path.insert(0, str(REPO))
 
 SETTINGS = (("b1_first_exit", 1, 1e8), ("b1_full_depth", 1, -1.0),
             ("b8_full_depth", 8, -1.0))
@@ -58,6 +70,7 @@ def profile(torch, run, steps: int) -> dict:
 
 
 def main() -> int:
+    global OUT
     import argparse
     import subprocess
 
@@ -67,21 +80,32 @@ def main() -> int:
     ap.add_argument("--quantize", default="none",
                     help="comma-separated serving modes: none (bf16), "
                          "int8, int4, int8_w8a8, int4_w8a8")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time K1 and K2 alone at the serving shapes first")
+    ap.add_argument("--root", default=str(REPO),
+                    help="checkout whose port to profile; default this one")
+    ap.add_argument("--out", default=str(OUT), help="JSON lines file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import build_weights
+    OUT = Path(args.out)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    smoke = load_chip_smoke()
     from deer_vla_tpu_torch.core.config import deer_3b
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = deer_3b()
-    params = build_weights(torch, cfg)
+    params = smoke.build_weights(torch, cfg)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text("")
+    emit({"root": str(root)})
+    if args.kernels:
+        kernel_times(torch, smoke)
     for mode in args.quantize.split(","):
-        profile_mode(torch, np, cfg, params,
+        profile_mode(torch, np, smoke, cfg, params,
                      None if mode == "none" else mode)
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -92,14 +116,54 @@ def main() -> int:
     return 0
 
 
-def profile_mode(torch, np, cfg, params, quantize):
-    from chip_smoke import make_policy_inputs
+def load_chip_smoke():
+    """This checkout's ``chip_smoke.py``, loaded by path: its helpers import
+    the port lazily, so they run whichever port ``--root`` put first on the
+    path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_times(torch, smoke) -> None:
+    """K1 and K2 alone at the serving shapes, B=1 and B=8, beside their
+    plain versions and the library call for the same function."""
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+        indexed_matmul, indexed_matmul_reference)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b in (1, 8):
+        q, k, v = (torch.randn(2 * b, 16, 257, 64, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        emit({"kernel": "flash_attention", "streams": b,
+              "shape": list(q.shape), **smoke.k1_times(torch, q, k, v, 0.125)})
+        del q, k, v
+    idxs = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(12)]
+    for b in (1, 8):
+        out = {"kernel": "indexed_matmul", "streams": b, "m": 32 * b,
+               "products": {}}
+        for name, x, w in smoke.k2_cases(torch, b, torch.bfloat16):
+            out["products"][name] = smoke.k2_times(
+                torch, lambda i: indexed_matmul(x, w, i),
+                lambda i: indexed_matmul_reference(x, w, i),
+                lambda i: x @ w[i], idxs)
+        for key in ("kernel_ms", "reference_ms", "library_ms"):
+            out[key] = sum(p[key] for p in out["products"].values())
+        emit(out)
+    torch.cuda.empty_cache()
+
+
+def profile_mode(torch, np, smoke, cfg, params, quantize):
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     pol = ScanDeerPolicy(params, cfg, indexed_mm=True, quantize=quantize)
     for name, b, th in SETTINGS:
         pol.set_thresholds_batch([[th] * len(pol.exits)] * b)
         pol.reset()
-        inputs = [make_policy_inputs(np, cfg, b, seed=s) for s in range(15)]
+        inputs = [smoke.make_policy_inputs(np, cfg, b, seed=s)
+                  for s in range(15)]
         it = iter(inputs)
         exits = []
 
