@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``deer_vla_tpu_torch/csrc/`` and counts
-the tensor-core instructions (HMMA / HGMMA) in the SASS of the bf16 K1 and
-K2 kernels, holds each kernel against its plain PyTorch version at the
-shapes the serving step gives it (K1 flash attention, also on the ViT's
-strided views of a fused qkv and at ragged and other head-dim shapes; K2 /
-K3 / K4 the bf16 / int8 / int4 layer-indexed matmuls; K2 also for
-bit-identical repeat launches, under CUDA-graph replay with a changing
-device-side layer index, and in each of its three block configs at 32-256
-rows, timed side by side), then serves ``deer_3b`` at full width (24-layer ViT-L/14, 6-layer
+the tensor-core instructions (HMMA / HGMMA) in the SASS of the bf16 K1-K4
+kernels, and K3 / K4's type conversions, holds each kernel against its
+plain PyTorch version at the shapes the serving step gives it (K1 flash
+attention, also on the ViT's strided views of a fused qkv and at ragged and
+other head-dim shapes; K2 / K3 / K4 the bf16 / int8 / int4 layer-indexed
+matmuls, each also for bit-identical repeat launches, under CUDA-graph
+replay with a changing device-side layer index, and in each of its three
+block configs at 32-256 rows, timed side by side), then serves ``deer_3b``
+at full width (24-layer ViT-L/14, 6-layer
 perceiver, 12-layer d_model-2048 MPT) from seeded random weights: 8
 single-stream steps and 4 eight-stream batched steps with per-stream
 dynamic exits, in bf16 and quantized to int8 and int4 (the decoder through
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -53,10 +55,18 @@ K1_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # output dtype, in different summation orders (bf16: two ulps).
 K2_REL_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 
-# the bf16 kernels redesigned for the tensor cores, by SASS function names
-TENSOR_CORE_KERNELS = {"flash_attention": ("flash_attention_bf16",),
-                       "indexed_matmul": ("indexed_matmul_bf16",
-                                          "indexed_matmul_wgmma")}
+# the bf16 kernels redesigned for the tensor cores, by SASS function name:
+# a function belongs to a kernel if its mangled name holds every word of
+# one of the kernel's entries
+TENSOR_CORE_KERNELS = {
+    "flash_attention": (("flash_attention_bf16",),),
+    "indexed_matmul": (("indexed_matmul_bf16",), ("indexed_matmul_wgmma",)),
+    "indexed_matmul_q8": (("indexed_matmul_quant_mma", "Int8Codes"),
+                          ("indexed_matmul_quant_wgmma", "Int8Codes")),
+    "indexed_matmul_q4": (("indexed_matmul_quant_mma", "Int4Codes"),
+                          ("indexed_matmul_quant_wgmma", "Int4Codes"))}
+# SASS type conversions (integer <-> float, float <-> float)
+CONVERSION = re.compile(r"\b(?:I2F|I2FP|F2F|F2FP|F2I|I2I)\b")
 
 # The step at deer_3b: full depth on the card in bf16 against fp32 on the
 # CPU.  bf16 keeps 8 bits of mantissa through 24 + 12 residual layers.
@@ -147,23 +157,38 @@ def phase_device(torch) -> str:
     return smi
 
 
-def sass_tensor_core_counts(lib_path) -> dict:
-    """HMMA / HGMMA instructions per kernel function in the library's SASS
-    (``cuobjdump -sass``, next to nvcc)."""
+def sass_counts(lib_path, out_dir=None) -> dict:
+    """Per kernel function in the library's SASS (``cuobjdump -sass``, next
+    to nvcc): its HMMA / HGMMA instructions and its type conversions."""
     from deer_vla_tpu_torch.ops.kernels import build
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    (OUT_DIR / "kernels.sass").write_text(sass)
+    if out_dir is not None:
+        (out_dir / "kernels.sass").write_text(sass)
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             current = line.split("Function :", 1)[1].strip()
-            counts.setdefault(current, 0)
-        elif current is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[current] += 1
+            counts.setdefault(current, {"tensor_core": 0, "conversions": 0})
+        elif current is not None:
+            if "HMMA" in line or "HGMMA" in line:
+                counts[current]["tensor_core"] += 1
+            if CONVERSION.search(line):
+                counts[current]["conversions"] += 1
     return counts
+
+
+def kernel_sass(counts: dict, entries) -> dict:
+    """The functions of one kernel (``TENSOR_CORE_KERNELS`` entries) and
+    their summed counts."""
+    per_fn = {name: c for name, c in counts.items()
+              if any(all(word in name for word in e) for e in entries)}
+    return {"instances": len(per_fn),
+            "hmma_hgmma": sum(c["tensor_core"] for c in per_fn.values()),
+            "conversions": sum(c["conversions"] for c in per_fn.values()),
+            "per_instance": per_fn}
 
 
 def phase_build() -> dict:
@@ -175,16 +200,13 @@ def phase_build() -> dict:
     (OUT_DIR / "build_log.txt").write_text(info["log"])
     usage = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln]
-    counts = sass_tensor_core_counts(build.build_library())
+    counts = sass_counts(build.build_library(), OUT_DIR)
     tc = {}
-    for kernel, fns in TENSOR_CORE_KERNELS.items():
-        per_fn = {name: n for name, n in counts.items()
-                  if any(fn in name for fn in fns)}
-        check(bool(per_fn) and all(per_fn.values()),
+    for kernel, entries in TENSOR_CORE_KERNELS.items():
+        tc[kernel] = kernel_sass(counts, entries)
+        per_fn = tc[kernel]["per_instance"]
+        check(bool(per_fn) and all(c["tensor_core"] for c in per_fn.values()),
               f"{kernel}: no tensor-core instructions in {per_fn}")
-        tc[kernel] = {"instances": len(per_fn),
-                      "hmma_hgmma": sum(per_fn.values()),
-                      "per_instance": per_fn}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": info["seconds"], "ptxas": usage,
           "tensor_core_sass": tc})
@@ -413,55 +435,90 @@ def phase_kernels(torch) -> dict:
     summary["indexed_matmul"] = layer_summary(k2_rows)
     summary["indexed_matmul_b8"] = layer_summary(k2_rows, m=256)
     emit({"phase": "kernels", "cases": rows + k2_rows})
-    phase_k2_determinism_and_graph(torch, idxs)
-    phase_k2_configs(torch, idxs)
     summary.update(phase_kernels_quantized(torch, idxs))
+    for kernel in DECODER_KERNEL.values():
+        phase_determinism_and_graph(torch, idxs, kernel)
+        phase_configs(torch, idxs, kernel)
     return summary
 
 
-def phase_k2_determinism_and_graph(torch, idxs) -> None:
-    """K2's split-K sums are combined in a fixed order: two launches give
+def indexed_kernel(kernel: str):
+    """(wrapper, plain version, plan function, block configs) of the
+    layer-indexed matmul ``kernel``; the wrappers take the stacked weights
+    as ``stacked_weights`` gives them, after x."""
+    from deer_vla_tpu_torch.ops.kernels import indexed_matmul as imm
+    if kernel == "indexed_matmul":
+        return (imm.indexed_matmul, imm.indexed_matmul_reference,
+                imm.indexed_matmul_plan, imm.K2_CONFIGS)
+    q4 = kernel == "indexed_matmul_q4"
+    return (getattr(imm, kernel), getattr(imm, kernel + "_reference"),
+            lambda m, k, n, config=None: imm.indexed_matmul_quant_plan(
+                m, k, n, q4, config=config),
+            imm.QUANT_CONFIGS)
+
+
+def stacked_weights(torch, gen, kernel: str, k: int, n: int) -> tuple:
+    """The 12-layer stack of one decoder product as ``kernel`` takes it:
+    (W,) in bf16 for K2, (int8 codes, scales) for K3, (packed int4 codes,
+    scales) for K4, quantized from the same kind of random weights."""
+    from deer_vla_tpu_torch.ops.quant import quantize_weight, quantize_weight4
+    w = torch.randn(12, k, n, generator=gen, device="cuda") * k ** -0.5
+    if kernel == "indexed_matmul":
+        return (w.to(torch.bfloat16),)
+    return (quantize_weight4 if kernel == "indexed_matmul_q4"
+            else quantize_weight)(w)
+
+
+def phase_determinism_and_graph(torch, idxs, kernel: str) -> None:
+    """The split-K sums are combined in a fixed order: two launches give
     bit-identical outputs.  The four products of a layer captured once in a
     CUDA graph, replayed after ``idx.fill_(j)`` for each of the 12 layers,
     equal the eager launches bit for bit and the plain version within
     K2_REL_TOL: the layer index is read on the device at every replay."""
-    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
-        indexed_matmul, indexed_matmul_plan, indexed_matmul_reference)
-    out = {"phase": "k2_determinism_and_graph", "cases": []}
+    fn, plain, plan_of, _ = indexed_kernel(kernel)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    stacks = [(prod, stacked_weights(torch, gen, kernel, k, n))
+              for prod, k, n in DECODER_PRODUCTS]
+    phase = ("k2" if kernel == "indexed_matmul" else "k3_k4") \
+        + "_determinism_and_graph"
+    out = {"phase": phase, "kernel": kernel, "cases": []}
     for streams in (1, 2, 3, 4, 8):
-        prods = k2_cases(torch, streams, torch.bfloat16)
-        splits = [indexed_matmul_plan(x.shape[0], x.shape[1],
-                                      w.shape[2]).splits
+        prods = [(f"{prod}_b{streams}",
+                  torch.randn(32 * streams, w[0].shape[1] * (
+                      2 if kernel == "indexed_matmul_q4" else 1),
+                      generator=gen, device="cuda").to(torch.bfloat16), w)
+                 for prod, w in stacks]
+        splits = [plan_of(x.shape[0], x.shape[1], w[0].shape[2]).splits
                   for _, x, w in prods]
         for (name, x, w), sp in zip(prods, splits):
-            a = indexed_matmul(x, w, idxs[5])
-            b = indexed_matmul(x, w, idxs[5])
-            check(torch.equal(a, b), f"K2 {name}: two launches differ "
+            a = fn(x, *w, idxs[5])
+            b = fn(x, *w, idxs[5])
+            check(torch.equal(a, b), f"{kernel} {name}: two launches differ "
                                      f"(splits {sp})")
         idx = torch.zeros((), dtype=torch.int32, device="cuda")
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):  # warm-up outside the capture
             for _ in range(2):
-                [indexed_matmul(x, w, idx) for _, x, w in prods]
+                [fn(x, *w, idx) for _, x, w in prods]
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            ys = [indexed_matmul(x, w, idx) for _, x, w in prods]
+            ys = [fn(x, *w, idx) for _, x, w in prods]
         worst = 0.0
         for j in range(12):
             idx.fill_(j)
             graph.replay()
             torch.cuda.synchronize()
             for (name, x, w), y in zip(prods, ys):
-                check(torch.equal(y, indexed_matmul(x, w, idxs[j])),
-                      f"K2 {name}: graph replay at layer {j} differs from "
-                      f"the eager launch")
-                ref = indexed_matmul_reference(x, w, idxs[j]).float()
+                check(torch.equal(y, fn(x, *w, idxs[j])),
+                      f"{kernel} {name}: graph replay at layer {j} differs "
+                      f"from the eager launch")
+                ref = plain(x, *w, idxs[j]).float()
                 err = (y.float() - ref).abs().max().item()
                 tol = K2_REL_TOL["bfloat16"] * ref.abs().max().item()
-                check(err <= tol, f"K2 {name}: graph replay at layer {j}: "
-                                  f"{err} > {tol}")
+                check(err <= tol, f"{kernel} {name}: graph replay at layer "
+                                  f"{j}: {err} > {tol}")
                 worst = max(worst, err / tol)
         out["cases"].append({"streams": streams,
                              "products": [p[0] for p in prods],
@@ -473,41 +530,38 @@ def phase_k2_determinism_and_graph(torch, idxs) -> None:
     emit(out)
 
 
-def phase_k2_configs(torch, idxs) -> None:
-    """Each of K2's block configs (``indexed_matmul_plan(..., config=c)``)
-    on the decoder's four products at ``K2_CONFIG_ROWS`` rows: checked
-    against the plain version at the first and last layer, then timed
-    cycling through the layers, so the config the plan picks for a row
-    count is seen beside the others."""
-    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
-        K2_CONFIGS, indexed_matmul, indexed_matmul_plan,
-        indexed_matmul_reference)
+def phase_configs(torch, idxs, kernel: str) -> dict:
+    """Each block config of ``kernel`` (its plan function's ``config=c``) on
+    the decoder's four products at ``K2_CONFIG_ROWS`` rows: checked against
+    the plain version at the first and last layer, then timed cycling
+    through the layers, so the config the plan picks for a row count is
+    seen beside the others.  Returns the layer times by row count."""
+    fn, plain, plan_of, configs = indexed_kernel(kernel)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
     rows = []
-    layer = {m: [0.0] * len(K2_CONFIGS) for m in K2_CONFIG_ROWS}
+    layer = {m: [0.0] * len(configs) for m in K2_CONFIG_ROWS}
     planned = {}
     for prod, k, n in DECODER_PRODUCTS:
-        w = (torch.randn(12, k, n, generator=gen, device="cuda")
-             * k ** -0.5).to(torch.bfloat16)
+        w = stacked_weights(torch, gen, kernel, k, n)
         xs = torch.randn(max(K2_CONFIG_ROWS), k, generator=gen,
                          device="cuda").to(torch.bfloat16)
         for m in K2_CONFIG_ROWS:
             x = xs[:m]
-            planned[m] = indexed_matmul_plan(m, k, n).config
-            for c in range(len(K2_CONFIGS)):
-                plan = indexed_matmul_plan(m, k, n, config=c)
+            planned[m] = plan_of(m, k, n).config
+            for c in range(len(configs)):
+                plan = plan_of(m, k, n, config=c)
                 err = tol = 0.0
                 for j in (0, 11):
-                    got = indexed_matmul(x, w, idxs[j], plan=plan).float()
-                    ref = indexed_matmul_reference(x, w, idxs[j]).float()
+                    got = fn(x, *w, idxs[j], plan=plan).float()
+                    ref = plain(x, *w, idxs[j]).float()
                     err = max(err, (got - ref).abs().max().item())
                     tol = max(tol, K2_REL_TOL["bfloat16"]
                               * ref.abs().max().item())
-                check(err <= tol, f"K2 {prod} m={m} config {c}: max abs "
-                                  f"err {err} > {tol}")
+                check(err <= tol, f"{kernel} {prod} m={m} config {c}: max "
+                                  f"abs err {err} > {tol}")
                 it = iter(range(10 ** 9))
-                ms = graph_ms(torch, lambda: indexed_matmul(
-                    x, w, idxs[next(it) % 12], plan=plan), 48)
+                ms = graph_ms(torch, lambda: fn(
+                    x, *w, idxs[next(it) % 12], plan=plan), 48)
                 layer[m][c] += ms
                 rows.append({"product": prod, "m": m, "config": c,
                              "instruction": plan.instruction,
@@ -515,11 +569,14 @@ def phase_k2_configs(torch, idxs) -> None:
                              "planned": c == planned[m], "ms": ms,
                              "max_abs_err": err, "tolerance": tol})
         del w, xs
-    emit({"phase": "k2_configs", "configs": [c._asdict() for c in K2_CONFIGS],
-          "layer_ms": {m: {"planned": planned[m], "by_config": ms,
-                           "fastest": min(range(len(ms)), key=ms.__getitem__)}
-                       for m, ms in layer.items()},
-          "rows": rows})
+    by_rows = {m: {"planned": planned[m], "by_config": ms,
+                   "fastest": min(range(len(ms)), key=ms.__getitem__)}
+               for m, ms in layer.items()}
+    emit({"phase": "k2_configs" if kernel == "indexed_matmul"
+          else "k3_k4_configs", "kernel": kernel,
+          "configs": [c._asdict() for c in configs],
+          "layer_ms": by_rows, "rows": rows})
+    return by_rows
 
 
 def phase_kernels_quantized(torch, idxs) -> dict:
@@ -568,7 +625,11 @@ def phase_kernels_quantized(torch, idxs) -> dict:
           "library": "x @ Wd[idx], Wd dequantized to x.dtype beforehand "
                      "(cuBLAS)",
           "cases": rows["indexed_matmul_q8"] + rows["indexed_matmul_q4"]})
-    return {kernel: layer_summary(r) for kernel, r in rows.items()}
+    out = {}
+    for kernel, r in rows.items():
+        out[kernel] = layer_summary(r)
+        out[kernel + "_b8"] = layer_summary(r, m=256)
+    return out
 
 
 def make_policy_inputs(np, cfg, b: int, seed: int):
@@ -817,10 +878,13 @@ def kernels_line(summary: dict, launches: dict, tc: dict) -> dict:
             "bytes": k["bytes"], "flops": k["flops"],
             "shape": f"one decoder layer's four products, x (32, K) bf16, "
                      f"{weights}, B=1"})
-    k2 = out[1]
-    k2["b8_ms"] = summary["indexed_matmul_b8"]["ms"]
-    k2["b8_library_ms"] = summary["indexed_matmul_b8"]["library_ms"]
-    k2["tensor_core_sass"] = tc["indexed_matmul"]["hmma_hgmma"]
+    for row in out[1:]:
+        b8 = summary[row["name"] + "_b8"]
+        row["b8_ms"] = b8["ms"]
+        row["b8_library_ms"] = b8["library_ms"]
+        row["b8_bound_ms"] = b8["bound_ms"]
+        row["tensor_core_sass"] = tc[row["name"]]["hmma_hgmma"]
+        row["conversion_sass"] = tc[row["name"]]["conversions"]
     return {"kernels": out}
 
 

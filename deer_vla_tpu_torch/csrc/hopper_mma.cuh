@@ -1,6 +1,7 @@
-// Warp-level building blocks shared by the bf16 kernels (K1, K2):
-// cp.async copies into shared memory, ldmatrix fragment loads and the
-// bf16 tensor-core product mma.sync.m16n8k16 with fp32 accumulation.
+// Building blocks shared by the bf16 kernels (K1, K2, K3, K4): cp.async
+// copies into shared memory, ldmatrix fragment loads, the bf16
+// tensor-core products mma.sync.m16n8k16 and wgmma with fp32
+// accumulation, and the split-K reduction over a thread-block cluster.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
@@ -13,6 +14,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,6 +150,51 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// Split-K over a thread-block cluster (grid (splits, row chunks, strips),
+// cluster (splits, 1, 1)).  After the main loop each block of the cluster
+// holds its split's fp32 partial tile (BM x BN, row stride PLD) in shared
+// memory.  Block r sums rows [r * BM / S, (r + 1) * BM / S) over the S
+// tiles in rank order, through distributed shared memory, multiplies by
+// scale[c] (the fp32 per-column scale of the strip, K3 / K4) unless scale
+// is null, rounds once to bf16 and stores the rows below M.  The fixed
+// order makes the result bit-identical from run to run.
+// ---------------------------------------------------------------------------
+template <int BM, int BN, int PLD, int THREADS>
+__device__ __forceinline__ void reduce_partials(float* part, bf16* __restrict__ y, int m0,
+                                                int n0, int M, int N,
+                                                const float* __restrict__ scale) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = gridDim.x;
+  const int split = blockIdx.x;
+  cluster.sync();  // every split's partial tile is in its block's shared memory
+  const int rows = BM / nsplit;
+  for (int i = threadIdx.x; i < rows * (BN / 4); i += THREADS) {
+    const int r = split * rows + i / (BN / 4), c = (i % (BN / 4)) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < nsplit; ++s) {
+      const float* rp = cluster.map_shared_rank(part, s);
+      const float4 v = *reinterpret_cast<const float4*>(rp + r * PLD + c);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    if (scale != nullptr) {
+      sum.x *= scale[c];
+      sum.y *= scale[c + 1];
+      sum.z *= scale[c + 2];
+      sum.w *= scale[c + 3];
+    }
+    if (m0 + r < M) {
+      const uint2 out = make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+      *reinterpret_cast<uint2*>(y + (size_t)(m0 + r) * N + n0 + c) = out;
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its partials
 }
 
 }  // namespace deer

@@ -63,7 +63,6 @@
 //
 // An fp32 path (CUDA cores, one column per thread) serves fp32 compute.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -71,7 +70,6 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
 using deer::bf16;
 
 constexpr int BK = 64;  // K-tile depth
@@ -96,39 +94,6 @@ struct Cfg {
 
 // the mma.sync configuration (indexed_matmul_plan's config 0)
 using Cfg0 = Cfg<32, 64, 1, 4, 4>;     // M <= 32 (one stream), or N % 128 != 0
-
-// After the main loop each block of the cluster holds its split's fp32
-// partial tile (BM x BN, row stride PLD) in shared memory.  Block r sums
-// rows [r * BM / S, (r + 1) * BM / S) over the S tiles in rank order,
-// through distributed shared memory, rounds once to bf16 and stores the
-// rows below M.  The fixed order makes the result bit-identical from run to
-// run.
-template <int BM, int BN, int PLD, int THREADS>
-__device__ __forceinline__ void reduce_partials(float* part, bf16* __restrict__ y,
-                                                int m0, int n0, int M, int N) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int nsplit = gridDim.x;  // the cluster is (splits, 1, 1)
-  const int split = blockIdx.x;
-  cluster.sync();  // every split's partial tile is in its block's shared memory
-  const int rows = BM / nsplit;
-  for (int i = threadIdx.x; i < rows * (BN / 4); i += THREADS) {
-    const int r = split * rows + i / (BN / 4), c = (i % (BN / 4)) * 4;
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < nsplit; ++s) {
-      const float* rp = cluster.map_shared_rank(part, s);
-      const float4 v = *reinterpret_cast<const float4*>(rp + r * PLD + c);
-      sum.x += v.x;
-      sum.y += v.y;
-      sum.z += v.z;
-      sum.w += v.w;
-    }
-    if (m0 + r < M) {
-      const uint2 out = make_uint2(deer::pack_bf16(sum.x, sum.y), deer::pack_bf16(sum.z, sum.w));
-      *reinterpret_cast<uint2*>(y + (size_t)(m0 + r) * N + n0 + c) = out;
-    }
-  }
-  cluster.sync();  // no block leaves while another still reads its partials
-}
 
 // grid (splits, ceil(M / BM), N / BN), cluster (splits, 1, 1)
 template <class C>
@@ -223,7 +188,7 @@ indexed_matmul_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
       *reinterpret_cast<float2*>(part + r * C::PLD + c) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
       *reinterpret_cast<float2*>(part + (r + 8) * C::PLD + c) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
-  reduce_partials<C::BM, C::BN, C::PLD, C::THREADS>(part, y, m0, n0, M, N);
+  deer::reduce_partials<C::BM, C::BN, C::PLD, C::THREADS>(part, y, m0, n0, M, N, nullptr);
 }
 
 
@@ -338,7 +303,7 @@ indexed_matmul_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
     *reinterpret_cast<float2*>(part + (r + 8) * C::PLD + j * 8 + 2 * t) =
         make_float2(d[4 * j + 2], d[4 * j + 3]);
   }
-  reduce_partials<C::BM, C::BN, C::PLD, C::THREADS>(part, y, m0, n0, M, N);
+  deer::reduce_partials<C::BM, C::BN, C::PLD, C::THREADS>(part, y, m0, n0, M, N, nullptr);
 }
 
 using Wg128 = WgCfg<128, 4>;  // 32 < M <= 128

@@ -41,7 +41,8 @@ SMEM_PER_BLOCK = 232_448    # 227 KB, the most a block can have on Hopper
 
 
 class K2Config(NamedTuple):
-    """One block configuration of csrc/indexed_matmul.cu."""
+    """One block configuration of csrc/indexed_matmul.cu (K2) or, in
+    ``QUANT_CONFIGS``, of csrc/indexed_matmul_quant.cu (K3, K4)."""
     instruction: str    # "mma.sync" (warps) or "wgmma" (warpgroups)
     bm: int             # rows a block
     bn: int             # columns a block
@@ -50,7 +51,7 @@ class K2Config(NamedTuple):
 
     @property
     def smem(self) -> int:
-        """Dynamic shared bytes: the ring, or the fp32 partial tile that
+        """K2's dynamic shared bytes: the ring, or the fp32 partial tile that
         reuses it, whichever is larger (wgmma: + 1 KB to align the ring
         to its 1024-byte swizzle atoms)."""
         partials = self.bm * (self.bn + 8) * 4
@@ -69,7 +70,8 @@ K2_CONFIGS = (K2Config("mma.sync", 32, 64, 128, 4),
 
 
 class Plan(NamedTuple):
-    """How K2 runs one bf16 product: block config, grid and shared bytes."""
+    """How K2 (or K3 / K4) runs one bf16 product: block config, grid and
+    shared bytes."""
     config: int
     instruction: str
     bm: int
@@ -105,6 +107,14 @@ def indexed_matmul_plan(m: int, k: int, n: int,
     if k % K2_BK or n % 64:
         raise ValueError(f"bf16 indexed_matmul needs K % {K2_BK} == 0 and "
                          f"N % 64 == 0, got K={k} N={n}")
+    return _plan(K2_CONFIGS, m, k, n, config, lambda c: c.smem)
+
+
+def _plan(configs, m: int, k: int, n: int, config: Optional[int],
+          smem) -> Plan:
+    """The config, split and grid of a layer-indexed product, as
+    ``indexed_matmul_plan`` says; ``configs`` lists the mma.sync, 128-row
+    and 256-row wgmma configs in that order."""
     if config is None:
         if m <= 32 or n % 128:
             config = 0
@@ -112,10 +122,9 @@ def indexed_matmul_plan(m: int, k: int, n: int,
             config = 1
         else:
             config = 2
-    c = K2_CONFIGS[config]
+    c = configs[config]
     if n % c.bn:
-        raise ValueError(f"K2 config {config} needs N % {c.bn} == 0, "
-                         f"got N={n}")
+        raise ValueError(f"config {config} needs N % {c.bn} == 0, got N={n}")
     chunks = -(-m // c.bm)
     strips = n // c.bn
     splits = 1
@@ -132,7 +141,7 @@ def indexed_matmul_plan(m: int, k: int, n: int,
                and can_double()):
             splits *= 2
     return Plan(config, c.instruction, c.bm, c.bn, c.threads, c.stages,
-                splits, chunks, strips, c.smem, splits * chunks * strips,
+                splits, chunks, strips, smem(c), splits * chunks * strips,
                 k // splits)
 
 
@@ -194,10 +203,45 @@ indexed_matmul.launches = 0
 # K3 / K4: int8 and nibble-packed int4 weights with per-column fp32 scales
 # ---------------------------------------------------------------------------
 
-_Q_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-_Q_CHUNK = 256  # bf16: eight warps x 32 weight rows staged a step
-_BM = 16        # bf16 row tile (x is zero-padded to a multiple)
-_N_ALIGN = 16   # one 16-column fragment per block
+_Q_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+# in the order of the C++ dispatch of csrc/indexed_matmul_quant.cu (0-2)
+QUANT_CONFIGS = (K2Config("mma.sync", 32, 64, 384, 4),
+                 K2Config("wgmma", 128, 128, 256, 4),
+                 K2Config("wgmma", 256, 128, 512, 4))
+
+
+def quant_smem(c: K2Config, q4: bool) -> int:
+    """Dynamic shared bytes of a K3 (``q4`` False) or K4 block: the ring of
+    x tiles (BM x 64 bf16) and code tiles (64 int8 rows, or 32 packed int4
+    rows, x BN bytes) plus two widened bf16 tiles (64 x BN), or the fp32
+    partial tile that reuses them, whichever is larger."""
+    code_rows = K2_BK // 2 if q4 else K2_BK
+    partials = c.bm * (c.bn + 8) * 4
+    if c.instruction == "mma.sync":  # x and widened rows padded by 16 bytes
+        ring = (c.stages * (c.bm * (K2_BK + 8) * 2 + code_rows * c.bn)
+                + 2 * K2_BK * (c.bn + 8) * 2)
+        return max(ring, partials)
+    ring = (c.stages * (c.bm * K2_BK * 2 + code_rows * c.bn)
+            + 2 * K2_BK * c.bn * 2)
+    return max(ring, partials) + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def indexed_matmul_quant_plan(m: int, k: int, n: int, q4: bool,
+                              config: Optional[int] = None) -> Plan:
+    """The tiling, split and grid of K3 (``q4`` False: int8 codes) or K4
+    (``q4`` True: packed int4) for ``x (m, k) @ Wq (k, n)`` in bf16; ``k``
+    is x's width (K4's packed stack has k / 2 rows).  A K-tile is 64 rows
+    of the product (64 int8 rows, or 32 packed rows paired with two 32-
+    column x tiles), so the rules and the split are K2's: K % 64 == 0,
+    N % 64 == 0, mma.sync blocks up to 32 rows and wgmma above, K split
+    over a cluster (``indexed_matmul_plan``).  ``config`` forces one of
+    ``QUANT_CONFIGS`` (``chip_smoke.py`` checks and times each)."""
+    if k % K2_BK or n % 64:
+        raise ValueError(f"bf16 indexed_matmul_q{4 if q4 else 8} needs "
+                         f"K % {K2_BK} == 0 and N % 64 == 0, got K={k} N={n}")
+    return _plan(QUANT_CONFIGS, m, k, n, config, lambda c: quant_smem(c, q4))
 
 
 def indexed_matmul_q8_reference(x: torch.Tensor, wq: torch.Tensor,
@@ -224,8 +268,8 @@ def indexed_matmul_q4_reference(x: torch.Tensor, wq4: torch.Tensor,
 
 
 def _launch_quantized(fn_name: str, x: torch.Tensor, wq: torch.Tensor,
-                      s: torch.Tensor, idx: torch.Tensor,
-                      kdim: int) -> torch.Tensor:
+                      s: torch.Tensor, idx: torch.Tensor, kdim: int,
+                      plan: Optional[Plan]) -> torch.Tensor:
     """Checks and launch shared by K3 and K4 (``wq`` holds K or K/2 rows)."""
     if not x.is_cuda:
         raise ValueError(f"{fn_name}: unsupported device {x.device}")
@@ -246,59 +290,56 @@ def _launch_quantized(fn_name: str, x: torch.Tensor, wq: torch.Tensor,
             raise ValueError(f"{fn_name}: weights and scales must be "
                              f"contiguous on {x.device}")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, kdim)
+    x2 = x.reshape(-1, kdim).contiguous()
     m = x2.shape[0]
-    mp = m
+    config, splits = 0, 1
     if x.dtype == torch.bfloat16:
-        if rows % _Q_CHUNK or n % _N_ALIGN:
-            raise ValueError(f"bf16 {fn_name} needs {rows} weight rows % "
-                             f"{_Q_CHUNK} == 0 and N % {_N_ALIGN} == 0 "
-                             f"(N={n})")
-        mp = -(-m // _BM) * _BM
-        if mp != m:
-            x2 = torch.cat([x2, x2.new_zeros(mp - m, kdim)])
-    x2 = x2.contiguous()
-    if x.dtype == torch.bfloat16 and (x2.data_ptr() % 32
-                                      or wq.data_ptr() % 16):
-        raise ValueError(f"bf16 {fn_name} needs 32-byte aligned x and "
-                         "16-byte aligned weights")
-    y = torch.empty(mp, n, dtype=x.dtype, device=x.device)
+        plan = plan or indexed_matmul_quant_plan(m, kdim, n, rows != kdim)
+        config, splits = plan.config, plan.splits
+        if x2.data_ptr() % 16 or wq.data_ptr() % 16 or s.data_ptr() % 16:
+            raise ValueError(f"bf16 {fn_name} needs 16-byte aligned x, "
+                             "weights and scales")
+    y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     err = function(f"deer_{fn_name}", _Q_ARGTYPES)(
         x2.data_ptr(), wq.data_ptr(), s.data_ptr(), idx.data_ptr(),
-        y.data_ptr(), mp, kdim, n, nl, _DTYPE_CODE[x.dtype],
+        y.data_ptr(), m, kdim, n, nl, _DTYPE_CODE[x.dtype], config, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    return y[:m].reshape(*lead, n)
+    return y.reshape(*lead, n)
 
 
 def indexed_matmul_q8(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
-                      idx: Union[int, torch.Tensor]) -> torch.Tensor:
+                      idx: Union[int, torch.Tensor], *,
+                      plan: Optional[Plan] = None) -> torch.Tensor:
     """``(x (..., K) @ wq (L, K, N)[idx]) * s (L, N)[idx] -> (..., N)`` with
     int8 weights.  On the card ``idx`` must be a 0-dim int32 tensor on the
-    same device."""
+    same device; in bf16, K % 64 == 0, N % 64 == 0 and x, wq and s 16-byte
+    aligned (x rows of any count).  ``plan`` replaces
+    ``indexed_matmul_quant_plan``'s choice for a bf16 launch."""
     if wq.ndim != 3 or x.shape[-1] != wq.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match stacked int8 "
                          f"weights {tuple(wq.shape)}")
     if x.device.type == "cpu":
         return indexed_matmul_q8_reference(x, wq, s, idx)
-    y = _launch_quantized("indexed_matmul_q8", x, wq, s, idx, wq.shape[1])
+    y = _launch_quantized("indexed_matmul_q8", x, wq, s, idx, wq.shape[1],
+                          plan)
     indexed_matmul_q8.launches += 1
     return y
 
 
 def indexed_matmul_q4(x: torch.Tensor, wq4: torch.Tensor, s: torch.Tensor,
-                      idx: Union[int, torch.Tensor]) -> torch.Tensor:
+                      idx: Union[int, torch.Tensor], *,
+                      plan: Optional[Plan] = None) -> torch.Tensor:
     """``(x (..., K) @ unpack(wq4 (L, K/2, N)[idx])) * s (L, N)[idx]`` with
-    nibble-packed int4 weights.  On the card ``idx`` must be a 0-dim int32
-    tensor on the same device."""
+    nibble-packed int4 weights; the rest as ``indexed_matmul_q8``."""
     if wq4.ndim != 3 or x.shape[-1] != 2 * wq4.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match stacked packed "
                          f"int4 weights {tuple(wq4.shape)}")
     if x.device.type == "cpu":
         return indexed_matmul_q4_reference(x, wq4, s, idx)
     y = _launch_quantized("indexed_matmul_q4", x, wq4, s, idx,
-                          2 * wq4.shape[1])
+                          2 * wq4.shape[1], plan)
     indexed_matmul_q4.launches += 1
     return y
 

@@ -15,13 +15,17 @@ lines are also written to ``--out`` (default
 ``chiprun_out/torch_step_profile.jsonl``).  Needs a CUDA device.
 
 ``--kernels`` first times K1 (``flash_attention`` on the ViT's
-(2B, 16, 257, 64) bf16 layer) and K2 (``indexed_matmul`` over one decoder
-layer's four products, x (32B, K) bf16) at B=1 and B=8, beside their plain
-versions, SDPA and ``x @ W[i]``, with ``chip_smoke.py``'s timing routines
-(``k1_times``, ``k2_times``) and inputs.  ``--root DIR`` profiles the port
-found under DIR (for example another commit unpacked with ``git archive``
-into an ignored directory) while the inputs, weights and timing stay this
-checkout's, so two commits are compared in one run on one card:
+(2B, 16, 257, 64) bf16 layer), K2 (``indexed_matmul``), K3
+(``indexed_matmul_q8``) and K4 (``indexed_matmul_q4``) over one decoder
+layer's four products, x (32B, K) bf16, at B=1 and B=8, beside their plain
+versions and the library call (SDPA; ``x @ W[i]``, for K3 / K4 over the
+stack dequantized to bf16 beforehand), with ``chip_smoke.py``'s timing
+routines (``k1_times``, ``k2_times``) and inputs, and counts the
+tensor-core instructions and type conversions in the SASS of K3 / K4.
+``--root DIR`` profiles the port found under DIR (for example another
+commit unpacked with ``git archive`` into an ignored directory) while the
+inputs, weights and timing stay this checkout's, so two commits are
+compared in one run on one card:
 
     python3 scripts/torch_step_profile.py --kernels --root build/parent \
         --out runs/profile_parent.jsonl
@@ -81,7 +85,7 @@ def main() -> int:
                     help="comma-separated serving modes: none (bf16), "
                          "int8, int4, int8_w8a8, int4_w8a8")
     ap.add_argument("--kernels", action="store_true",
-                    help="time K1 and K2 alone at the serving shapes first")
+                    help="time K1-K4 alone at the serving shapes first")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose port to profile; default this one")
     ap.add_argument("--out", default=str(OUT), help="JSON lines file")
@@ -128,8 +132,8 @@ def load_chip_smoke():
 
 
 def kernel_times(torch, smoke) -> None:
-    """K1 and K2 alone at the serving shapes, B=1 and B=8, beside their
-    plain versions and the library call for the same function."""
+    """K1-K4 alone at the serving shapes, B=1 and B=8, beside their plain
+    versions and the library call for the same function."""
     from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
         indexed_matmul, indexed_matmul_reference)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -154,6 +158,41 @@ def kernel_times(torch, smoke) -> None:
             out[key] = sum(p[key] for p in out["products"].values())
         emit(out)
     torch.cuda.empty_cache()
+    quantized_kernel_times(torch, smoke, idxs)
+
+
+def quantized_kernel_times(torch, smoke, idxs) -> None:
+    """K3 and K4 over one decoder layer's four products at B=1 and B=8;
+    the library call is ``x @ Wd[i]`` on the stack dequantized to bf16."""
+    from deer_vla_tpu_torch.ops.kernels import build
+    from deer_vla_tpu_torch.ops.kernels import indexed_matmul as imm
+    from deer_vla_tpu_torch.ops.quant import (dequantize_weight,
+                                              dequantize_weight4)
+    for kernel, deq in (("indexed_matmul_q8", dequantize_weight),
+                        ("indexed_matmul_q4", dequantize_weight4)):
+        fn, plain = getattr(imm, kernel), getattr(imm, kernel + "_reference")
+        gen = torch.Generator(device="cuda").manual_seed(100)
+        stacks = []
+        for prod, k, n in smoke.DECODER_PRODUCTS:
+            w = smoke.stacked_weights(torch, gen, kernel, k, n)
+            stacks.append((prod, k, w, deq(*w, torch.bfloat16)))
+        for b in (1, 8):
+            out = {"kernel": kernel, "streams": b, "m": 32 * b,
+                   "products": {}}
+            for prod, k, w, wd in stacks:
+                x = torch.randn(32 * b, k, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                out["products"][prod] = smoke.k2_times(
+                    torch, lambda i: fn(x, *w, i),
+                    lambda i: plain(x, *w, i), lambda i: x @ wd[i], idxs)
+            for key in ("kernel_ms", "reference_ms", "library_ms"):
+                out[key] = sum(p[key] for p in out["products"].values())
+            emit(out)
+        del stacks
+        torch.cuda.empty_cache()
+    counts = smoke.sass_counts(build.build_library())
+    emit({"sass": {name: c for name, c in counts.items()
+                   if "indexed_matmul_quant" in name}})
 
 
 def profile_mode(torch, np, smoke, cfg, params, quantize):

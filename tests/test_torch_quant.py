@@ -309,6 +309,15 @@ def test_quantized_wrappers_check_shapes_and_never_fall_back(kernel):
     meta = [v.to("meta") for v in (x, wq, s)]
     with pytest.raises(ValueError):
         fn(meta[0], meta[1], meta[2], 0)
+    # the card's bf16 rules: K % 64 == 0 and N % 64 == 0 (this 16-column
+    # stack runs only on the CPU), any row count, no padding
+    q4 = kernel == "q4"
+    with pytest.raises(ValueError, match="N % 64"):
+        timm.indexed_matmul_quant_plan(6, 64, 16, q4)
+    with pytest.raises(ValueError, match="K % 64"):
+        timm.indexed_matmul_quant_plan(6, 96, 64, q4)
+    plan = timm.indexed_matmul_quant_plan(6, 64, 64, q4)
+    assert plan.m_chunks == 1 and plan.k_slice * plan.splits == 64
 
 
 # ---------------------------------------------------------------------------
