@@ -18,7 +18,15 @@ dynamic exits, in bf16 and quantized to int8 and int4 (the decoder through
 K3 / K4), and 4 eight-stream steps in each w8a8 mode.  Last, one full-depth
 step is compared with the same weights run in fp32 on the CPU through the
 plain versions, unquantized and (after checking that the card and the CPU
-quantize to the same bits) in int8 and int4.
+quantize to the same bits) in int8 and int4.  Then the evaluation path:
+deer_3b calibration (2 debug batches of 2 trajectories, W=12: 48 ViT
+images through K1 a batch) in both regimes, its fp32 forward and deltas on
+the card against the CPU at W=2, and ``cli/eval`` run in-process
+(calibrate, then DebugEnv rollouts of 2 sequences: bf16 sequential and over
+2 lanes, int8 and int4 sequential) with K1-K4 counted.  K1 is checked at
+the ViT batch of every driven path (``vit_batches``), and every shape the
+models hand K1 while the paths run is recorded and must be one of those
+checked.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last line is
@@ -30,6 +38,7 @@ exits non-zero and prints no result.  Compiler logs go to
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -74,6 +83,11 @@ CROSS_TOL_BF16 = {"arm_max_abs": 5e-2, "hidden_rel_l2": 5e-2}
 # The same step with fp32 compute on the card (both kernels' fp32 paths):
 # only the summation order differs.
 CROSS_TOL_FP32 = {"arm_max_abs": 1e-3, "hidden_rel_l2": 1e-3}
+
+# the cli/eval rollout phases: (lanes, --quantize)
+ROLLOUT_RUNS = ((1, None), (2, None), (1, "int8"), (1, "int4"))
+# the window of the fp32 calibration cross-check (one trajectory)
+CALIB_CROSS_WINDOW = 2
 
 
 def emit(obj) -> None:
@@ -276,13 +290,52 @@ def k1_cases(torch):
     return cases
 
 
-def vit_strided_qkv(torch, streams: int):
+def vit_batches(cfg) -> dict:
+    """The ViT batches, in streams (a stream is both cameras' frames), that
+    the paths this script drives hand K1, by compute dtype: the serve
+    phases' B=1 and B=8, each rollout's lanes, a calibration batch's B*W
+    frames (phase calibrate and ``cli/eval``); in fp32 the serve
+    cross-checks' B=1 and the calibration cross-check's W frames."""
+    from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE
+    calib = CALIB_BATCH_SIZE * cfg.window_size
+    return {"bfloat16": sorted({1, 8, calib,
+                                *(lanes for lanes, _ in ROLLOUT_RUNS)}),
+            "float32": sorted({1, CALIB_CROSS_WINDOW}), "calib": calib}
+
+
+def k1_key(q, k, bias) -> tuple:
+    """What tells two K1 calls apart for its checks: q's shape, the key
+    length, the dtype, whether q is a strided view, the bias shape."""
+    return (tuple(q.shape), k.shape[2], str(q.dtype)[6:], q.is_contiguous(),
+            None if bias is None else tuple(bias.shape))
+
+
+@contextlib.contextmanager
+def k1_calls(seen: set):
+    """While open, adds the ``k1_key`` of every K1 call the models make on
+    the card (they reach K1 through ``ops.attention``) to ``seen``."""
+    from deer_vla_tpu_torch.ops import attention
+    kernel = attention.flash_attention
+
+    def logged(q, k, v, bias=None, scale=None):
+        if q.is_cuda:
+            seen.add(k1_key(q, k, bias))
+        return kernel(q, k, v, bias=bias, scale=scale)
+
+    attention.flash_attention = logged
+    try:
+        yield seen
+    finally:
+        attention.flash_attention = kernel
+
+
+def vit_strided_qkv(torch, streams: int, dt):
     """q, k, v as the ViT hands them to K1: ``split_heads`` views of one
     fused (2B, 257, 3 * 1024) qkv projection, no copy."""
     from deer_vla_tpu_torch.ops.attention import split_heads
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * streams)
     qkv = torch.randn(2 * streams, 257, 3 * 1024, generator=gen,
-                      device="cuda").to(torch.bfloat16)
+                      device="cuda").to(dt)
     q, k, v = (split_heads(t, 16) for t in qkv.chunk(3, dim=-1))
     check(not q.is_contiguous() and q.data_ptr() == qkv.data_ptr(),
           "split_heads did not give a view")
@@ -368,7 +421,10 @@ def layer_summary(rows: list, m: int = 32) -> dict:
     return out
 
 
-def phase_kernels(torch) -> dict:
+def phase_kernels(torch, vit: dict) -> dict:
+    """K1-K4 against their plain versions and timed; ``vit`` is
+    ``vit_batches``.  The summary's ``k1_checked`` holds the ``k1_key`` of
+    every K1 case checked."""
     from deer_vla_tpu_torch.ops.kernels.flash_attention import (
         flash_attention, flash_attention_reference)
     from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
@@ -379,11 +435,14 @@ def phase_kernels(torch) -> dict:
     from deer_vla_tpu_torch.ops.attention import merge_heads
     from deer_vla_tpu_torch.ops.kernels.flash_attention import TC_HEAD_DIMS
     cases = k1_cases(torch)
-    for streams in (1, 8):
-        q, k, v = vit_strided_qkv(torch, streams)
-        cases.append((f"vit_strided_b{streams}_bfloat16", q, k, v, None,
-                      0.125))
+    for dts in ("bfloat16", "float32"):
+        for streams in vit[dts]:
+            q, k, v = vit_strided_qkv(torch, streams, getattr(torch, dts))
+            cases.append((f"vit_strided_b{streams}_{dts}", q, k, v, None,
+                          0.125))
+    summary["k1_checked"] = set()
     for name, q, k, v, bias, scale in cases:
+        summary["k1_checked"].add(k1_key(q, k, bias))
         dt = str(q.dtype)[6:]
         got = flash_attention(q, k, v, bias, scale)
         if dt == "bfloat16" and q.shape[-1] in TC_HEAD_DIMS:
@@ -410,6 +469,8 @@ def phase_kernels(torch) -> dict:
                 summary["flash_attention"] = row
             elif name == "vit_b8_bfloat16":
                 summary["flash_attention_b8"] = row
+            elif name == f"vit_strided_b{vit['calib']}_bfloat16":
+                summary["flash_attention_calib"] = row
         rows.append(row)
     big = torch.zeros(1, 1, 8, 144, dtype=torch.bfloat16, device="cuda")
     try:
@@ -840,9 +901,216 @@ def phase_cross_check_quantized(torch, np, cfg, params, cpu_params) -> None:
         torch.cuda.empty_cache()
 
 
-def kernels_line(summary: dict, launches: dict, tc: dict) -> dict:
+def calib_debug_batches(cfg, batch_size: int, num_batches: int):
+    """DebugBatcher batches at the ViT's resolution and the config with the
+    debug tokenizer's media token, as the eval CLI builds them."""
+    from deer_vla_tpu_torch.data.debug_data import DebugBatcher
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
+    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+    hw = cfg.vit.image_size
+    return cfg, list(DebugBatcher(cfg, tok, batch_size=batch_size,
+                                  num_batches=num_batches, img_hw=hw,
+                                  grip_hw=hw, seed=SEED))
+
+
+def phase_calibrate(torch, np, cfg, params) -> dict:
+    """Calibration of deer_3b (W=12) on 2 DebugBatcher batches of 2
+    trajectories, folded and streamed: each batch is one training forward
+    (48 ViT images through K1, every decoder layer kept) and the exit
+    deltas, with every kernel's count set to 0 before the batch and read
+    after it."""
+    from deer_vla_tpu_torch.eval.calibrate import (
+        generate_calibration_values, streamed_sample_probs)
+    from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE as bs
+    from deer_vla_tpu_torch.models.value_net import solve_thresholds
+    cfg, batches = calib_debug_batches(cfg, bs, 2)
+    exits = list(cfg.all_exit_ids())
+    counters = kernel_counters()
+    out = {"phase": "calibrate", "config": "deer_3b",
+           "window": cfg.window_size, "batch_size": bs,
+           "compute": str(cfg.dtypes.cdt)[6:], "regimes": {}}
+    for regime in ("folded", "streamed"):
+        streamed = regime == "streamed"
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        esp = (streamed_sample_probs(cfg, 1.0, None, "exp", "deer_3b")
+               if streamed else None)
+        vals, secs, launches = [], [], []
+        for batch in batches:
+            for f in counters.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals.append(generate_calibration_values(  # ends on the host
+                params, cfg, [batch], gen=gen, streamed=streamed,
+                exit_sample_probs=esp))
+            secs.append(time.perf_counter() - t0)
+            launches.append({n: f.launches for n, f in counters.items()})
+        v = np.concatenate(vals, axis=1)
+        per_traj = cfg.window_size // 2 + (1 if streamed else 0)
+        check(v.shape == (len(exits), bs * len(batches) * per_traj)
+              and bool(np.isfinite(v).all()),
+              f"calibrate {regime}: values {v.shape}")
+        check(all(n["flash_attention"] > 0 for n in launches),
+              f"calibrate {regime}: K1 not launched: {launches}")
+        th = {str(r): solve_thresholds(v, r, exits, cfg.n_layers - 1)[0]
+              for r in (1.0, 0.5)}
+        out["regimes"][regime] = {
+            "values_shape": list(v.shape),
+            "min": float(v.min()), "median": float(np.median(v)),
+            "max": float(v.max()), "thresholds": th,
+            "seconds_per_batch": secs, "launches_per_batch": launches}
+    emit(out)
+    return out
+
+
+# The calibration forward on the card in fp32 against fp32 on the CPU: only
+# the summation order differs.  The actions (|a| <= 0.06 with these random
+# weights) are held to 1e-6, about 270 fp32 ulps; a delta (about 3e-5) is
+# the difference of two actions some 2e3 times larger, so its error is
+# theirs: 1e-7 absolute (27 ulps of the actions), 1e-2 relative L2.  The
+# first run on an H100 measured 1.0e-6 / 1.6e-6 (hidden), 7.5e-9 (actions),
+# 1.0e-4 / 4.8e-9 (deltas).
+CALIB_TOL_FP32 = {"hidden_rel_l2": 1e-4, "hidden_max_abs_rel": 1e-4,
+                  "actions_max_abs": 1e-6, "delta_rel_l2": 1e-2,
+                  "delta_max_abs": 1e-7}
+
+
+def calib_forward(torch, params, cfg, batch, device, gen=None, lay1=None,
+                  commits=None):
+    """One batch's training forward and both regimes' deltas on ``device``;
+    the layer draws come from ``gen`` or ``lay1`` / ``commits``."""
+    from deer_vla_tpu_torch.eval.calibrate import batch_inputs
+    from deer_vla_tpu_torch.models.flamingo import forward_train
+    from deer_vla_tpu_torch.models.value_net import (
+        generate_exit_deltas, generate_streamed_exit_deltas)
+    exits = list(cfg.all_exit_ids())
+    with torch.inference_mode():
+        img, gri, ids, mask = batch_inputs(batch, cfg, device)
+        out = forward_train(params, img, ids, mask, cfg, gen,
+                            vision_gripper=gri, only_extra_exit=True,
+                            train=False, rand_layer_ids=lay1)
+        folded = generate_exit_deltas(params["extra_exit"], out.hidden_states,
+                                      out.rand_layer_feat, cfg, exits)
+        streamed = generate_streamed_exit_deltas(
+            params["extra_exit"], out.hidden_states, cfg, exits,
+            commit_exits=commits)
+    return {"hidden": out.hidden_states.float().cpu(),
+            "actions": out.final_output.actions.float().cpu(),
+            "folded": folded.float().cpu(), "streamed": streamed.float().cpu(),
+            "lay1": out.rand_layer_ids}
+
+
+def phase_calibrate_cross_check(torch, np, cfg, params, cpu_params) -> None:
+    """deer_3b at W=2, one trajectory (4 ViT images): the calibration
+    forward and both regimes' deltas in fp32 on the card against fp32 on
+    the CPU, with the card's layer draws and one commit sequence."""
+    from deer_vla_tpu_torch.core.config import FP32, deer_3b
+    cfg2, batches = calib_debug_batches(
+        deer_3b(window_size=CALIB_CROSS_WINDOW, dtypes=FP32), 1, 1)
+    commits = [i % len(cfg2.all_exit_ids()) for i in range(4)]
+    card = calib_forward(torch, params, cfg2, batches[0],
+                         torch.device("cuda"),
+                         gen=torch.Generator(device="cuda").manual_seed(SEED),
+                         commits=commits)
+    t0 = time.perf_counter()
+    cpu = calib_forward(torch, cpu_params, cfg2, batches[0],
+                        torch.device("cpu"), lay1=card["lay1"].cpu(),
+                        commits=commits)
+    cpu_s = time.perf_counter() - t0
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    got = {"hidden_rel_l2": rel_l2(card["hidden"], cpu["hidden"]),
+           "hidden_max_abs_rel": float((card["hidden"] - cpu["hidden"]).abs()
+                                       .max() / cpu["hidden"].abs().max()),
+           "actions_max_abs": float((card["actions"] - cpu["actions"]).abs()
+                                    .max())}
+    for regime in ("folded", "streamed"):
+        got[f"{regime}_delta_rel_l2"] = rel_l2(card[regime], cpu[regime])
+        got[f"{regime}_delta_max_abs"] = float(
+            (card[regime] - cpu[regime]).abs().max())
+    emit({"phase": "calibrate_cross_check", "config": "deer_3b W=2 B=1 fp32",
+          "card_fp32_vs_cpu_fp32": got, "tol_fp32": CALIB_TOL_FP32,
+          "delta_max": {r: float(cpu[r].abs().max())
+                        for r in ("folded", "streamed")},
+          "actions_max": float(cpu["actions"].abs().max()),
+          "cpu_seconds": cpu_s})
+    for key, value in got.items():
+        limit = CALIB_TOL_FP32[key.replace("folded_", "")
+                               .replace("streamed_", "")]
+        check(value <= limit, f"calibrate cross-check {key} {value} > "
+                              f"{limit}")
+
+
+ROLLOUT_ARGV = ["--debug", "--model", "deer_3b", "--calib_batches", "2",
+                "--num_sequences_override", "2", "--ep_len", "40",
+                "--exit_ratio", "0.5"]
+
+
+def phase_rollout(torch, np, lanes: int, quantize=None) -> dict:
+    """``cli/eval.main`` in-process on the card, bf16: calibrate deer_3b on
+    2 debug batches, serve the thresholds (``--quantize``) in DebugEnv
+    rollouts of 2 sequences, sequentially or over ``lanes`` streams; the
+    kernel counts are set to 0 before the call and read after it."""
+    import io
+    from deer_vla_tpu_torch.cli import eval as cli
+    argv = (ROLLOUT_ARGV + (["--lanes", str(lanes)] if lanes > 1 else [])
+            + (["--quantize", quantize] if quantize else []))
+    phase = "_".join(["rollout"] + ([f"lanes{lanes}"] if lanes > 1 else [])
+                     + ([quantize] if quantize else []))
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        report = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    text = buf.getvalue()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / f"cli_eval_{phase}.log").write_text(text)
+    last = text.strip().splitlines()[-3:]
+    th = [float(t) for t in last[0].split(",")]
+    exits = set(cli.model_config(
+        cli.build_parser().parse_args(argv)).all_exit_ids())
+    taken = {e for e, p in enumerate(report["exit_hist"]) if p > 0}
+    check(len(th) == len(exits)
+          and abs(float(last[1]) - report["avg_seq_len"]) < 1e-5
+          and abs(float(last[2]) - (report["avg_exit_layer"] - 1)) < 1e-5,
+          f"{phase}: parse contract {last}")
+    check(taken and taken <= exits, f"{phase}: exits {taken} not in {exits}")
+    decoder = DECODER_KERNEL[quantize]
+    check(launches["flash_attention"] > 0 and launches[decoder] > 0,
+          f"{phase}: K1 / {decoder} not launched: {launches}")
+    if quantize:
+        check(launches["indexed_matmul"] == 0,
+              f"{phase}: the bf16 kernel K2 ran: {launches}")
+    out = {"phase": phase, "argv": argv, "seconds": seconds,
+           "avg_seq_len": report["avg_seq_len"],
+           "avg_exit_layer": report["avg_exit_layer"],
+           "exit_hist": report["exit_hist"],
+           "avg_llm_gflops": report["avg_llm_gflops"],
+           "exit_contract_max_abs_gap":
+               report["exit_contract"]["max_abs_gap"],
+           "thresholds": th, "env_steps": report["env_steps"],
+           "rollout_seconds": report["rollout_seconds"],
+           "steps_per_s": report["env_steps"] / report["rollout_seconds"],
+           "launches": launches}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_line(summary: dict, launches: dict, tc: dict,
+                 path_launches: dict) -> dict:
     """``launches`` maps each kernel to its count on the serve path that
-    runs it: K1 and K2 on the bf16 serve, K3 on int8's, K4 on int4's."""
+    runs it: K1 and K2 on the bf16 serve, K3 on int8's, K4 on int4's;
+    ``path_launches`` holds every kernel's count on the calibration and
+    rollout paths, by path."""
     k1 = summary["flash_attention"]
     out = [{"name": "flash_attention", "route": "cuda",
             "source": "deer_vla_tpu_torch/csrc/flash_attention.cu",
@@ -855,6 +1123,12 @@ def kernels_line(summary: dict, launches: dict, tc: dict) -> dict:
             "flops": k1["flops"],
             "b8_ms": summary["flash_attention_b8"]["kernel_ms"],
             "b8_library_ms": summary["flash_attention_b8"]["library_ms"],
+            "calib_ms": summary["flash_attention_calib"]["kernel_ms"],
+            "calib_plain_ms": summary["flash_attention_calib"]["reference_ms"],
+            "calib_library_ms": summary["flash_attention_calib"]["library_ms"],
+            "calib_bound_ms": summary["flash_attention_calib"]["bound_ms"],
+            "calib_shape": "q,k,v (48,16,257,64) bf16 strided views of a "
+                           "fused qkv (ViT layer of a calibration batch)",
             "tensor_core_sass": tc["flash_attention"]["hmma_hgmma"],
             "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)"}]
     for name, source, line, weights, library in (
@@ -885,7 +1159,38 @@ def kernels_line(summary: dict, launches: dict, tc: dict) -> dict:
         row["b8_bound_ms"] = b8["bound_ms"]
         row["tensor_core_sass"] = tc[row["name"]]["hmma_hgmma"]
         row["conversion_sass"] = tc[row["name"]]["conversions"]
+    for row in out:
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in path_launches.items()}
     return {"kernels": out}
+
+
+def drive_paths(torch, np, cfg) -> tuple:
+    """The main paths on seeded deer_3b weights: serving in every mode with
+    its cross-checks, calibration with its cross-check, the cli/eval
+    rollouts."""
+    from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    t0 = time.perf_counter()
+    params = build_weights(torch, cfg)
+    pol = ScanDeerPolicy(params, cfg, indexed_mm=True)
+    emit({"phase": "weights", "seconds": time.perf_counter() - t0,
+          "seed": SEED, "exits": pol.exits})
+    serve = phase_serve(torch, np, cfg, pol)
+    quantized = phase_serve_quantized(torch, np, cfg, params,
+                                      serve["stacked_bytes"])
+    cpu_params = to_torch(params, "cpu")
+    phase_cross_check(torch, np, cfg, params, cpu_params, pol)
+    del pol
+    torch.cuda.empty_cache()
+    phase_cross_check_quantized(torch, np, cfg, params, cpu_params)
+    calib = phase_calibrate(torch, np, cfg, params)
+    phase_calibrate_cross_check(torch, np, cfg, params, cpu_params)
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    rollouts = [phase_rollout(torch, np, lanes, quantize)
+                for lanes, quantize in ROLLOUT_RUNS]
+    return serve, quantized, calib, rollouts
 
 
 def main() -> int:
@@ -900,35 +1205,35 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import numpy as np
 
-    from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.core.config import deer_3b
-    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
 
     smi = phase_device(torch)
     tc = phase_build()
-    summary = phase_kernels(torch)
-
     cfg = deer_3b()
-    t0 = time.perf_counter()
-    params = build_weights(torch, cfg)
-    pol = ScanDeerPolicy(params, cfg, indexed_mm=True)
-    emit({"phase": "weights", "seconds": time.perf_counter() - t0,
-          "seed": SEED, "exits": pol.exits})
-    serve = phase_serve(torch, np, cfg, pol)
-    quantized = phase_serve_quantized(torch, np, cfg, params,
-                                      serve["stacked_bytes"])
-    cpu_params = to_torch(params, "cpu")
-    phase_cross_check(torch, np, cfg, params, cpu_params, pol)
-    del pol
-    torch.cuda.empty_cache()
-    phase_cross_check_quantized(torch, np, cfg, params, cpu_params)
+    summary = phase_kernels(torch, vit_batches(cfg))
 
+    k1_seen = set()
+    with k1_calls(k1_seen):
+        serve, quantized, calib, rollouts = drive_paths(torch, np, cfg)
+    unchecked = k1_seen - summary["k1_checked"]
+    emit({"phase": "k1_shapes", "driven": sorted(map(str, k1_seen)),
+          "unchecked": sorted(map(str, unchecked))})
+    check(k1_seen and not unchecked,
+          f"K1 ran at shapes no phase held against its plain version: "
+          f"{unchecked}")
+
+    path_launches = {"calibrate": {
+        name: sum(b[name] for r in calib["regimes"].values()
+                  for b in r["launches_per_batch"])
+        for name in kernel_counters()}}
+    for r in rollouts:
+        path_launches[r["phase"]] = r["launches"]
     launches = dict(serve["launches"])
     launches["indexed_matmul_q8"] = \
         quantized["int8"]["launches"]["indexed_matmul_q8"]
     launches["indexed_matmul_q4"] = \
         quantized["int4"]["launches"]["indexed_matmul_q4"]
-    emit(kernels_line(summary, launches, tc))
+    emit(kernels_line(summary, launches, tc, path_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

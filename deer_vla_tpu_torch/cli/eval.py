@@ -1,0 +1,325 @@
+"""Evaluation CLI of the port: calibrate the exit thresholds, then serve
+them in closed-loop rollouts (the JAX package's ``cli/eval.py`` with
+``--debug``: the DebugBatcher calibration data and the DebugEnv rollouts).
+
+    python -m deer_vla_tpu_torch.cli.eval --debug --model deer_3b \
+        --calib_batches 2 --num_sequences_override 2 --exit_ratio 0.5
+
+``main(argv, device=None)`` runs on the card; ``device="cpu"`` runs the
+plain versions on the CPU.  The weights are ``init_deer`` draws from
+``--seed``.  The flags keep the JAX names; a JAX flag this CLI does not
+serve raises SystemExit naming the ROADMAP.md item that will serve it.
+
+The parse contract of the reference's log readers is kept: the last three
+stdout lines are the thresholds (comma separated), the average successful
+sequence length and the average exit layer - 1 (eval_calvin.py:646-653).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deer_vla_tpu_torch.core.config import BF16, FP32, deer_3b, deer_tiny
+from deer_vla_tpu_torch.core.device import resolve_device
+
+MODELS = {"tiny": deer_tiny, "deer_3b": deer_3b, "mpt_dolly_3b": deer_3b}
+# trajectories per DebugBatcher calibration batch
+CALIB_BATCH_SIZE = 2
+
+# JAX flags not served yet: (flag, JAX default, argparse keywords, the
+# ROADMAP.md item that serves it).  A value other than the default raises.
+_FLAG = {"action": "store_true"}
+UNSERVED = (
+    ("--evaluate_from_checkpoint", "", {}, "M0 (msgpack .ckpt loading)"),
+    ("--calvin_dataset", "", {}, "M9 (the CALVIN env and data)"),
+    ("--calvin_conf_path", "", {}, "M9 (the CALVIN env and data)"),
+    ("--eval_sequences", "eval_sequences.json", {},
+     "M9 (the CALVIN env and data)"),
+    ("--diverse_inst", False, _FLAG, "M9 (the CALVIN env and data)"),
+    ("--annotation_cache", "lang_annotation_cache.json", {},
+     "M9 (the CALVIN env and data)"),
+    ("--batch_size_calvin", 6, {"type": int}, "M9 (the CALVIN env and data)"),
+    ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
+    ("--tcp_rel", False, _FLAG, "M9 (tcp-frame actions)"),
+    ("--visualize", "", {}, "M9 (rollout GIFs)"),
+    ("--head_type", "deterministic", {}, "M10 (other head families)"),
+    ("--diff_steps", 0, {"type": int}, "M10 (the diffusion head)"),
+    ("--ddim_eta", 0.0, {"type": float}, "M10 (the diffusion head)"),
+    ("--future_act_len", -1, {"type": int}, "M10 (the diffusion head)"),
+    ("--gripper_res", -1, {"type": int}, "M10 (gripper_res)"),
+    ("--calib_warm", 0, {"type": int}, "M10 (window-folded models)"),
+    ("--exit_id", None, {"type": int},
+     "M13 (the host-bucketed DeerPolicy)"),
+    ("--engine", "auto", {}, "M13 (the host-bucketed DeerPolicy)"),
+    ("--use_action_ensemble", False, _FLAG,
+     "M13 (the host-bucketed DeerPolicy)"),
+    ("--multi_execution", 1, {"type": int},
+     "M13 (the host-bucketed DeerPolicy)"),
+    ("--layerwise_exit_eval", False, _FLAG,
+     "M13 (the host-bucketed DeerPolicy)"),
+    ("--pipeline", 1, {"type": int},
+     "M13 (dispatch_batch / finish_batch)"),
+    ("--env_workers", 0, {"type": int}, "M13 (threaded env stepping)"),
+    ("--action_cache_tau", 0.0, {"type": float}, "M13 (eval/caching)"),
+    ("--action_cache_refresh", 5, {"type": int}, "M13 (eval/caching)"),
+    ("--frame_cache", False, _FLAG, "M13 (eval/caching)"),
+    ("--vision_cache_tau", 0.0, {"type": float}, "M13 (eval/caching)"),
+    ("--vit_tome_r", 0, {"type": int}, "M13 (ToMe)"),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="DeeR-VLA evaluation on the PyTorch port")
+    p.add_argument("--model", default="tiny", choices=sorted(MODELS))
+    p.add_argument("--max_layer", type=int, default=-1)
+    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--num_seq", type=int, default=224)
+    p.add_argument("--ep_len", type=int, default=360)
+    p.add_argument("--exit_ratio", type=float, default=1.0)
+    p.add_argument("--exit_dist", default="exp",
+                   choices=["exp", "gauss", "gamma"])
+    p.add_argument("--threshold_type", default="L2",
+                   choices=["mean", "L2", "max", "cosine"])
+    p.add_argument("--steps_per_stage", type=int, default=1)
+    p.add_argument("--thresholds", type=float, nargs="*", default=None,
+                   help="per-exit thresholds instead of calibrating (BO "
+                        "mode); the last exit always fires")
+    p.add_argument("--quantize", default="none",
+                   choices=["none", "int8", "int8_w8a8", "int4",
+                            "int4_w8a8"],
+                   help="quantized serving (ops/quant.py); the decoder of "
+                        "int8 / int4 runs through K3 / K4")
+    p.add_argument("--replan", type=int, default=-1)
+    p.add_argument("--reset", action="store_true",
+                   help="reset the env to the chain's initial state before "
+                        "every subtask (eval_utils.py:603-606)")
+    p.add_argument("--lanes", type=int, default=1,
+                   help=">1: that many env streams in lockstep through one "
+                        "batched policy step (eval/batched_rollout.py)")
+    p.add_argument("--value_cache", default="",
+                   help="calibration values .npz sidecar stem (reused "
+                        "unless --recompute_values)")
+    p.add_argument("--recompute_values", action="store_true")
+    p.add_argument("--calib_batches", type=int, default=8)
+    p.add_argument("--calib_streamed", action="store_true",
+                   help="calibrate with one LSTM carry threaded across each "
+                        "window and exits committed from the target "
+                        "distribution (the serving carry regime)")
+    p.add_argument("--validation_set", action="store_true", default=True)
+    p.add_argument("--amp", type=int, default=0)  # accepted, no effect
+    p.add_argument("--report_json", default="",
+                   help="also write the full report to this JSON path")
+    p.add_argument("--debug", action="store_true",
+                   help="DebugBatcher calibration data and DebugEnv "
+                        "rollouts (the only backend ported)")
+    p.add_argument("--num_sequences_override", type=int, default=None)
+    p.add_argument("--seed", type=int, default=42)
+    for flag, default, kw, _ in UNSERVED:
+        p.add_argument(flag, default=default, **kw)
+    return p
+
+
+def check_served(args) -> None:
+    for flag, default, _, item in UNSERVED:
+        if getattr(args, flag[2:]) != default:
+            raise SystemExit(f"{flag} is not served by the PyTorch port yet "
+                             f"(ROADMAP.md {item})")
+    if args.lanes > 1 and args.replan != -1:
+        raise SystemExit("--lanes has no per-lane replan counter; run "
+                         "--replan without --lanes")
+
+
+def model_config(args):
+    dtypes = BF16 if args.precision == "bf16" else FP32
+    if args.model == "tiny":
+        return deer_tiny(dtypes=dtypes)
+    return MODELS[args.model](
+        max_layer=args.max_layer if args.max_layer > 0 else 12, dtypes=dtypes)
+
+
+def exit_contract(report, probs, real_ids) -> dict:
+    """Realized against target exit distribution (value_net.py:206-272)."""
+    hist = report["exit_hist"]
+    realized = [float(hist[e]) for e in real_ids]
+    return {"exit_ids": [int(e) for e in real_ids],
+            "target_probs": [float(p) for p in probs],
+            "realized": realized,
+            "avg_exit_target": float(sum(p * (e + 1)
+                                         for p, e in zip(probs, real_ids))),
+            "avg_exit_realized": float(report["avg_exit_layer"]),
+            "max_abs_gap": float(max(abs(r - p)
+                                     for r, p in zip(realized, probs)))}
+
+
+def _clean(v):
+    if isinstance(v, dict):
+        return {k: _clean(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_clean(x) for x in v]
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    return v
+
+
+def main(argv=None, device: Optional[str] = None) -> dict:
+    args = build_parser().parse_args(argv)
+    check_served(args)
+    from deer_vla_tpu_torch.data.debug_data import DebugBatcher
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    from deer_vla_tpu_torch.eval.batched_rollout import \
+        evaluate_policy_batched
+    from deer_vla_tpu_torch.eval.calibrate import calibrate
+    from deer_vla_tpu_torch.eval.flops import (avg_llm_gflops,
+                                               llm_flops_per_exit,
+                                               paper_convention_gflops)
+    from deer_vla_tpu_torch.eval.metrics import format_report
+    from deer_vla_tpu_torch.eval.rollout import (CalvinPolicyAdapter,
+                                                 DebugEnv, DebugTaskOracle,
+                                                 evaluate_policy,
+                                                 make_debug_sequences,
+                                                 process_count)
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.models.flamingo import init_deer
+    from deer_vla_tpu_torch.models.value_net import (ExitController,
+                                                     exit_probs)
+    from deer_vla_tpu_torch.train.checkpoint import (load_calibration_info,
+                                                     load_calibration_values,
+                                                     save_calibration_values)
+
+    dev = resolve_device(device)
+    cfg = model_config(args)
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
+    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+    params = init_deer(cfg, seed=args.seed, device=dev)
+    max_layer = args.max_layer if args.max_layer > 0 else cfg.n_layers
+    exits = list(cfg.all_exit_ids())
+    size = cfg.vit.image_size
+
+    controller = ExitController(
+        exit_id_list=exits, steps_per_stage=args.steps_per_stage,
+        max_layer=max_layer, threshold_type=args.threshold_type)
+    real_ids = [e for e in exits if e <= controller.effective_max]
+    if args.thresholds:
+        controller.set_threshold_values(args.thresholds[:len(real_ids)])
+    else:
+        cache = args.value_cache
+        values = None
+        if cache and not args.recompute_values:
+            values = load_calibration_values(cache)
+            cached = bool(load_calibration_info(cache).get("calib_streamed",
+                                                           False))
+            if values is not None and cached != args.calib_streamed:
+                print(f"values sidecar was calibrated with streamed="
+                      f"{cached}; recomputing with streamed="
+                      f"{args.calib_streamed}")
+                values = None
+            elif values is not None:
+                print(f"reusing calibration values from {cache}")
+        batches = None
+        if values is None:
+            batches = DebugBatcher(cfg, tok, batch_size=CALIB_BATCH_SIZE,
+                                   num_batches=args.calib_batches,
+                                   img_hw=size, grip_hw=size)
+        t0 = time.perf_counter()
+        thresholds, values = calibrate(
+            params, cfg, batches or [], args.exit_ratio, max_layer=max_layer,
+            exit_dist=args.exit_dist, model_name=args.model,
+            threshold_type=args.threshold_type, values=values,
+            max_batches=args.calib_batches, streamed=args.calib_streamed,
+            gen=torch.Generator(device=dev).manual_seed(args.seed))
+        if batches is not None:
+            print(f"calibrated {values.shape[1]} samples in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        if cache:
+            save_calibration_values(
+                cache, values, {"exit_ratio": args.exit_ratio,
+                                "calib_warm": 0,
+                                "calib_streamed": args.calib_streamed})
+        controller.set_thresholds(thresholds)
+    thresholds = controller.thresholds
+
+    policy = ScanDeerPolicy(
+        params, cfg, threshold_type=args.threshold_type, max_layer=max_layer,
+        steps_per_stage=args.steps_per_stage, indexed_mm=True,
+        quantize=None if args.quantize == "none" else args.quantize,
+        device=dev)
+    policy.set_thresholds(thresholds)
+
+    oracle = DebugTaskOracle(threshold=0.05)
+    sequences = make_debug_sequences(args.num_sequences_override or 8)
+    ep_len = min(args.ep_len, 40)
+    n_seq = min(args.num_seq, len(sequences))
+    per_layer = llm_flops_per_exit(cfg)
+    envs = [DebugEnv(img_hw=size, grip_hw=size)
+            for _ in range(max(args.lanes, 1))]
+    t0 = time.perf_counter()
+    if args.lanes > 1:
+        report = evaluate_policy_batched(
+            policy, envs, sequences[:n_seq], {}, oracle, tok,
+            text_len=cfg.text_len, ep_len=ep_len, n_layers=cfg.n_layers,
+            reset=args.reset)
+    else:
+        procs = process_count()
+        report = evaluate_policy(
+            CalvinPolicyAdapter(policy, tok, text_len=cfg.text_len), envs[0],
+            sequences[:n_seq], {}, oracle,
+            rank=torch.distributed.get_rank() if procs > 1 else 0,
+            world_size=procs, num_sequences=n_seq, ep_len=ep_len,
+            replan=args.replan, reset=args.reset,
+            flops_per_layer=per_layer[0] * 1e9, n_layers=cfg.n_layers)
+    report["rollout_seconds"] = time.perf_counter() - t0
+    report["env_steps"] = sum(e.steps for e in envs)
+    print(f"rollout: {report['env_steps']} env steps in "
+          f"{report['rollout_seconds']:.3f} s on {dev}")
+
+    hist = (np.add(report["success_exit_hist"], report["fail_exit_hist"])
+            / max(1e-9, sum(report["success_exit_hist"])
+                  + sum(report["fail_exit_hist"])))
+    report["exit_hist"] = hist.tolist()
+    report["avg_llm_gflops"] = avg_llm_gflops(cfg, hist)
+    if not args.thresholds:
+        probs = exit_probs(len(real_ids), args.exit_ratio, args.exit_dist,
+                           args.model)
+        report["exit_contract"] = exit_contract(report, probs, real_ids)
+        contract = report["exit_contract"]
+        print(f"exit contract: target={[round(float(p), 3) for p in probs]} "
+              f"realized={[round(r, 3) for r in contract['realized']]} "
+              f"max gap {contract['max_abs_gap']:.3f}")
+    report["avg_llm_gflops_paper_conv"] = float(sum(
+        paper_convention_gflops(cfg, i) * p for i, p in enumerate(hist)
+        if p > 0))
+    print(format_report(report))
+    if args.report_json:
+        payload = {"report": _clean(report),
+                   "thresholds": {int(k): float(v)
+                                  for k, v in thresholds.items()},
+                   "exit_ratio": args.exit_ratio, "model": args.model,
+                   "max_layer": max_layer, "num_seq": n_seq,
+                   "device": str(dev)}
+        os.makedirs(os.path.dirname(os.path.abspath(args.report_json)),
+                    exist_ok=True)
+        with open(args.report_json, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"report written to {args.report_json}")
+    # -- the parse contract: last three lines --------------------------------
+    print(",".join(f"{thresholds[e]:.6f}" for e in sorted(thresholds)))
+    print(f"{report['avg_seq_len']:.6f}")
+    print(f"{report['avg_exit_layer'] - 1:.6f}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,11 @@
-"""Deterministic LSTM action head, streaming step (action_head.py:408-611).
+"""Deterministic LSTM action head (action_head.py:408-611).
 
-(B, lang_len, d) --max-pool over tokens--> (B, d) --LSTM step--> (B, H)
---> MLP+tanh -> arm (B, 1, 6k);  MLP+sigmoid -> gripper (B, 1, k).
-The caller commits the returned carry only for the exit that fires.
+(B, lang_len, d) --max-pool over tokens--> (B, d) --LSTM--> (B, H)
+--> MLP+tanh -> arm (B, ., 6k);  MLP+sigmoid -> gripper (B, ., k).
+Two entry points over the same parameters: ``head_forward`` runs a whole
+window from a zero carry (calibration), ``head_step`` one streaming frame
+with an explicit carry, which the caller commits only for the exit that
+fires.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 from deer_vla_tpu_torch.core.config import HeadConfig
 from deer_vla_tpu_torch.ops.layers import (init_layernorm, init_linear,
                                            layernorm, linear)
-from deer_vla_tpu_torch.ops.lstm import Carry, init_lstm, lstm_step, zero_carry
+from deer_vla_tpu_torch.ops.lstm import (Carry, init_lstm, lstm_forward,
+                                         lstm_step, zero_carry)
 
 
 class HeadOutput(NamedTuple):
@@ -66,6 +70,33 @@ def pool_tokens(feat: torch.Tensor, pooling: str = "max") -> torch.Tensor:
     if pooling == "max":
         return feat.amax(dim=-2)
     return feat.mean(dim=-2)
+
+
+def _prepare_input(feat: torch.Tensor, cfg: HeadConfig, window: int
+                   ) -> torch.Tensor:
+    """(B*W, lang_len, d) or (B*W, d) -> (B, W, d)."""
+    if feat.ndim == 3:
+        feat = pool_tokens(feat, cfg.pooling)
+    return feat.reshape(-1, window, feat.shape[-1])
+
+
+def head_forward(p: dict, feat: torch.Tensor, cfg: HeadConfig,
+                 state: Optional[torch.Tensor] = None, *,
+                 window: Optional[int] = None,
+                 last_action: bool = False) -> HeadOutput:
+    """Full-window mode (the carry starts at zeros), inference only (no
+    dropout).  feat (B*W, lang_len, d) -> per-step actions (B, W, .), or the
+    last step's only with ``last_action`` (action_head.py:593-594)."""
+    if state is not None or cfg.use_state:
+        raise NotImplementedError("proprio-state heads are not ported")
+    x = _prepare_input(feat, cfg, window if window is not None
+                       else cfg.window_size)
+    y, _ = lstm_forward(p["rnn"], x)
+    if last_action:
+        y = y[:, -1:, :]
+    act = torch.tanh(_mlp_head_forward(p["actions"], y))
+    glog = _mlp_head_forward(p["gripper"], y)
+    return HeadOutput(act, torch.sigmoid(glog), glog)
 
 
 def head_step(p: dict, feat: torch.Tensor, carry: Optional[Carry],

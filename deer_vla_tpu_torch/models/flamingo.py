@@ -1,4 +1,5 @@
-"""The DeeR policy's vision path and parameter init ('post' camera fusion).
+"""The DeeR policy's vision path, parameter init and training forward
+('post' camera fusion).
 
 Both cameras run through the ViT as ONE doubled batch, then through the
 shared perceiver as one doubled batch, and the two cameras' latents are
@@ -7,14 +8,15 @@ concatenated on the token dim (flamingo_mpt.py:609-668).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
-from deer_vla_tpu_torch.models.action_head import init_head
-from deer_vla_tpu_torch.models.mpt import init_decoder
+from deer_vla_tpu_torch.models.action_head import HeadOutput, init_head
+from deer_vla_tpu_torch.models.heads import any_head_forward
+from deer_vla_tpu_torch.models.mpt import decoder_forward, init_decoder
 from deer_vla_tpu_torch.models.perceiver import (init_perceiver,
                                                  perceiver_forward,
                                                  perceiver_forward_stacked)
@@ -117,3 +119,88 @@ def fuse_vision_tokens(params: dict, tok_rgb: torch.Tensor,
     lat = run_perceiver(torch.cat([tok_rgb, tok_grip], dim=0))
     b = tok_rgb.shape[0]
     return torch.cat([lat[:b], lat[b:]], dim=2)
+
+
+class TrainOutputs(NamedTuple):
+    """Per-exit head outputs of the training forward (train_utils.py:503
+    order: internal exits..., final, extra1, extra2)."""
+    exit_outputs: Tuple[HeadOutput, ...]
+    final_output: HeadOutput
+    extra_output: HeadOutput
+    extra_output2: HeadOutput
+    hidden_states: torch.Tensor    # (L, B*W, S, D)
+    rand_layer_feat: torch.Tensor  # (B*W, S, D) sampling-1 features
+    rand_layer_ids: torch.Tensor   # (B, W) sampled layer indices
+
+
+def forward_train(params: dict, vision_x: torch.Tensor,
+                  lang_x: torch.Tensor, attention_mask: torch.Tensor,
+                  cfg: DeerConfig, gen: Optional[torch.Generator] = None,
+                  vision_gripper: Optional[torch.Tensor] = None,
+                  state_tensor: Optional[torch.Tensor] = None,
+                  only_extra_exit: bool = False, train: bool = True,
+                  rand_layer_ids: Optional[torch.Tensor] = None,
+                  switch_layer_ids: Optional[torch.Tensor] = None
+                  ) -> TrainOutputs:
+    """The Flamingo training forward (flamingo_mpt.py:308-517), without
+    dropout: vision_x / vision_gripper (B*W, 1, 1, 3, H, W), lang_x and
+    attention_mask (B*W, S).
+
+    The extra exit runs twice on features from random exit layers
+    (flamingo_mpt.py:476-512): sampling 1 draws one exit per (b, t),
+    sampling 2 one switch point and two exits per trajectory.  The draws
+    come from ``gen`` (a generator seeded 0 on the batch's device when
+    None), or from the caller as ``rand_layer_ids`` / ``switch_layer_ids``
+    (B, W) layer indices; the first is returned as ``rand_layer_ids``."""
+    check_vision_supported(cfg)
+    h = cfg.head
+    if train and (h.dropout > 0 or h.lstm_dropout > 0):
+        raise NotImplementedError("training-mode dropout is not ported")
+    if state_tensor is not None:
+        raise NotImplementedError("proprio-state models are not ported")
+    w = cfg.window_size
+    media = encode_vision(params, vision_x, vision_gripper, cfg)
+    hidden, _ = decoder_forward(params["decoder"], lang_x, attention_mask,
+                                media, cfg)
+    dev = hidden.device
+
+    def run_head(head_params, feat):
+        return any_head_forward(head_params, feat, cfg, window=w)
+
+    final_out = run_head(params["lm_head"], hidden[-1])
+    exit_outputs = ()
+    if cfg.multi_exit and not only_extra_exit:
+        exit_outputs = tuple(
+            run_head(params["lm_head"] if cfg.share_exit
+                     else params["lm_exits"][str(i)], hidden[i])
+            for i in cfg.exit_layer_ids())
+
+    exit_ids = torch.tensor(cfg.all_exit_ids(), device=dev)
+    n_exit = cfg.num_exits
+    bsw = hidden.shape[1]
+    bs = bsw // w
+    rows = torch.arange(bsw, device=dev)
+    if gen is None and (rand_layer_ids is None or switch_layer_ids is None):
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(low, high, shape):
+        return torch.randint(low, high, shape, generator=gen,
+                             device=gen.device).to(dev)
+
+    extra_head = params["lm_head"] if cfg.share_exit else params["extra_exit"]
+    # sampling 1: an independent exit per (b, t)
+    lay1 = (exit_ids[draw(0, n_exit, (bs, w))] if rand_layer_ids is None
+            else rand_layer_ids.to(dev))
+    rand_feat = hidden[lay1.reshape(bsw), rows]  # (B*W, S, D)
+    extra_out = run_head(extra_head, rand_feat)
+    # sampling 2: one switch point, two exits per trajectory
+    if switch_layer_ids is None:
+        prev_len = draw(1, w + 1, ())
+        idx2 = draw(0, n_exit, (bs, 2))
+        tpos = torch.arange(w, device=dev)[None, :]
+        switch_layer_ids = exit_ids[torch.where(tpos < prev_len, idx2[:, :1],
+                                                idx2[:, 1:])]
+    feat2 = hidden[switch_layer_ids.to(dev).reshape(bsw), rows]
+    extra_out2 = run_head(extra_head, feat2)
+    return TrainOutputs(exit_outputs, final_out, extra_out, extra_out2,
+                        hidden, rand_feat, lay1)

@@ -8,7 +8,8 @@ from typing import Optional, Tuple
 import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
-from deer_vla_tpu_torch.models.action_head import HeadOutput, head_step
+from deer_vla_tpu_torch.models.action_head import (HeadOutput, head_forward,
+                                                   head_step)
 from deer_vla_tpu_torch.ops.lstm import zero_carry
 
 
@@ -16,6 +17,16 @@ def _check(cfg: DeerConfig) -> None:
     if cfg.head_type != "deterministic":
         raise NotImplementedError(
             f"head_type {cfg.head_type!r} is not ported")
+
+
+def any_head_forward(p: dict, feat: torch.Tensor, cfg: DeerConfig,
+                     state: Optional[torch.Tensor] = None, *,
+                     window: Optional[int] = None,
+                     last_action: bool = False) -> HeadOutput:
+    """Full-window mode (inference)."""
+    _check(cfg)
+    return head_forward(p, feat, cfg.head, state, window=window,
+                        last_action=last_action)
 
 
 def any_head_step(p: dict, feat: torch.Tensor, carry, cfg: DeerConfig,

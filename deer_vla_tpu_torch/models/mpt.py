@@ -5,17 +5,19 @@ MPT block = pre-LN attention (fused Wqkv, ALiBi bias, no biases when
 variant selects layer ``i`` of (L, ...) weights: its four big products go
 through the layer-indexed kernels (K2, or K3 / K4 for int8 / int4 weights)
 with a device-side index, the small LayerNorm leaves are sliced on the
-host.
+host.  ``decoder_forward`` runs every layer over the unstacked weights and
+returns all layer outputs (training and calibration).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig, MPTConfig
-from deer_vla_tpu_torch.models.gated_xattn import init_gated_xattn
+from deer_vla_tpu_torch.models.gated_xattn import (gated_xattn_forward,
+                                                   init_gated_xattn)
 from deer_vla_tpu_torch.ops.alibi import causal_padding_bias, full_attn_bias
 from deer_vla_tpu_torch.ops.attention import (dot_attention, merge_heads,
                                               split_heads)
@@ -139,3 +141,43 @@ def make_attn_bias(attention_mask: torch.Tensor, cfg: MPTConfig,
         return full_attn_bias(attention_mask, cfg.n_heads, s,
                               cfg.alibi_bias_max, dtype)
     return causal_padding_bias(attention_mask, s, dtype)
+
+
+def _layer(params: dict, i: int, x: torch.Tensor, media: torch.Tensor,
+           media_locations: Optional[torch.Tensor], attn_bias: torch.Tensor,
+           cfg: DeerConfig) -> torch.Tensor:
+    """Decoder layer i over the unstacked tree: gated cross-attention (where
+    the layer has one), then the MPT block."""
+    xp = params["xattn"][i]
+    if xp is not None:
+        x = gated_xattn_forward(
+            xp, x, media, media_locations, heads=cfg.xattn_heads,
+            dim_head=cfg.xattn_dim_head,
+            only_attend_immediate_media=cfg.only_attend_immediate_media)
+    return mpt_block_forward(params["blocks"][i], x, attn_bias, cfg.mpt)
+
+
+def decoder_forward(params: dict, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor, media: torch.Tensor,
+                    cfg: DeerConfig,
+                    media_locations: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every layer, as training and calibration run them: (hidden_states
+    (n_layers, B, S, D), the last layer's output).  hidden_states[i] is the
+    output of layer i (mosaic_gpt_3b.py:424-427); the exit heads read these
+    raw outputs, so ``ln_f`` is not applied (flamingo_mpt.py:459,465).  The
+    products run through ``linear`` on the unstacked weights, as the JAX
+    package computes them outside any Pallas kernel."""
+    if cfg.mpt.arch != "mpt":
+        raise NotImplementedError(f"decoder arch {cfg.mpt.arch!r} is not "
+                                  "ported")
+    cdt = cfg.dtypes.cdt
+    x = embed_tokens(params, input_ids, cdt)
+    if media_locations is None:
+        media_locations = input_ids == cfg.media_token_id
+    attn_bias = make_attn_bias(attention_mask, cfg.mpt, cdt)
+    outs = []
+    for i in range(cfg.n_layers):
+        x = _layer(params, i, x, media, media_locations, attn_bias, cfg)
+        outs.append(x)
+    return torch.stack(outs), x

@@ -1,4 +1,5 @@
-"""Single-step multi-layer LSTM for the streaming action head.
+"""Multi-layer LSTM for the action heads: the full window (calibration)
+and the single streaming step.
 
 Same semantics as the JAX package's ``ops/lstm.py``: gate order
 [i, f, g, o], bias ``bi + bh``, optional LayerNorm on each layer's output
@@ -7,7 +8,7 @@ Same semantics as the JAX package's ``ops/lstm.py``: gate order
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,6 +50,32 @@ def _cell_step(p: dict, x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
+
+
+def lstm_forward(params: dict, x: torch.Tensor,
+                 carry: Optional[Carry] = None
+                 ) -> Tuple[torch.Tensor, Carry]:
+    """The whole stack over a window (no dropout: the inference forward).
+    x (B, T, Din) -> top layer's output (B, T, H) and the final carry; the
+    carry starts at zeros when not given."""
+    layers = params["layers"]
+    if carry is None:
+        carry = zero_carry(len(layers), x.shape[0], layers[0]["wh"].shape[0],
+                           x.dtype, x.device)
+    h0, c0 = carry
+    new_h, new_c = [], []
+    for li, lp in enumerate(layers):
+        h, c = h0[li].to(x.dtype), c0[li].to(x.dtype)
+        ys = []
+        for t in range(x.shape[1]):
+            h, c = _cell_step(lp, x[:, t], h, c)
+            ys.append(h)
+        x = torch.stack(ys, dim=1)
+        if "ln" in lp:
+            x = layernorm(lp["ln"], x)
+        new_h.append(h)
+        new_c.append(c)
+    return x, (torch.stack(new_h), torch.stack(new_c))
 
 
 def lstm_step(params: dict, x_t: torch.Tensor, carry: Carry

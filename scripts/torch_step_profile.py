@@ -22,6 +22,10 @@ versions and the library call (SDPA; ``x @ W[i]``, for K3 / K4 over the
 stack dequantized to bf16 beforehand), with ``chip_smoke.py``'s timing
 routines (``k1_times``, ``k2_times``) and inputs, and counts the
 tensor-core instructions and type conversions in the SASS of K3 / K4.
+``--calibrate`` also profiles the calibration path: one deer_3b
+DebugBatcher batch (B=2, W=12, bf16) through ``generate_calibration_values``
+in the folded and the streamed regime, the host-clock seconds a batch (5
+batches after one warm-up) and the same profile over 2 more.
 ``--root DIR`` profiles the port found under DIR (for example another
 commit unpacked with ``git archive`` into an ignored directory) while the
 inputs, weights and timing stay this checkout's, so two commits are
@@ -86,6 +90,8 @@ def main() -> int:
                          "int8, int4, int8_w8a8, int4_w8a8")
     ap.add_argument("--kernels", action="store_true",
                     help="time K1-K4 alone at the serving shapes first")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="also profile a calibration batch, both regimes")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose port to profile; default this one")
     ap.add_argument("--out", default=str(OUT), help="JSON lines file")
@@ -108,6 +114,8 @@ def main() -> int:
     emit({"root": str(root)})
     if args.kernels:
         kernel_times(torch, smoke)
+    if args.calibrate:
+        profile_calibration(torch, smoke, cfg, params)
     for mode in args.quantize.split(","):
         profile_mode(torch, np, smoke, cfg, params,
                      None if mode == "none" else mode)
@@ -193,6 +201,37 @@ def quantized_kernel_times(torch, smoke, idxs) -> None:
     counts = smoke.sass_counts(build.build_library())
     emit({"sass": {name: c for name, c in counts.items()
                    if "indexed_matmul_quant" in name}})
+
+
+def profile_calibration(torch, smoke, cfg, params) -> None:
+    """Seconds a calibration batch and where its device time goes."""
+    from deer_vla_tpu_torch.eval.calibrate import (
+        generate_calibration_values, streamed_sample_probs)
+    cfg, batches = smoke.calib_debug_batches(cfg, 2, 1)
+    for regime in ("folded", "streamed"):
+        streamed = regime == "streamed"
+        esp = (streamed_sample_probs(cfg, 1.0, None, "exp", "deer_3b")
+               if streamed else None)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def run():  # ends with the values on the host
+            generate_calibration_values(params, cfg, batches, gen=gen,
+                                        streamed=streamed,
+                                        exit_sample_probs=esp)
+
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times = times[1:]
+        q = statistics.quantiles(times, n=4)
+        out = {"setting": f"calibrate_{regime}", "batch_size": 2,
+               "window": cfg.window_size, "batch_ms_median":
+               statistics.median(times), "batch_ms_q1": q[0],
+               "batch_ms_q3": q[2], "batches": len(times)}
+        out.update(profile(torch, run, steps=2))
+        emit(out)
 
 
 def profile_mode(torch, np, smoke, cfg, params, quantize):

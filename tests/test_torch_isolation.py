@@ -99,3 +99,19 @@ def test_policy_without_device_raises_when_no_card(monkeypatch):
     act = pol.step(img, img, ids, np.ones_like(ids))
     assert act.shape == (7,) and np.isfinite(act).all()
     assert pol.last_exit_layer in cfg.all_exit_ids()
+
+
+def test_eval_cli_without_device_raises_when_no_card(monkeypatch):
+    from deer_vla_tpu_torch.cli import eval as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--debug", "--model", "tiny", "--calib_batches", "1",
+                  "--num_sequences_override", "1"])
+
+
+def test_new_eval_modules_are_walked():
+    mods = port_modules()
+    for m in ("cli.eval", "eval.calibrate", "eval.rollout",
+              "eval.batched_rollout", "data.preprocess", "train.checkpoint"):
+        assert f"deer_vla_tpu_torch.{m}" in mods
