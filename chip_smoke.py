@@ -23,17 +23,24 @@ deer_3b calibration (2 debug batches of 2 trajectories, W=12: 48 ViT
 images through K1 a batch) in both regimes, its fp32 forward and deltas on
 the card against the CPU at W=2, and ``cli/eval`` run in-process
 (calibrate, then DebugEnv rollouts of 2 sequences: bf16 sequential and over
-2 lanes, int8 and int4 sequential) with K1-K4 counted.  K1 is checked at
-the ViT batch of every driven path (``vit_batches``), and every shape the
-models hand K1 while the paths run is recorded and must be one of those
-checked.
+2 lanes, int8 and int4 sequential) with K1-K4 counted.  Then training:
+one fp32 deer_3b train step (B=1, W=2) on the card against the CPU, the
+guard that refuses a ViT gradient on the card (``--unfreeze_vit``: K1 has
+no backward), ``cli/train --debug`` in-process (deer_3b, batch 6, W=12: 1
+joint and 1 exit-only epoch of 4 steps, 144 ViT images a step through K1,
+K2-K4 not launched; frozen leaves bit-unchanged, trained leaves moved) and
+``cli/eval --evaluate_from_checkpoint`` on its checkpoint.  K1 is checked
+at the ViT batch of every driven path (``vit_batches``), and every shape
+the models hand K1 while the paths run is recorded and must be one of
+those checked.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the port's package beside this file, it
 exits non-zero and prints no result.  Compiler logs go to
-``chiprun_out/chip_smoke/``.
+``chiprun_out/chip_smoke/``; the training run's checkpoints go to
+``build/chip_smoke_train/`` and are deleted at the end.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -88,6 +96,25 @@ CROSS_TOL_FP32 = {"arm_max_abs": 1e-3, "hidden_rel_l2": 1e-3}
 ROLLOUT_RUNS = ((1, None), (2, None), (1, "int8"), (1, "int4"))
 # the window of the fp32 calibration cross-check (one trajectory)
 CALIB_CROSS_WINDOW = 2
+# the training phases: cli/train's default batch (trajectories of W=12),
+# 1 joint and 1 exit-only epoch of the DebugBatcher's 4 batches; a warmup
+# of 1 step (2500 would keep every update below fp32 resolution)
+TRAIN_BATCH = 6
+TRAIN_DIR = REPO / "build" / "chip_smoke_train"
+TRAIN_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--batch_size_calvin",
+              str(TRAIN_BATCH), "--num_joint_epochs", "1",
+              "--num_exit_epochs", "1", "--joint_warmup_steps", "1",
+              "--exit_warmup_steps", "1", "--logging_steps", "1",
+              "--from_scratch", "--run_name", str(TRAIN_DIR)]
+TRAIN_STEPS = 8
+VIT_LAYERS = 24
+# the fp32 train step, card against CPU (B=1, W=2, the window of
+# CALIB_CROSS_WINDOW): the loss and the gradients differ only by summation
+# order; Adam divides a gradient by its own size, so an updated param is
+# held to 1e-5 of its norm plus the gradient's tolerance times the norm of
+# its update (a zero-initialized bias is all update after one step)
+TRAIN_TOL_FP32 = {"loss_rel": 1e-5, "grad_rel_l2": 1e-3,
+                  "param_rel_l2": 1e-5}
 
 
 def emit(obj) -> None:
@@ -294,13 +321,16 @@ def vit_batches(cfg) -> dict:
     """The ViT batches, in streams (a stream is both cameras' frames), that
     the paths this script drives hand K1, by compute dtype: the serve
     phases' B=1 and B=8, each rollout's lanes, a calibration batch's B*W
-    frames (phase calibrate and ``cli/eval``); in fp32 the serve
-    cross-checks' B=1 and the calibration cross-check's W frames."""
+    frames (phase calibrate and ``cli/eval``), a training batch's B*W
+    frames; in fp32 the serve cross-checks' B=1 and the calibration and
+    training cross-checks' W frames."""
     from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE
     calib = CALIB_BATCH_SIZE * cfg.window_size
-    return {"bfloat16": sorted({1, 8, calib,
+    train = TRAIN_BATCH * cfg.window_size
+    return {"bfloat16": sorted({1, 8, calib, train,
                                 *(lanes for lanes, _ in ROLLOUT_RUNS)}),
-            "float32": sorted({1, CALIB_CROSS_WINDOW}), "calib": calib}
+            "float32": sorted({1, CALIB_CROSS_WINDOW}), "calib": calib,
+            "train": train}
 
 
 def k1_key(q, k, bias) -> tuple:
@@ -471,6 +501,8 @@ def phase_kernels(torch, vit: dict) -> dict:
                 summary["flash_attention_b8"] = row
             elif name == f"vit_strided_b{vit['calib']}_bfloat16":
                 summary["flash_attention_calib"] = row
+            elif name == f"vit_strided_b{vit['train']}_bfloat16":
+                summary["flash_attention_train"] = row
         rows.append(row)
     big = torch.zeros(1, 1, 8, 144, dtype=torch.bfloat16, device="cuda")
     try:
@@ -1105,12 +1137,315 @@ def phase_rollout(torch, np, lanes: int, quantize=None) -> dict:
     return out
 
 
+def train_inputs(torch, cfg, device):
+    """One DebugBatcher batch (1 trajectory of cfg's window) as the train
+    step takes it on ``device``, no random shift, and fixed layer draws
+    (sampling 1 the exits in turn, sampling 2 the last exit)."""
+    from deer_vla_tpu_torch.train.trainer import TrainConfig, prepare_batch
+    cfg, batches = calib_debug_batches(cfg, 1, 1)
+    batch = prepare_batch(batches[0], cfg, None,
+                          TrainConfig(rgb_pad=0, gripper_pad=0), device)
+    exits = cfg.all_exit_ids()
+    w = cfg.window_size
+    draws = {"rand_layer_ids": torch.tensor([[exits[i % len(exits)]
+                                              for i in range(w)]]),
+             "switch_layer_ids": torch.full((1, w), exits[-1])}
+    return cfg, batch, draws
+
+
+def train_step_parts(torch, params, cfg, batch, draws, snapshot: bool):
+    """One joint-phase step done as ``make_train_step`` does it, keeping the
+    gradients: (loss, {key: grad}, {key: param after the update}, and with
+    ``snapshot`` {key: param before it}), all on the CPU in fp32."""
+    from deer_vla_tpu_torch.models.flamingo import trainable_mask
+    from deer_vla_tpu_torch.train.optimizer import (flat_leaves,
+                                                    make_optimizer)
+    from deer_vla_tpu_torch.train.train_step import loss_and_grads
+    opt = make_optimizer(params, cfg, phase="joint", learning_rate=1e-4,
+                         warmup_steps=0, total_steps=1,
+                         trainable=trainable_mask(params, cfg, "joint"))
+    keys = opt.trainable_keys()
+    loss, _, grads = loss_and_grads(params, keys, batch, cfg, draws=[draws])
+    flat = flat_leaves(params)
+    grads = {k: torch.zeros_like(flat[k]) if g is None else g
+             for k, g in grads.items()}
+    before = ({k: flat[k].detach().float().cpu().clone() for k in keys}
+              if snapshot else None)
+    opt.update(params, grads, opt.init(params))
+    return (float(loss), {k: g.float().cpu() for k, g in grads.items()},
+            {k: flat[k].float().cpu() for k in keys}, before)
+
+
+def phase_train_cross_check(torch, np, params, cpu_params) -> None:
+    """deer_3b at W=2, one trajectory: a joint-phase train step in fp32 on
+    the card against fp32 on the CPU (the same weights, batch and layer
+    draws; no dropout): the loss, every trainable gradient and every
+    updated param."""
+    from deer_vla_tpu_torch.core.config import FP32, deer_3b
+    cfg2 = deer_3b(window_size=CALIB_CROSS_WINDOW, dtypes=FP32)
+    cfg2, batch, draws = train_inputs(torch, cfg2, torch.device("cuda"))
+    card = train_step_parts(torch, params, cfg2, batch, draws, True)
+    t0 = time.perf_counter()
+    cpu = train_step_parts(torch, cpu_params, cfg2,
+                           {k: v.cpu() for k, v in batch.items()}, draws,
+                           False)
+    cpu_s = time.perf_counter() - t0
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / max(float(torch.linalg.vector_norm(b.double())),
+                           1e-30))
+
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    grad_rel = {k: rel_l2(g, cpu[1][k]) for k, g in card[1].items()}
+    worst_param, param_rel = 0.0, {}
+    for k, p in card[2].items():
+        want, before = cpu[2][k], card[3][k]
+        err = float(torch.linalg.vector_norm((p - want).double()))
+        scale = (TRAIN_TOL_FP32["param_rel_l2"]
+                 * float(torch.linalg.vector_norm(want.double()))
+                 + TRAIN_TOL_FP32["grad_rel_l2"]
+                 * float(torch.linalg.vector_norm((want - before).double())))
+        worst_param = max(worst_param, err / max(scale, 1e-30))
+        param_rel[k] = err / max(
+            float(torch.linalg.vector_norm(want.double())), 1e-30)
+    worst = max(grad_rel, key=grad_rel.get)
+    moved = sum(not torch.equal(p, card[3][k]) for k, p in card[2].items())
+    emit({"phase": "train_cross_check", "config": "deer_3b W=2 B=1 fp32",
+          "loss": {"card": card[0], "cpu": cpu[0], "rel": loss_rel},
+          "grad_leaves": len(grad_rel), "grad_worst": [worst,
+                                                       grad_rel[worst]],
+          "param_err_over_bound": worst_param,
+          "param_worst_rel_l2": max(param_rel.items(), key=lambda kv: kv[1]),
+          "params_moved": moved,
+          "tol_fp32": TRAIN_TOL_FP32, "cpu_seconds": cpu_s})
+    check(np.isfinite(card[0]) and loss_rel <= TRAIN_TOL_FP32["loss_rel"],
+          f"train cross-check: loss {card[0]} vs {cpu[0]}")
+    check(grad_rel[worst] <= TRAIN_TOL_FP32["grad_rel_l2"],
+          f"train cross-check: grad {worst} rel {grad_rel[worst]}")
+    check(worst_param <= 1.0, f"train cross-check: params {worst_param}")
+    check(moved > 0, "train cross-check: no param moved")
+
+
+def phase_train_guard(torch, params) -> None:
+    """``--unfreeze_vit`` on the card: a train step must raise the kernel
+    guard's error (K1 has no backward), nothing else."""
+    from deer_vla_tpu_torch.core.config import FP32, deer_3b
+    from deer_vla_tpu_torch.models.flamingo import trainable_mask
+    from deer_vla_tpu_torch.train.optimizer import make_optimizer
+    from deer_vla_tpu_torch.train.train_step import (TrainState,
+                                                     make_train_step)
+    cfg2 = dataclasses.replace(deer_3b(window_size=CALIB_CROSS_WINDOW,
+                                       dtypes=FP32), unfreeze_vit=True)
+    cfg2, batch, draws = train_inputs(torch, cfg2, torch.device("cuda"))
+    opt = make_optimizer(params, cfg2, phase="joint", learning_rate=1e-4,
+                         warmup_steps=0, total_steps=1,
+                         trainable=trainable_mask(params, cfg2, "joint"))
+    check(any(k.startswith("vit/") for k in opt.trainable_keys()),
+          "train guard: the ViT is not trainable")
+    step = make_train_step(cfg2, opt)
+    want = "flash_attention: an input requires grad"
+    try:
+        step(TrainState(params, {}, 0), batch, draws=[draws])
+    except RuntimeError as err:
+        check(str(err).startswith(want), f"train guard: raised {err!r}")
+        emit({"phase": "train_guard", "raised": str(err)})
+    else:
+        check(False, "train guard: the step trained the ViT on the card")
+    check(not any(t.requires_grad for t in params["vit"]["blocks"][0]
+                  ["qkv"].values()), "train guard: grads left switched on")
+
+
+@contextlib.contextmanager
+def train_updates(steps: list):
+    """While open, records each optimizer update of the train step: when it
+    ended (synchronised), the phase's trainable keys, which leaves got a
+    nonzero gradient and which one above Adam's eps, the loss.  The
+    bookkeeping's own time is recorded apart."""
+    from deer_vla_tpu_torch.train.optimizer import EPS
+    import torch
+    from deer_vla_tpu_torch.train import train_step
+    real = train_step._apply_update
+
+    def logged(optimizer, state, grads, loss, metrics):
+        out = real(optimizer, state, grads, loss, metrics)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        peak = torch.stack([g.abs().amax().float() for g in grads.values()])
+        peak = dict(zip(grads, peak.cpu().tolist()))
+        steps.append({"t": t, "keys": set(grads),
+                      "nonzero": {k for k, v in peak.items() if v > 0},
+                      "above_eps": {k for k, v in peak.items() if v > EPS},
+                      "loss": float(loss),
+                      "grad_norm": float(out[1]["grad_norm"]),
+                      "bookkeeping_s": time.perf_counter() - t})
+        return out
+
+    train_step._apply_update = logged
+    try:
+        yield steps
+    finally:
+        train_step._apply_update = real
+
+
+def phase_train(torch, np) -> dict:
+    """``cli/train.main`` in-process on the card: deer_3b (bf16, fp32
+    masters of the trainable leaves, bf16 frozen leaves), 1 joint and 1
+    exit-only epoch of 4 DebugBatcher batches of 6 trajectories, W=12.
+    Checks every loss is finite, K1 ran 24 times a step and K2-K4 never,
+    the frozen leaves are bit for bit a fresh draw of the seed (the
+    backbone an evaluation rebuilds), every joint-trainable leaf with a
+    gradient moved in the joint phase (deer_0.ckpt against the fresh
+    draw), and the exit-only phase moved head leaves only (the final
+    params against deer_0.ckpt).  "With a gradient" is a gradient above
+    Adam's eps (1e-8) in some step: Adam scales a smaller one down by
+    |g| / (|g| + eps), and the update can round away on a leaf near 1
+    (a LayerNorm scale).  With the init's x-attn gates at 0 and step 0's
+    lr at 0, the x-attn internals see their first gradients in step 2 of
+    the joint phase."""
+    import io
+    from deer_vla_tpu_torch.cli import train as cli
+    from deer_vla_tpu_torch.models.flamingo import (cast_frozen_to_bf16,
+                                                    init_deer,
+                                                    trainable_mask)
+    from deer_vla_tpu_torch.ops.layers import (flat_key,
+                                               tree_leaves_with_path)
+    from deer_vla_tpu_torch.train.checkpoint import load_checkpoint
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps, buf = [], io.StringIO()
+    t0 = time.perf_counter()
+    with train_updates(steps), contextlib.redirect_stdout(buf):
+        trainer = cli.main(TRAIN_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "cli_train.log").write_text(buf.getvalue())
+    cfg = trainer.cfg
+    check(len(steps) == TRAIN_STEPS, f"train: {len(steps)} steps")
+    check(all(np.isfinite(s["loss"]) for s in steps),
+          f"train: losses {[s['loss'] for s in steps]}")
+    check(launches["flash_attention"] == VIT_LAYERS * TRAIN_STEPS,
+          f"train: K1 launched {launches['flash_attention']} times")
+    check(all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+          f"train: K2-K4 launched: {launches}")
+
+    with torch.no_grad():
+        fresh = init_deer(cfg, seed=trainer.tcfg.seed, device="cuda")
+        fresh = cast_frozen_to_bf16(fresh, trainable_mask(fresh, cfg,
+                                                          "joint"))
+    final = flat_leaves(trainer.params)
+    start = flat_leaves(fresh)
+    joint_end = flat_leaves(load_checkpoint(
+        str(TRAIN_DIR / "deer_0.ckpt"), trainer.params)[0])
+    joint_mask = {flat_key(p): m for p, m in tree_leaves_with_path(
+        trainable_mask(fresh, cfg, "joint"))}
+    frozen_changed = [k for k, m in joint_mask.items()
+                      if not m and not torch.equal(final[k], start[k])]
+    check(not frozen_changed, f"train: frozen leaves changed: "
+                              f"{frozen_changed[:5]}")
+    joint_steps, exit_steps = steps[:TRAIN_STEPS // 2], steps[TRAIN_STEPS // 2:]
+    joint_grad = set().union(*(s["above_eps"] for s in joint_steps))
+    joint_nonzero = set().union(*(s["nonzero"] for s in joint_steps))
+    joint_keys = joint_steps[0]["keys"]
+    unmoved = [k for k in joint_grad
+               if torch.equal(joint_end[k], start[k])]
+    check(not unmoved, f"train: joint leaves with a gradient did not "
+                       f"move: {unmoved[:5]}")
+    exit_keys = exit_steps[0]["keys"]
+    heads = {"lm_head", "extra_exit", "lm_exits"}
+    check(all(k.split("/")[0] in heads for k in exit_keys),
+          "train: the exit-only phase trains non-head leaves")
+    exit_grad = set().union(*(s["above_eps"] for s in exit_steps))
+    exit_nonzero = set().union(*(s["nonzero"] for s in exit_steps))
+    moved_in_exit = {k for k in final if not torch.equal(final[k],
+                                                         joint_end[k])}
+    check(moved_in_exit <= exit_keys and exit_grad <= moved_in_exit,
+          f"train: exit-only moved {sorted(moved_in_exit - exit_keys)[:5]}, "
+          f"left {sorted(exit_grad - moved_in_exit)[:5]}")
+    ends = [s["t"] for s in steps]
+    book = [s["bookkeeping_s"] for s in steps]
+    secs = [ends[i] - ends[i - 1] - book[i - 1] for i in range(1, len(ends))]
+    files = {f.name: f.stat().st_size for f in sorted(TRAIN_DIR.iterdir())}
+    out = {"phase": "train", "argv": TRAIN_ARGV, "seconds": seconds,
+           "steps": len(steps), "losses": [s["loss"] for s in steps],
+           "grad_norms": [s["grad_norm"] for s in steps],
+           # warm medians: a phase's first step is not in its list
+           "joint_step_s_median": statistics.median(secs[:3]),
+           "exit_step_s_median": statistics.median(secs[4:]),
+           "step_s": secs, "peak_memory_gb": peak_gb,
+           "trainable_joint": len(joint_keys),
+           "joint_no_gradient": len(joint_keys - joint_nonzero),
+           "joint_gradient_below_eps": len(joint_nonzero - joint_grad),
+           "joint_below_eps_unmoved": sum(
+               torch.equal(joint_end[k], start[k])
+               for k in joint_nonzero - joint_grad),
+           "trainable_exit_only": len(exit_keys),
+           "exit_no_gradient": len(exit_keys - exit_nonzero),
+           "exit_gradient_below_eps": len(exit_nonzero - exit_grad),
+           "frozen_leaves": sum(not m for m in joint_mask.values()),
+           "checkpoint_files": files, "launches": launches}
+    emit(out)
+    del trainer, fresh, final, start, joint_end
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_eval(torch) -> dict:
+    """``cli/eval --evaluate_from_checkpoint`` on the training run's last
+    checkpoint, in-process on the card: the delta overlays the rebuilt
+    backbone (every stored leaf consumed), then calibration and 2 DebugEnv
+    rollout sequences with K1 and K2 counted."""
+    import io
+    import warnings
+    from deer_vla_tpu_torch.cli import eval as cli
+    ckpt = str(TRAIN_DIR / "deer_1.ckpt")
+    argv = ["--debug", "--model", "deer_3b", "--evaluate_from_checkpoint",
+            ckpt, "--calib_batches", "2", "--num_sequences_override", "2",
+            "--ep_len", "40", "--exit_ratio", "0.5"]
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(buf):
+        warnings.simplefilter("always")
+        report = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    text = buf.getvalue()
+    (OUT_DIR / "cli_eval_from_checkpoint.log").write_text(text)
+    loaded = re.search(r"loaded (\d+) param groups from ckpt", text)
+    unmatched = [str(w.message) for w in caught
+                 if "not matched" in str(w.message)]
+    check(loaded and int(loaded.group(1)) > 0,
+          "train_eval: no leaf loaded from the checkpoint")
+    check(not unmatched, f"train_eval: unconsumed keys: {unmatched}")
+    check(launches["flash_attention"] > 0 and launches["indexed_matmul"] > 0,
+          f"train_eval: K1 / K2 not launched: {launches}")
+    out = {"phase": "train_eval", "argv": argv, "seconds": seconds,
+           "loaded_keys": int(loaded.group(1)), "unconsumed_keys": 0,
+           "avg_seq_len": report["avg_seq_len"],
+           "avg_exit_layer": report["avg_exit_layer"],
+           "exit_hist": report["exit_hist"], "launches": launches}
+    emit(out)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(summary: dict, launches: dict, tc: dict,
                  path_launches: dict) -> dict:
     """``launches`` maps each kernel to its count on the serve path that
     runs it: K1 and K2 on the bf16 serve, K3 on int8's, K4 on int4's;
-    ``path_launches`` holds every kernel's count on the calibration and
-    rollout paths, by path."""
+    ``path_launches`` holds every kernel's count on the calibration,
+    rollout and training paths, by path."""
     k1 = summary["flash_attention"]
     out = [{"name": "flash_attention", "route": "cuda",
             "source": "deer_vla_tpu_torch/csrc/flash_attention.cu",
@@ -1129,6 +1464,14 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
             "calib_bound_ms": summary["flash_attention_calib"]["bound_ms"],
             "calib_shape": "q,k,v (48,16,257,64) bf16 strided views of a "
                            "fused qkv (ViT layer of a calibration batch)",
+            "train_ms": summary["flash_attention_train"]["kernel_ms"],
+            "train_plain_ms": summary["flash_attention_train"]["reference_ms"],
+            "train_library_ms": summary["flash_attention_train"]["library_ms"],
+            "train_bound_ms": summary["flash_attention_train"]["bound_ms"],
+            "train_max_abs_err":
+                summary["flash_attention_train"]["max_abs_err"],
+            "train_shape": "q,k,v (144,16,257,64) bf16 strided views of a "
+                           "fused qkv (ViT layer of a training batch)",
             "tensor_core_sass": tc["flash_attention"]["hmma_hgmma"],
             "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)"}]
     for name, source, line, weights, library in (
@@ -1167,8 +1510,9 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
 
 def drive_paths(torch, np, cfg) -> tuple:
     """The main paths on seeded deer_3b weights: serving in every mode with
-    its cross-checks, calibration with its cross-check, the cli/eval
-    rollouts."""
+    its cross-checks, calibration with its cross-check, the train step's
+    cross-check and guard, the cli/eval rollouts, then cli/train and
+    cli/eval on its checkpoint."""
     from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     t0 = time.perf_counter()
@@ -1186,11 +1530,15 @@ def drive_paths(torch, np, cfg) -> tuple:
     phase_cross_check_quantized(torch, np, cfg, params, cpu_params)
     calib = phase_calibrate(torch, np, cfg, params)
     phase_calibrate_cross_check(torch, np, cfg, params, cpu_params)
-    del params, cpu_params
+    phase_train_cross_check(torch, np, params, cpu_params)
+    del cpu_params
+    phase_train_guard(torch, params)
+    del params
     torch.cuda.empty_cache()
     rollouts = [phase_rollout(torch, np, lanes, quantize)
                 for lanes, quantize in ROLLOUT_RUNS]
-    return serve, quantized, calib, rollouts
+    paths = rollouts + [phase_train(torch, np), phase_train_eval(torch)]
+    return serve, quantized, calib, paths
 
 
 def main() -> int:
@@ -1214,7 +1562,7 @@ def main() -> int:
 
     k1_seen = set()
     with k1_calls(k1_seen):
-        serve, quantized, calib, rollouts = drive_paths(torch, np, cfg)
+        serve, quantized, calib, paths = drive_paths(torch, np, cfg)
     unchecked = k1_seen - summary["k1_checked"]
     emit({"phase": "k1_shapes", "driven": sorted(map(str, k1_seen)),
           "unchecked": sorted(map(str, unchecked))})
@@ -1226,7 +1574,7 @@ def main() -> int:
         name: sum(b[name] for r in calib["regimes"].values()
                   for b in r["launches_per_batch"])
         for name in kernel_counters()}}
-    for r in rollouts:
+    for r in paths:  # the rollouts, train and train_eval
         path_launches[r["phase"]] = r["launches"]
     launches = dict(serve["launches"])
     launches["indexed_matmul_q8"] = \

@@ -7,8 +7,10 @@ them in closed-loop rollouts (the JAX package's ``cli/eval.py`` with
 
 ``main(argv, device=None)`` runs on the card; ``device="cpu"`` runs the
 plain versions on the CPU.  The weights are ``init_deer`` draws from
-``--seed``.  The flags keep the JAX names; a JAX flag this CLI does not
-serve raises SystemExit naming the ROADMAP.md item that will serve it.
+``--seed``, or a checkpoint (``--evaluate_from_checkpoint``, its config
+from the ``.json`` sidecar) overlaid on the backbone it was trained over.
+The flags keep the JAX names; a JAX flag this CLI does not serve raises
+SystemExit naming the ROADMAP.md item that will serve it.
 
 The parse contract of the reference's log readers is kept: the last three
 stdout lines are the thresholds (comma separated), the average successful
@@ -38,7 +40,6 @@ CALIB_BATCH_SIZE = 2
 # ROADMAP.md item that serves it).  A value other than the default raises.
 _FLAG = {"action": "store_true"}
 UNSERVED = (
-    ("--evaluate_from_checkpoint", "", {}, "M0 (msgpack .ckpt loading)"),
     ("--calvin_dataset", "", {}, "M9 (the CALVIN env and data)"),
     ("--calvin_conf_path", "", {}, "M9 (the CALVIN env and data)"),
     ("--eval_sequences", "eval_sequences.json", {},
@@ -123,6 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "rollouts (the only backend ported)")
     p.add_argument("--num_sequences_override", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--evaluate_from_checkpoint", default="",
+                   help="a .ckpt written by cli/train (or any full "
+                        "checkpoint); its .json sidecar gives the config")
     for flag, default, kw, _ in UNSERVED:
         p.add_argument(flag, default=default, **kw)
     return p
@@ -144,6 +148,59 @@ def model_config(args):
         return deer_tiny(dtypes=dtypes)
     return MODELS[args.model](
         max_layer=args.max_layer if args.max_layer > 0 else 12, dtypes=dtypes)
+
+
+def load_model(args, dev: torch.device):
+    """(cfg, params) on ``dev``: seeded random weights, or a checkpoint.
+
+    A delta checkpoint stores only the trained leaves and overlays a seeded
+    random backbone, which must be the one it was trained over.  The port's
+    trainer records how it drew that backbone (package, seed, generator
+    device: a seed draws other numbers on the CPU, on the card and in the
+    JAX package); it is rebuilt that way.  A delta checkpoint without that
+    record (one the JAX package wrote) raises instead of overlaying onto
+    other weights; a full checkpoint loads anywhere."""
+    from deer_vla_tpu_torch.core.config import DeerConfig
+    from deer_vla_tpu_torch.models.flamingo import init_deer
+    from deer_vla_tpu_torch.ops.layers import tree_leaves_with_path, tree_map
+    from deer_vla_tpu_torch.train.checkpoint import load_checkpoint
+    from deer_vla_tpu_torch.train.trainer import INIT_PACKAGE
+
+    if not args.evaluate_from_checkpoint:
+        cfg = model_config(args)
+        return cfg, init_deer(cfg, seed=args.seed, device=dev)
+    path = args.evaluate_from_checkpoint
+    stem = path[:-5] if path.endswith(".ckpt") else path
+    with open(stem + ".json") as f:
+        side = json.load(f)
+    cfg = dataclasses.replace(DeerConfig.from_json(json.dumps(side["config"])),
+                              dtypes=BF16 if args.precision == "bf16"
+                              else FP32)
+    if args.max_layer > 0:
+        cfg = dataclasses.replace(cfg, mpt=dataclasses.replace(
+            cfg.mpt, n_layers=args.max_layer))
+    init = side.get("meta", {}).get("init") or {}
+    rebuilt = init.get("package") == INIT_PACKAGE
+    if rebuilt:
+        gen_dev = torch.device(init["generator_device"])
+        if gen_dev.type == "cuda" and not torch.cuda.is_available():
+            raise SystemExit(f"{path}: its backbone was drawn on a CUDA "
+                             "device; rebuilding it needs one")
+        params = tree_map(lambda t: t.to(dev),
+                          init_deer(cfg, seed=int(init["seed"]),
+                                    device=gen_dev))
+    else:
+        params = init_deer(cfg, seed=args.seed, device=dev)
+    params, _, loaded = load_checkpoint(path, params)
+    n_loaded = loaded["meta"]["loaded_keys"]
+    if not rebuilt and n_loaded < len(tree_leaves_with_path(params)):
+        raise SystemExit(
+            f"{path} is a delta checkpoint ({n_loaded} leaves) whose "
+            "frozen backbone the port cannot rebuild (its sidecar does not "
+            "say how the port drew it); refusing to overlay it on other "
+            "weights")
+    print(f"loaded {n_loaded} param groups from ckpt")
+    return cfg, params
 
 
 def exit_contract(report, probs, real_ids) -> dict:
@@ -192,7 +249,6 @@ def main(argv=None, device: Optional[str] = None) -> dict:
                                                  make_debug_sequences,
                                                  process_count)
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
-    from deer_vla_tpu_torch.models.flamingo import init_deer
     from deer_vla_tpu_torch.models.value_net import (ExitController,
                                                      exit_probs)
     from deer_vla_tpu_torch.train.checkpoint import (load_calibration_info,
@@ -200,10 +256,9 @@ def main(argv=None, device: Optional[str] = None) -> dict:
                                                      save_calibration_values)
 
     dev = resolve_device(device)
-    cfg = model_config(args)
+    cfg, params = load_model(args, dev)
     tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
     cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
-    params = init_deer(cfg, seed=args.seed, device=dev)
     max_layer = args.max_layer if args.max_layer > 0 else cfg.n_layers
     exits = list(cfg.all_exit_ids())
     size = cfg.vit.image_size

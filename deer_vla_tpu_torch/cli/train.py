@@ -1,0 +1,255 @@
+"""Training CLI of the port (the JAX package's ``cli/train.py``, the
+reference's train_calvin_post_strategy.py) with ``--debug`` data:
+
+    python -m deer_vla_tpu_torch.cli.train --debug --model mpt_dolly_3b \
+        --num_joint_epochs 1 --num_exit_epochs 1 --joint_warmup_steps 1 \
+        --exit_warmup_steps 1 --run_name runs/deer
+
+``main(argv, device=None)`` trains on the card; ``device="cpu"`` runs the
+plain versions on the CPU.  The weights are ``init_deer`` draws from
+``--seed``; checkpoints go to ``--run_name`` as ``deer_{epoch}.ckpt`` with
+their ``.json`` sidecars, and ``cli/eval --evaluate_from_checkpoint``
+serves them.  The flags keep the JAX names; a JAX flag this CLI does not
+serve raises SystemExit naming the ROADMAP.md item that will serve it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Optional
+
+from deer_vla_tpu_torch.core.config import BF16, FP32, deer_3b, deer_tiny
+
+MODELS = {"mpt_dolly_3b": deer_3b, "tiny": deer_tiny}
+
+# JAX flags not served yet: (flag, JAX default, argparse keywords, the
+# ROADMAP.md item that serves it).  A value other than the default raises.
+_FLAG = {"action": "store_true"}
+_VARIANTS = "M10 (model variants)"
+UNSERVED = (
+    ("--dif_ws", False, _FLAG, "M11 (data/calvin.py variable windows)"),
+    ("--min_window_size", 12, {"type": int},
+     "M11 (data/calvin.py variable windows)"),
+    ("--max_window_size", 24, {"type": int},
+     "M11 (data/calvin.py variable windows)"),
+    ("--multi_step_action", 1, {"type": int}, _VARIANTS),
+    ("--use_state", False, _FLAG, _VARIANTS),
+    ("--clip_state", False, _FLAG, _VARIANTS),
+    ("--sep_resampler", False, _FLAG, _VARIANTS),
+    ("--fusion_mode", "post", {}, _VARIANTS),
+    ("--use_hist", False, _FLAG, _VARIANTS),
+    ("--head_type", "deterministic", {}, _VARIANTS),
+    ("--hidden_size", None, {"type": int}, _VARIANTS),
+    ("--n_timesteps", 150, {"type": int}, _VARIANTS),
+    ("--n_obs_steps", 6, {"type": int}, _VARIANTS),
+    ("--diff_horizon", 32, {"type": int}, _VARIANTS),
+    ("--gripper_res", 0, {"type": int}, _VARIANTS),
+    ("--calvin_dataset", "", {}, "M11 (data/calvin.py)"),
+    ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
+    ("--text_aug", False, _FLAG, "M11 (data/calvin.py)"),
+    ("--data_percent", 1.0, {"type": float}, "M11 (data/calvin.py)"),
+    ("--workers", 4, {"type": int}, "M11 (data/calvin.py)"),
+    ("--tcp_rel", False, _FLAG, "M9b (tcp-frame actions)"),
+    ("--cotrain", False, _FLAG, "M16 (vision-language co-training)"),
+    ("--cotrain_laion_shards", "", {}, "M16 (vision-language co-training)"),
+    ("--coco_image_dir", "", {}, "M16 (vision-language co-training)"),
+    ("--coco_ann", "", {}, "M16 (vision-language co-training)"),
+    ("--vqa_image_dir", "", {}, "M16 (vision-language co-training)"),
+    ("--vqa_questions", "", {}, "M16 (vision-language co-training)"),
+    ("--vqa_ann", "", {}, "M16 (vision-language co-training)"),
+    ("--vl_weight", 1.0, {"type": float},
+     "M16 (vision-language co-training)"),
+    ("--vl_batch_size", None, {"type": int},
+     "M16 (vision-language co-training)"),
+    ("--vit_tome_r", 0, {"type": int}, "M13 (ToMe)"),
+    ("--remat", False, _FLAG, "M11 (--remat)"),
+    ("--remat_policy", "full", {}, "M11 (--remat)"),
+    ("--coordinator", "", {}, "M15 (multi-host)"),
+    ("--num_processes", 1, {"type": int}, "M15 (multi-host)"),
+    ("--process_id", 0, {"type": int}, "M15 (multi-host)"),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="DeeR-VLA training on the PyTorch port")
+    p.add_argument("--model", default="mpt_dolly_3b",
+                   choices=["mpt_dolly_3b", "mpt_9b", "llama_9b", "tiny"])
+    p.add_argument("--max_layer", type=int, default=12,
+                   help="truncated decoder depth (early_exit_layer + 1)")
+    p.add_argument("--exit_interval", type=int, default=2)
+    p.add_argument("--window_size", type=int, default=12)
+    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--share_exit", action="store_true")
+    p.add_argument("--freeze_embed", action="store_true",
+                   help="keep token embeddings frozen in the joint phase")
+    p.add_argument("--freeze_sampler", action="store_true",
+                   help="keep the perceiver resampler frozen")
+    p.add_argument("--unfreeze_vit", action="store_true",
+                   help="train the ViT too (on the card this raises: K1 "
+                        "has no backward)")
+    p.add_argument("--train_params", type=int, default=-1,
+                   help=">=0: train only the last round(n/140) gated "
+                        "x-attn layers (factory.py:214-222)")
+    p.add_argument("--exit_dropout", type=float, default=None)
+    p.add_argument("--lstm_dropout", type=float, default=None)
+    p.add_argument("--dropout_mode", default=None,
+                   choices=["layerwise", "last", "wo_last"])
+    p.add_argument("--mlp_num_hidden_layers", type=int, default=None)
+    p.add_argument("--lstm_num_layers", type=int, default=None)
+    p.add_argument("--mlp_layernorm", action="store_true")
+    p.add_argument("--lstm_layernorm", action="store_true")
+    p.add_argument("--pooling", default=None, choices=["max", "mean"])
+    p.add_argument("--single_exit", action="store_true",
+                   help="train only the final head")
+    p.add_argument("--bin_coef", type=float, default=None,
+                   help="gripper-BCE weight; default 0.05 with --real_data, "
+                        "else 0.01 (train_utils.py:314-316)")
+    p.add_argument("--exit_strategy", default="post", choices=["post"])
+    p.add_argument("--loss_multiplier_calvin", type=float, default=1.0)
+    p.add_argument("--save_freq", type=int, default=1)
+    p.add_argument("--rgb_pad", type=int, default=10)
+    p.add_argument("--gripper_pad", type=int, default=4)
+    p.add_argument("--traj_cons", action="store_true", default=True)
+    p.add_argument("--batch_size_calvin", type=int, default=6)
+    p.add_argument("--num_joint_epochs", type=int, default=4)
+    p.add_argument("--num_exit_epochs", type=int, default=5)
+    p.add_argument("--joint_learning_rate", type=float, default=1e-4)
+    p.add_argument("--exit_learning_rate", type=float, default=2.5e-4)
+    p.add_argument("--joint_lr_scheduler", default="constant")
+    p.add_argument("--exit_lr_scheduler", default="constant")
+    p.add_argument("--joint_warmup_steps", type=int, default=2500)
+    p.add_argument("--exit_warmup_steps", type=int, default=2500)
+    p.add_argument("--weight_decay", type=float, default=0.1)
+    p.add_argument("--exit_lr_scale", type=float, default=1.0)
+    p.add_argument("--exit_decay", action="store_true")
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--real_data", action="store_true")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--run_name", default="runs/deer")
+    p.add_argument("--resume", action="store_true", default=True)
+    p.add_argument("--from_scratch", action="store_true",
+                   help="ignore existing checkpoints in run_name")
+    p.add_argument("--no_gripper", action="store_true",
+                   help="single-camera ablation: drop the gripper camera")
+    p.add_argument("--logging_steps", type=int, default=100)
+    p.add_argument("--save_every_iter", type=int, default=-1)
+    p.add_argument("--ema_decay", type=float, default=0.0)
+    p.add_argument("--debug", action="store_true",
+                   help="DebugBatcher data (the only source ported)")
+    for flag, default, kw, _ in UNSERVED:
+        p.add_argument(flag, default=default, **kw)
+    return p
+
+
+def check_served(args) -> None:
+    for flag, default, _, item in UNSERVED:
+        if getattr(args, flag[2:]) != default:
+            raise SystemExit(f"{flag} is not served by the PyTorch port yet "
+                             f"(ROADMAP.md {item})")
+    if args.model not in MODELS:
+        raise SystemExit(f"--model {args.model} is not served by the "
+                         f"PyTorch port yet (ROADMAP.md {_VARIANTS})")
+    if not args.debug:
+        raise SystemExit("training data other than --debug is not served "
+                         "by the PyTorch port yet (ROADMAP.md M11, "
+                         "data/calvin.py)")
+
+
+def make_model_config(args):
+    """The model config the flags ask for (JAX ``make_model_config``)."""
+    dtypes = BF16 if args.precision == "bf16" else FP32
+    if args.model == "tiny":
+        cfg = deer_tiny(window_size=min(args.window_size, 4), dtypes=dtypes)
+    else:
+        cfg = MODELS[args.model](max_layer=args.max_layer,
+                                 exit_interval=args.exit_interval,
+                                 window_size=args.window_size, dtypes=dtypes)
+    updates = {"share_exit": args.share_exit,
+               "freeze_embed": args.freeze_embed,
+               "freeze_sampler": args.freeze_sampler,
+               "unfreeze_vit": args.unfreeze_vit,
+               "train_params": args.train_params,
+               "use_gripper": not args.no_gripper}
+    if args.single_exit:
+        updates["multi_exit"] = False
+    head_updates = {}
+    for flag, field in (("exit_dropout", "dropout"),
+                        ("lstm_dropout", "lstm_dropout"),
+                        ("dropout_mode", "dropout_mode"),
+                        ("mlp_num_hidden_layers", "mlp_num_hidden_layers"),
+                        ("lstm_num_layers", "lstm_num_layers"),
+                        ("pooling", "pooling")):
+        v = getattr(args, flag)
+        if v is not None:
+            head_updates[field] = v
+    if args.mlp_layernorm:
+        head_updates["mlp_layernorm"] = True
+    if args.lstm_layernorm:
+        head_updates["lstm_layernorm"] = True
+    if head_updates:
+        updates["head"] = dataclasses.replace(cfg.head, **head_updates)
+    return dataclasses.replace(cfg, **updates)
+
+
+def build_trainer(argv=None, device: Optional[str] = None):
+    """(the ``Trainer`` the flags ask for, the parsed flags), untrained."""
+    args = build_parser().parse_args(argv)
+    check_served(args)
+    from deer_vla_tpu_torch.core.device import resolve_device
+    from deer_vla_tpu_torch.data.debug_data import DebugBatcher
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    from deer_vla_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    dev = resolve_device(device)
+    cfg = make_model_config(args)
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size,
+                        max_length=cfg.text_len)
+    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id,
+                              eoc_token_id=tok.eoc_token_id)
+    loader = DebugBatcher(cfg, tok, batch_size=args.batch_size_calvin,
+                          num_batches=4, img_hw=cfg.vit.image_size,
+                          grip_hw=cfg.vit.image_size)
+    tcfg = TrainConfig(
+        run_dir=args.run_name,
+        num_joint_epochs=args.num_joint_epochs,
+        num_exit_epochs=args.num_exit_epochs,
+        joint_lr=args.joint_learning_rate, exit_lr=args.exit_learning_rate,
+        joint_warmup_steps=args.joint_warmup_steps,
+        exit_warmup_steps=args.exit_warmup_steps,
+        joint_scheduler=args.joint_lr_scheduler,
+        exit_scheduler=args.exit_lr_scheduler,
+        weight_decay=args.weight_decay, exit_lr_scale=args.exit_lr_scale,
+        exit_decay=args.exit_decay,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        batch_size=args.batch_size_calvin, world_size=1,
+        rgb_pad=args.rgb_pad, gripper_pad=args.gripper_pad,
+        traj_cons=args.traj_cons, real_data=args.real_data,
+        bin_coef=args.bin_coef,
+        loss_multiplier_calvin=args.loss_multiplier_calvin,
+        save_freq=args.save_freq, logging_steps=args.logging_steps,
+        seed=args.seed, save_every_iter=args.save_every_iter,
+        ema_decay=args.ema_decay)
+
+    def log_fn(d):
+        print(json.dumps(d, default=float), flush=True)
+
+    return Trainer(cfg, tcfg, loader, log_fn=log_fn, device=dev), args
+
+
+def main(argv=None, device: Optional[str] = None):
+    """Train as the flags say; returns the ``Trainer``."""
+    trainer, args = build_trainer(argv, device)
+    if args.resume and not args.from_scratch:
+        start = trainer.maybe_resume()
+        if start:
+            print(f"resumed from epoch {start}")
+    metrics = trainer.train()
+    print(json.dumps({"final": metrics}, default=float))
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -3,9 +3,9 @@
 (B, lang_len, d) --max-pool over tokens--> (B, d) --LSTM--> (B, H)
 --> MLP+tanh -> arm (B, ., 6k);  MLP+sigmoid -> gripper (B, ., k).
 Two entry points over the same parameters: ``head_forward`` runs a whole
-window from a zero carry (calibration), ``head_step`` one streaming frame
-with an explicit carry, which the caller commits only for the exit that
-fires.
+window from a zero carry (training, with dropout, and calibration),
+``head_step`` one streaming frame with an explicit carry, which the caller
+commits only for the exit that fires.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from deer_vla_tpu_torch.core.config import HeadConfig
+from deer_vla_tpu_torch.ops.dropout import Dropout
 from deer_vla_tpu_torch.ops.layers import (init_layernorm, init_linear,
                                            layernorm, linear)
 from deer_vla_tpu_torch.ops.lstm import (Carry, init_lstm, lstm_forward,
@@ -53,15 +54,28 @@ def init_head(gen, cfg: HeadConfig, device="cpu",
     }
 
 
-def _mlp_head_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Hidden Linear(+LN)+ReLU layers, then the final Linear (pre-activation;
-    no dropout at serving)."""
+def _mlp_head_forward(p: dict, x: torch.Tensor,
+                      cfg: Optional[HeadConfig] = None,
+                      dropout: Optional[Dropout] = None) -> torch.Tensor:
+    """Hidden Linear(+LN)+ReLU layers, then the final Linear
+    (pre-activation).  With ``dropout`` (training; ``cfg`` then gives the
+    rate and the mode, action_head.py:84-133): 'layerwise' drops before
+    every hidden linear and after the last hidden ReLU, 'last' only after
+    the last hidden ReLU, 'wo_last' before every hidden linear but not
+    after the last ReLU."""
     n = len(p["layers"])
+    on = dropout is not None and cfg.dropout > 0.0
+    mode = cfg.dropout_mode if on else None
+    if mode in ("layerwise", "wo_last"):
+        x = dropout(x, cfg.dropout)
     for i in range(n - 1):
         x = linear(p["layers"][i], x)
         if p["lns"][i] is not None:
             x = layernorm(p["lns"][i], x)
         x = torch.relu(x)
+        if (mode == "layerwise" or (mode == "wo_last" and i < n - 2)
+                or (mode == "last" and i == n - 2)):
+            x = dropout(x, cfg.dropout)
     return linear(p["layers"][-1], x)
 
 
@@ -83,19 +97,23 @@ def _prepare_input(feat: torch.Tensor, cfg: HeadConfig, window: int
 def head_forward(p: dict, feat: torch.Tensor, cfg: HeadConfig,
                  state: Optional[torch.Tensor] = None, *,
                  window: Optional[int] = None,
-                 last_action: bool = False) -> HeadOutput:
-    """Full-window mode (the carry starts at zeros), inference only (no
-    dropout).  feat (B*W, lang_len, d) -> per-step actions (B, W, .), or the
-    last step's only with ``last_action`` (action_head.py:593-594)."""
+                 last_action: bool = False,
+                 dropout: Optional[Dropout] = None) -> HeadOutput:
+    """Full-window mode (the carry starts at zeros).  feat
+    (B*W, lang_len, d) -> per-step actions (B, W, .), or the last step's
+    only with ``last_action`` (action_head.py:593-594).  ``dropout``
+    (training) is used by the LSTM, then the arm MLP, then the gripper MLP,
+    in that order."""
     if state is not None or cfg.use_state:
         raise NotImplementedError("proprio-state heads are not ported")
     x = _prepare_input(feat, cfg, window if window is not None
                        else cfg.window_size)
-    y, _ = lstm_forward(p["rnn"], x)
+    y, _ = lstm_forward(p["rnn"], x, dropout_rate=cfg.lstm_dropout,
+                        dropout=dropout)
     if last_action:
         y = y[:, -1:, :]
-    act = torch.tanh(_mlp_head_forward(p["actions"], y))
-    glog = _mlp_head_forward(p["gripper"], y)
+    act = torch.tanh(_mlp_head_forward(p["actions"], y, cfg, dropout))
+    glog = _mlp_head_forward(p["gripper"], y, cfg, dropout)
     return HeadOutput(act, torch.sigmoid(glog), glog)
 
 

@@ -1,5 +1,5 @@
-"""The DeeR policy's vision path, parameter init and training forward
-('post' camera fusion).
+"""The DeeR policy's vision path, parameter init, training forward ('post'
+camera fusion) and the freeze policy of training.
 
 Both cameras run through the ViT as ONE doubled batch, then through the
 shared perceiver as one doubled batch, and the two cameras' latents are
@@ -22,6 +22,8 @@ from deer_vla_tpu_torch.models.perceiver import (init_perceiver,
                                                  perceiver_forward_stacked)
 from deer_vla_tpu_torch.models.vit import (init_vit, vit_forward,
                                            vit_forward_stacked)
+from deer_vla_tpu_torch.ops.dropout import Dropout
+from deer_vla_tpu_torch.ops.layers import tree_map, tree_map_with_path
 
 
 def check_vision_supported(cfg: DeerConfig) -> None:
@@ -92,14 +94,19 @@ def dual_camera_tokens(params: dict, vision_rgb: torch.Tensor,
 
 def vision_tokens(params: dict, v: torch.Tensor, cfg: DeerConfig,
                   stacked: Optional[dict] = None) -> torch.Tensor:
-    """ViT forward -> token grid (B, T, F, P, width)."""
+    """ViT forward -> token grid (B, T, F, P, width).  The ViT is cut from
+    the graph unless ``cfg.unfreeze_vit`` (the JAX package's
+    ``stop_gradient``, flamingo.py:202-207): it runs under ``no_grad``,
+    which also keeps none of its activations."""
     b, t, f = v.shape[:3]
     flat = v.reshape((b * t * f,) + v.shape[3:]).to(cfg.dtypes.cdt)
-    if stacked and "vit" in stacked:
-        _, tokens = vit_forward_stacked(params["vit"], stacked["vit"], flat,
-                                        cfg.vit)
-    else:
-        _, tokens = vit_forward(params["vit"], flat, cfg.vit)
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and cfg.unfreeze_vit):
+        if stacked and "vit" in stacked:
+            _, tokens = vit_forward_stacked(params["vit"], stacked["vit"],
+                                            flat, cfg.vit)
+        else:
+            _, tokens = vit_forward(params["vit"], flat, cfg.vit)
     return tokens.reshape(b, t, f, tokens.shape[-2], tokens.shape[-1])
 
 
@@ -138,34 +145,47 @@ def forward_train(params: dict, vision_x: torch.Tensor,
                   cfg: DeerConfig, gen: Optional[torch.Generator] = None,
                   vision_gripper: Optional[torch.Tensor] = None,
                   state_tensor: Optional[torch.Tensor] = None,
+                  no_backbone_grad: bool = False,
                   only_extra_exit: bool = False, train: bool = True,
                   rand_layer_ids: Optional[torch.Tensor] = None,
-                  switch_layer_ids: Optional[torch.Tensor] = None
-                  ) -> TrainOutputs:
-    """The Flamingo training forward (flamingo_mpt.py:308-517), without
-    dropout: vision_x / vision_gripper (B*W, 1, 1, 3, H, W), lang_x and
+                  switch_layer_ids: Optional[torch.Tensor] = None,
+                  dropout: Optional[Dropout] = None) -> TrainOutputs:
+    """The Flamingo training forward (flamingo_mpt.py:308-517):
+    vision_x / vision_gripper (B*W, 1, 1, 3, H, W), lang_x and
     attention_mask (B*W, S).
 
-    The extra exit runs twice on features from random exit layers
-    (flamingo_mpt.py:476-512): sampling 1 draws one exit per (b, t),
-    sampling 2 one switch point and two exits per trajectory.  The draws
-    come from ``gen`` (a generator seeded 0 on the batch's device when
-    None), or from the caller as ``rand_layer_ids`` / ``switch_layer_ids``
-    (B, W) layer indices; the first is returned as ``rand_layer_ids``."""
+    ``no_backbone_grad`` (the exit-only phase) runs vision and decoder under
+    ``no_grad``, so only the heads get gradients (JAX: ``stop_gradient`` on
+    the hidden states).  The extra exit runs twice on features from random
+    exit layers (flamingo_mpt.py:476-512): sampling 1 draws one exit per
+    (b, t), sampling 2 one switch point and two exits per trajectory.  The
+    draws come from ``gen`` (a generator seeded 0 on the batch's device
+    when None), or from the caller as ``rand_layer_ids`` /
+    ``switch_layer_ids`` (B, W) layer indices; the first is returned as
+    ``rand_layer_ids``.  With ``train`` and a head dropout rate > 0 the
+    heads drop through ``dropout`` (from ``gen`` when None), asked for in
+    the order final head, internal exits, extra exit, extra exit again."""
     check_vision_supported(cfg)
     h = cfg.head
-    if train and (h.dropout > 0 or h.lstm_dropout > 0):
-        raise NotImplementedError("training-mode dropout is not ported")
     if state_tensor is not None:
         raise NotImplementedError("proprio-state models are not ported")
     w = cfg.window_size
-    media = encode_vision(params, vision_x, vision_gripper, cfg)
-    hidden, _ = decoder_forward(params["decoder"], lang_x, attention_mask,
-                                media, cfg)
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and not no_backbone_grad):
+        media = encode_vision(params, vision_x, vision_gripper, cfg)
+        hidden, _ = decoder_forward(params["decoder"], lang_x,
+                                    attention_mask, media, cfg)
     dev = hidden.device
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    if not (train and (h.dropout > 0 or h.lstm_dropout > 0)):
+        dropout = None
+    elif dropout is None:
+        dropout = Dropout(gen)
 
     def run_head(head_params, feat):
-        return any_head_forward(head_params, feat, cfg, window=w)
+        return any_head_forward(head_params, feat, cfg, window=w,
+                                dropout=dropout)
 
     final_out = run_head(params["lm_head"], hidden[-1])
     exit_outputs = ()
@@ -180,8 +200,6 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     bsw = hidden.shape[1]
     bs = bsw // w
     rows = torch.arange(bsw, device=dev)
-    if gen is None and (rand_layer_ids is None or switch_layer_ids is None):
-        gen = torch.Generator(device=dev).manual_seed(0)
 
     def draw(low, high, shape):
         return torch.randint(low, high, shape, generator=gen,
@@ -204,3 +222,62 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     extra_out2 = run_head(extra_head, feat2)
     return TrainOutputs(exit_outputs, final_out, extra_out, extra_out2,
                         hidden, rand_feat, lay1)
+
+
+# ---------------------------------------------------------------------------
+# freeze policy (factory.py:203-237)
+# ---------------------------------------------------------------------------
+
+
+def cast_frozen_to_bf16(params: dict, mask: dict) -> dict:
+    """Frozen leaves (mask False) never get updates, so they need no fp32
+    master: floating ones are cast to bf16, the compute dtype."""
+    return tree_map(lambda p, m: p if m or not p.is_floating_point()
+                    else p.to(torch.bfloat16), params, mask)
+
+
+def trainable_mask(params: dict, cfg: DeerConfig, phase: str = "joint"
+                   ) -> dict:
+    """Boolean tree of the trainable leaves, keyed off the tree's path names
+    as in the JAX package (for the trees the port builds: no second
+    resampler, state token, frame embeddings or llama head; ROADMAP.md
+    M10).  The reference freezes everything, then unfreezes
+    the gated x-attn, perceiver, token embeddings and every head;
+    phase='exit_only' freezes the backbone too (the second post-strategy
+    phase).  Knobs: ``freeze_sampler`` keeps the perceiver frozen,
+    ``freeze_embed`` the embeddings, ``unfreeze_vit`` trains the ViT, and
+    ``train_params >= 0`` trains only the last round(train_params / 140)
+    x-attn layers (and freezes the perceiver)."""
+    if cfg.train_params >= 0:
+        k = int(cfg.train_params / 140 + 0.5)  # the reference's per layer
+        xattn_layers = [i for i in range(cfg.n_layers) if cfg.has_xattn(i)]
+        budget = set(xattn_layers[max(0, len(xattn_layers) - k):] if k
+                     else [])
+    else:
+        budget = None
+    joint = phase == "joint"
+
+    def label(keys, _):
+        top = keys[0]
+        if top == "vit":
+            return cfg.unfreeze_vit and joint
+        if top == "perceiver":
+            return joint and not cfg.freeze_sampler and cfg.train_params < 0
+        if top == "decoder":
+            if "xattn" in keys:
+                if budget is not None \
+                        and keys[keys.index("xattn") + 1] not in budget:
+                    return False
+                return joint
+            if "wte" in keys:
+                return joint and not cfg.freeze_embed
+            return False  # MPT blocks and ln_f stay frozen
+        return top in ("lm_head", "extra_exit", "lm_exits")
+
+    return tree_map_with_path(label, params)
+
+
+def checkpoint_mask(params: dict, cfg: DeerConfig) -> dict:
+    """The leaves a delta checkpoint stores: the joint phase's trainable
+    set (the exit-only set is a subset of it)."""
+    return trainable_mask(params, cfg, "joint")

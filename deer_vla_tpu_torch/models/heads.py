@@ -10,6 +10,7 @@ import torch
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.models.action_head import (HeadOutput, head_forward,
                                                    head_step)
+from deer_vla_tpu_torch.ops.dropout import Dropout
 from deer_vla_tpu_torch.ops.lstm import zero_carry
 
 
@@ -22,11 +23,12 @@ def _check(cfg: DeerConfig) -> None:
 def any_head_forward(p: dict, feat: torch.Tensor, cfg: DeerConfig,
                      state: Optional[torch.Tensor] = None, *,
                      window: Optional[int] = None,
-                     last_action: bool = False) -> HeadOutput:
-    """Full-window mode (inference)."""
+                     last_action: bool = False,
+                     dropout: Optional[Dropout] = None) -> HeadOutput:
+    """Full-window mode; ``dropout`` only in training."""
     _check(cfg)
     return head_forward(p, feat, cfg.head, state, window=window,
-                        last_action=last_action)
+                        last_action=last_action, dropout=dropout)
 
 
 def any_head_step(p: dict, feat: torch.Tensor, carry, cfg: DeerConfig,

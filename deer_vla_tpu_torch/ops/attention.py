@@ -34,12 +34,14 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def plain_attention(q, k, v, bias, scale):
     """einsum + fp32 max-subtracted softmax, probabilities cast back to the
-    input dtype before P.V (the JAX package's ``_xla_attention``)."""
+    input dtype before P.V (the JAX package's ``_xla_attention``).  The row
+    max is detached, as JAX stops its gradient: the softmax is invariant to
+    it, so no gradient belongs on that path."""
     dt = q.dtype
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
     if bias is not None:
         logits = logits + bias.float()
-    logits = logits - logits.amax(-1, keepdim=True)
+    logits = logits - logits.amax(-1, keepdim=True).detach()
     probs = torch.softmax(logits, dim=-1).to(dt)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from deer_vla_tpu_torch.ops.kernels.build import function
+from deer_vla_tpu_torch.ops.kernels.guard import check_no_grad
 
 MAX_D = 256
 TC_HEAD_DIMS = (64, 128)  # the bf16 kernel's instantiations
@@ -111,6 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias = _check(q, k, v, bias)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    check_no_grad("flash_attention", q, k, v, bias)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if scale is None:

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from deer_vla_tpu_torch.ops.kernels.build import function
+from deer_vla_tpu_torch.ops.kernels.guard import check_no_grad
 from deer_vla_tpu_torch.ops.quant import unpack_nibbles
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,6 +167,7 @@ def indexed_matmul(x: torch.Tensor, w: torch.Tensor,
         return indexed_matmul_reference(x, w, idx)
     if not x.is_cuda:
         raise ValueError(f"indexed_matmul: unsupported device {x.device}")
+    check_no_grad("indexed_matmul", x, w)
     if not (isinstance(idx, torch.Tensor) and idx.ndim == 0
             and idx.dtype == torch.int32 and idx.device == x.device):
         raise TypeError("idx must be a 0-dim int32 tensor on x's device")
@@ -273,6 +275,7 @@ def _launch_quantized(fn_name: str, x: torch.Tensor, wq: torch.Tensor,
     """Checks and launch shared by K3 and K4 (``wq`` holds K or K/2 rows)."""
     if not x.is_cuda:
         raise ValueError(f"{fn_name}: unsupported device {x.device}")
+    check_no_grad(fn_name, x, wq, s)
     if not (isinstance(idx, torch.Tensor) and idx.ndim == 0
             and idx.dtype == torch.int32 and idx.device == x.device):
         raise TypeError("idx must be a 0-dim int32 tensor on x's device")

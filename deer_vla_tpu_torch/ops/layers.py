@@ -36,6 +36,47 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves_with_path(tree, prefix: tuple = ()) -> list:
+    """[(path, leaf)] in the tree's own order; a path holds the dict keys
+    and list indices down to the leaf.  ``None`` leaves are skipped, as
+    JAX's tree utilities skip them."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [pl for k, v in items
+            for pl in tree_leaves_with_path(v, prefix + (k,))]
+
+
+def tree_map_with_path(fn: Callable, tree, prefix: tuple = ()):
+    """``tree_map`` whose ``fn`` also takes the leaf's path first."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map_with_path(fn, v, prefix + (i,))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(prefix, tree)
+
+
+def keystr(path: tuple) -> str:
+    """``jax.tree_util.keystr`` of the same path: ``['decoder']['xattn'][0]``.
+    The optimizer's name rules match substrings of it."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def flat_key(path: tuple) -> str:
+    """The checkpoint key of a leaf: ``decoder/xattn/0/to_q/w``."""
+    return "/".join(str(k) for k in path)
+
+
 # ---------------------------------------------------------------------------
 # initializers (seeded torch.Generator; same distributions as the JAX init)
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Multi-layer LSTM for the action heads: the full window (calibration)
-and the single streaming step.
+"""Multi-layer LSTM for the action heads: the full window (training and
+calibration) and the single streaming step.
 
 Same semantics as the JAX package's ``ops/lstm.py``: gate order
 [i, f, g, o], bias ``bi + bh``, optional LayerNorm on each layer's output
@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deer_vla_tpu_torch.ops.dropout import Dropout
 from deer_vla_tpu_torch.ops.layers import init_layernorm, layernorm, uniform
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
@@ -53,11 +54,13 @@ def _cell_step(p: dict, x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
 
 
 def lstm_forward(params: dict, x: torch.Tensor,
-                 carry: Optional[Carry] = None
+                 carry: Optional[Carry] = None, *, dropout_rate: float = 0.0,
+                 dropout: Optional[Dropout] = None
                  ) -> Tuple[torch.Tensor, Carry]:
-    """The whole stack over a window (no dropout: the inference forward).
-    x (B, T, Din) -> top layer's output (B, T, H) and the final carry; the
-    carry starts at zeros when not given."""
+    """The whole stack over a window.  x (B, T, Din) -> top layer's output
+    (B, T, H) and the final carry; the carry starts at zeros when not
+    given.  With ``dropout`` (training) and a rate > 0, each layer's output
+    but the last's goes through it (after the layer's LayerNorm)."""
     layers = params["layers"]
     if carry is None:
         carry = zero_carry(len(layers), x.shape[0], layers[0]["wh"].shape[0],
@@ -73,6 +76,8 @@ def lstm_forward(params: dict, x: torch.Tensor,
         x = torch.stack(ys, dim=1)
         if "ln" in lp:
             x = layernorm(lp["ln"], x)
+        if dropout is not None and dropout_rate > 0 and li < len(layers) - 1:
+            x = dropout(x, dropout_rate)
         new_h.append(h)
         new_c.append(c)
     return x, (torch.stack(new_h), torch.stack(new_c))

@@ -1,22 +1,176 @@
-"""The calibration sidecar (the JAX package's
-``train/checkpoint.py:137-173``): cached calibration deltas in an npz file
-beside the checkpoint stem, with a JSON record of the settings they were
-made under.  The port keeps its own copy because the JAX module imports
-flax; the msgpack checkpoint reader is not ported yet.
+"""Checkpoints in the JAX package's format (its ``train/checkpoint.py``),
+read and written without flax:
+
+  * ``<stem>.ckpt``: msgpack (``train/msgpack_io``) of
+    ``{"params": {"decoder/xattn/0/to_q/w": array, ...}}``, only the leaves
+    of a mask when one is given (a delta checkpoint); the port's optimizer
+    state goes under ``"torch_opt_state"``, so the JAX package's loader
+    still reads the params of a file the port wrote;
+  * ``<stem>.json``: the config and a ``meta`` record (epoch, phase, seed,
+    and for the port's trainer how its backbone was drawn);
+  * ``<stem>.values.npz``: cached calibration deltas with the settings
+    they were made under.
+
+Loading is non-strict: the file's leaves overwrite the template's, the rest
+keep the template's values (the base + delta composition,
+eval_calvin.py:543-577).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+import re
+import warnings
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from deer_vla_tpu_torch.core.config import DeerConfig
+from deer_vla_tpu_torch.ops.layers import (flat_key, tree_leaves_with_path,
+                                           tree_map_with_path)
+from deer_vla_tpu_torch.train import msgpack_io
+
+# the key of the port's optimizer state in a .ckpt (the JAX package writes
+# optax's state under "opt_state", which the port cannot restore)
+TORCH_OPT_STATE = "torch_opt_state"
 
 
 def _stem(path: str) -> str:
     """Drop a trailing '.ckpt' so sidecar paths derive from one stem."""
     return path[:-5] if path.endswith(".ckpt") else path
+
+
+def to_numpy(t: torch.Tensor):
+    """A tensor as the codec stores it: numpy, or ``Bf16Array`` for bf16."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return msgpack_io.Bf16Array(t.view(torch.int16).numpy()
+                                    .view(np.uint16))
+    return t.numpy()
+
+
+def to_tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
+    """A stored array (numpy or ``Bf16Array``) as a ``dtype`` tensor on
+    ``device``."""
+    if isinstance(a, msgpack_io.Bf16Array):
+        t = torch.from_numpy(a.bits.view(np.int16).copy()).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def save_checkpoint(path: str, params: dict, cfg: DeerConfig,
+                    meta: Optional[Dict] = None,
+                    trainable_mask: Optional[dict] = None,
+                    opt_state: Optional[dict] = None) -> str:
+    """Write ``<path>.ckpt`` and ``<path>.json``, each through a temporary
+    file and a rename, so a crash never leaves a truncated checkpoint for
+    ``find_latest_checkpoint`` to pick.  With ``trainable_mask`` only the
+    leaves it marks True are stored (train_utils.py:631-638)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    keep = (None if trainable_mask is None
+            else {p for p, m in tree_leaves_with_path(trainable_mask) if m})
+    payload = {"params": {flat_key(p): to_numpy(v)
+                          for p, v in tree_leaves_with_path(params)
+                          if keep is None or p in keep}}
+    if opt_state is not None:
+        payload[TORCH_OPT_STATE] = {
+            "count": int(opt_state["count"]),
+            "mu": {k: to_numpy(v) for k, v in opt_state["mu"].items()},
+            "nu": {k: to_numpy(v) for k, v in opt_state["nu"].items()}}
+    tmp = path + ".ckpt.tmp"
+    with open(tmp, "wb") as f:
+        msgpack_io.dump(payload, f)
+    os.replace(tmp, path + ".ckpt")
+    tmp_j = path + ".json.tmp"
+    with open(tmp_j, "w") as f:
+        json.dump({"config": json.loads(cfg.to_json()), "meta": meta or {}},
+                  f, indent=2)
+    os.replace(tmp_j, path + ".json")
+    return path + ".ckpt"
+
+
+def load_checkpoint(path: str, params_template: dict,
+                    opt_state_template: Optional[dict] = None
+                    ) -> Tuple[dict, Optional[dict], Dict]:
+    """(params, opt_state, sidecar).  Every template leaf the file holds is
+    replaced by the file's value, in the template leaf's dtype and on its
+    device; the others are the template's own tensors.  The sidecar's
+    ``meta`` gains ``loaded_keys`` (how many were replaced) and
+    ``unconsumed_keys`` (stored leaves the template has no place for, also
+    warned about).  ``opt_state`` is the port's optimizer state shaped like
+    ``opt_state_template`` when both are there; a file holding only the
+    JAX package's optax state gives None and a warning."""
+    path = _stem(path)
+    loaded = msgpack_io.load(path + ".ckpt")
+    stored = dict(loaded.get("params", {}))
+    consumed = set()
+
+    def overlay(p, leaf):
+        key = flat_key(p)
+        if key not in stored:
+            return leaf
+        consumed.add(key)
+        return to_tensor(stored[key], leaf.device, leaf.dtype)
+
+    params = tree_map_with_path(overlay, params_template)
+    sidecar = {}
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            sidecar = json.load(f)
+    meta = sidecar.setdefault("meta", {})
+    meta["loaded_keys"] = len(consumed)
+    unconsumed = sorted(set(stored) - consumed)
+    meta["unconsumed_keys"] = unconsumed
+    if unconsumed:
+        warnings.warn(
+            f"checkpoint {path}: {len(unconsumed)} stored params not "
+            f"matched by the model template (first: {unconsumed[:3]})")
+    opt_state = None
+    if opt_state_template is not None:
+        if TORCH_OPT_STATE in loaded:
+            opt_state = _restore_opt_state(loaded[TORCH_OPT_STATE],
+                                           opt_state_template, path)
+        elif "opt_state" in loaded:
+            warnings.warn(f"checkpoint {path} holds the JAX package's "
+                          "optax state, which the port cannot restore; "
+                          "the optimizer starts fresh")
+    return params, opt_state, sidecar
+
+
+def _restore_opt_state(stored: dict, template: dict, path: str) -> dict:
+    for moment in ("mu", "nu"):
+        if set(stored[moment]) != set(template[moment]):
+            raise ValueError(f"checkpoint {path}: its optimizer state does "
+                             "not cover the phase's trainable leaves")
+    return {"count": int(stored["count"]),
+            **{m: {k: to_tensor(stored[m][k], t.device, t.dtype)
+                   for k, t in template[m].items()} for m in ("mu", "nu")}}
+
+
+def find_latest_checkpoint(
+        run_dir: str,
+        pattern: str = r".*_(\d+)(?:_it(\d+))?\.ckpt$") -> Optional[str]:
+    """The newest checkpoint in a run dir, for auto-resume
+    (train_calvin_post_strategy.py:589-629).  ``deer_{E}.ckpt`` is the end
+    of epoch E, ``deer_{E}_it{N}.ckpt`` a save N steps into it; an
+    end-of-epoch save outranks the same epoch's mid-epoch saves, and later
+    steps outrank earlier ones."""
+    if not os.path.isdir(run_dir):
+        return None
+    best, best_key = None, (-1, 0, -1)
+    for fn in os.listdir(run_dir):
+        m = re.match(pattern, fn)
+        if not m:
+            continue
+        ep, it = int(m.group(1)), m.group(2)
+        key = (ep, 0, int(it)) if it is not None else (ep, 1, 0)
+        if key > best_key:
+            best_key, best = key, os.path.join(run_dir, fn)
+    return best
 
 
 def save_calibration_values(path: str, values: np.ndarray,

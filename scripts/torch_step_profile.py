@@ -26,6 +26,12 @@ tensor-core instructions and type conversions in the SASS of K3 / K4.
 DebugBatcher batch (B=2, W=12, bf16) through ``generate_calibration_values``
 in the folded and the streamed regime, the host-clock seconds a batch (5
 batches after one warm-up) and the same profile over 2 more.
+``--train`` also profiles the training step: deer_3b as ``chip_smoke.py``'s
+phase train builds it (``cli/train``'s defaults, batch 6, W=12, bf16 with
+fp32 masters), one DebugBatcher batch prepared and one update a step, in
+the joint and the exit-only phase: the host-clock seconds a step (4 steps
+after one warm-up), the peak device memory, and the same profile over 2
+more.
 ``--root DIR`` profiles the port found under DIR (for example another
 commit unpacked with ``git archive`` into an ignored directory) while the
 inputs, weights and timing stay this checkout's, so two commits are
@@ -38,6 +44,7 @@ compared in one run on one card:
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import statistics
 import sys
@@ -92,6 +99,8 @@ def main() -> int:
                     help="time K1-K4 alone at the serving shapes first")
     ap.add_argument("--calibrate", action="store_true",
                     help="also profile a calibration batch, both regimes")
+    ap.add_argument("--train", action="store_true",
+                    help="also profile the deer_3b train step, both phases")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose port to profile; default this one")
     ap.add_argument("--out", default=str(OUT), help="JSON lines file")
@@ -120,6 +129,10 @@ def main() -> int:
         profile_mode(torch, np, smoke, cfg, params,
                      None if mode == "none" else mode)
         torch.cuda.empty_cache()
+    if args.train:
+        del params
+        torch.cuda.empty_cache()
+        profile_training(torch, smoke)
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -232,6 +245,46 @@ def profile_calibration(torch, smoke, cfg, params) -> None:
                "batch_ms_q3": q[2], "batches": len(times)}
         out.update(profile(torch, run, steps=2))
         emit(out)
+
+
+def profile_training(torch, smoke) -> None:
+    """Seconds a train step and where its device time goes, by phase."""
+    from deer_vla_tpu_torch.cli.train import build_trainer
+    from deer_vla_tpu_torch.train.trainer import prepare_batch
+    from deer_vla_tpu_torch.train.train_step import init_train_state
+    trainer, _ = build_trainer(smoke.TRAIN_ARGV)
+    raws = list(trainer.loader)
+    for phase in ("joint", "exit_only"):
+        opt, step = trainer._phases[phase]
+        state = init_train_state(trainer.params, opt)
+        torch.cuda.reset_peak_memory_stats()
+        count = itertools.count()
+
+        def run():  # ends with the loss on the host
+            nonlocal state
+            raw = raws[next(count) % len(raws)]
+            batch = prepare_batch(raw, trainer.cfg, trainer.gen,
+                                  trainer.tcfg, trainer.device)
+            state, metrics = step(state, batch, trainer.gen)
+            float(metrics["loss"])
+
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times = times[1:]
+        q = statistics.quantiles(times, n=4)
+        out = {"setting": f"train_{phase}", "batch_size":
+               trainer.tcfg.batch_size, "window": trainer.cfg.window_size,
+               "step_ms_median": statistics.median(times),
+               "step_ms_q1": q[0], "step_ms_q3": q[2], "steps": len(times),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out.update(profile(torch, run, steps=2))
+        emit(out)
+        del state
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def profile_mode(torch, np, smoke, cfg, params, quantize):

@@ -277,7 +277,7 @@ def test_cli_lanes_and_fixed_thresholds(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--evaluate_from_checkpoint", "x.ckpt"], "M0"),
+    (["--visualize", "gifs"], "M9"),
     (["--frame_cache"], "M13"),
     (["--head_type", "gpt"], "M10"),
     (["--pipeline", "2"], "M13"),

@@ -1,6 +1,7 @@
-"""PyTorch port: it imports neither JAX nor the JAX package, its entry
-points never drop to the CPU on their own, and its kernel modules import
-on a host with no CUDA compiler and no Triton."""
+"""PyTorch port: it imports neither JAX nor the JAX package (nor flax,
+msgpack or optax, which the card's machine lacks), its entry points never
+drop to the CPU on their own, and its kernel modules import on a host with
+no CUDA compiler and no Triton."""
 
 import os
 import subprocess
@@ -37,8 +38,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
-        "             or m == 'deer_vla_tpu' or m.startswith('deer_vla_tpu.'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'msgpack', 'optax',\n"
+        "                                    'deer_vla_tpu'))\n"
         "print('BAD', bad)\n")
     out = run_python(code)
     assert out.returncode == 0, out.stderr
@@ -110,8 +112,27 @@ def test_eval_cli_without_device_raises_when_no_card(monkeypatch):
                   "--num_sequences_override", "1"])
 
 
+def test_train_cli_without_device_raises_when_no_card(monkeypatch,
+                                                     tmp_path):
+    from deer_vla_tpu_torch.cli import train as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--debug", "--model", "tiny", "--run_name",
+                  str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
 def test_new_eval_modules_are_walked():
     mods = port_modules()
     for m in ("cli.eval", "eval.calibrate", "eval.rollout",
               "eval.batched_rollout", "data.preprocess", "train.checkpoint"):
+        assert f"deer_vla_tpu_torch.{m}" in mods
+
+
+def test_new_train_modules_are_walked():
+    mods = port_modules()
+    for m in ("cli.train", "train.losses", "train.optimizer",
+              "train.train_step", "train.trainer", "train.msgpack_io",
+              "utils.heartbeat", "ops.dropout", "ops.kernels.guard"):
         assert f"deer_vla_tpu_torch.{m}" in mods
