@@ -1154,25 +1154,31 @@ def train_inputs(torch, cfg, device):
 
 
 def train_step_parts(torch, params, cfg, batch, draws, snapshot: bool):
-    """One joint-phase step done as ``make_train_step`` does it, keeping the
-    gradients: (loss, {key: grad}, {key: param after the update}, and with
-    ``snapshot`` {key: param before it}), all on the CPU in fp32."""
+    """One joint-phase step of ``make_train_step``, its gradients read where
+    the step hands them to the update: (loss, {key: grad}, {key: param
+    after the update}, and with ``snapshot`` {key: param before it}), all
+    on the CPU in fp32."""
     from deer_vla_tpu_torch.models.flamingo import trainable_mask
     from deer_vla_tpu_torch.train.optimizer import (flat_leaves,
                                                     make_optimizer)
-    from deer_vla_tpu_torch.train.train_step import loss_and_grads
+    from deer_vla_tpu_torch.train.train_step import (init_train_state,
+                                                     make_train_step)
     opt = make_optimizer(params, cfg, phase="joint", learning_rate=1e-4,
                          warmup_steps=0, total_steps=1,
                          trainable=trainable_mask(params, cfg, "joint"))
     keys = opt.trainable_keys()
-    loss, _, grads = loss_and_grads(params, keys, batch, cfg, draws=[draws])
     flat = flat_leaves(params)
-    grads = {k: torch.zeros_like(flat[k]) if g is None else g
-             for k, g in grads.items()}
     before = ({k: flat[k].detach().float().cpu().clone() for k in keys}
               if snapshot else None)
-    opt.update(params, grads, opt.init(params))
-    return (float(loss), {k: g.float().cpu() for k, g in grads.items()},
+    grads = {}
+
+    def keep(step_grads, loss, metrics):
+        grads.update({k: g.float().cpu() for k, g in step_grads.items()})
+
+    with on_update(keep):
+        _, metrics = make_train_step(cfg, opt)(
+            init_train_state(params, opt), batch, draws=[draws])
+    return (float(metrics["loss"]), grads,
             {k: flat[k].float().cpu() for k in keys}, before)
 
 
@@ -1257,18 +1263,33 @@ def phase_train_guard(torch, params) -> None:
 
 
 @contextlib.contextmanager
+def on_update(hook):
+    """While open, calls ``hook(grads, loss, metrics)`` after each optimizer
+    update of ``make_train_step``'s step (``metrics`` the update's own)."""
+    from deer_vla_tpu_torch.train import train_step
+    real = train_step._apply_update
+
+    def wrapped(optimizer, state, grads, loss, metrics):
+        out = real(optimizer, state, grads, loss, metrics)
+        hook(grads, loss, out[1])
+        return out
+
+    train_step._apply_update = wrapped
+    try:
+        yield
+    finally:
+        train_step._apply_update = real
+
+
 def train_updates(steps: list):
-    """While open, records each optimizer update of the train step: when it
-    ended (synchronised), the phase's trainable keys, which leaves got a
+    """A context that records each optimizer update of the train step: when
+    it ended (synchronised), the phase's trainable keys, which leaves got a
     nonzero gradient and which one above Adam's eps, the loss.  The
     bookkeeping's own time is recorded apart."""
     from deer_vla_tpu_torch.train.optimizer import EPS
     import torch
-    from deer_vla_tpu_torch.train import train_step
-    real = train_step._apply_update
 
-    def logged(optimizer, state, grads, loss, metrics):
-        out = real(optimizer, state, grads, loss, metrics)
+    def record(grads, loss, metrics):
         torch.cuda.synchronize()
         t = time.perf_counter()
         peak = torch.stack([g.abs().amax().float() for g in grads.values()])
@@ -1277,15 +1298,10 @@ def train_updates(steps: list):
                       "nonzero": {k for k, v in peak.items() if v > 0},
                       "above_eps": {k for k, v in peak.items() if v > EPS},
                       "loss": float(loss),
-                      "grad_norm": float(out[1]["grad_norm"]),
+                      "grad_norm": float(metrics["grad_norm"]),
                       "bookkeeping_s": time.perf_counter() - t})
-        return out
 
-    train_step._apply_update = logged
-    try:
-        yield steps
-    finally:
-        train_step._apply_update = real
+    return on_update(record)
 
 
 def phase_train(torch, np) -> dict:

@@ -162,9 +162,9 @@ def load_model(args, dev: torch.device):
     other weights; a full checkpoint loads anywhere."""
     from deer_vla_tpu_torch.core.config import DeerConfig
     from deer_vla_tpu_torch.models.flamingo import init_deer
-    from deer_vla_tpu_torch.ops.layers import tree_leaves_with_path, tree_map
-    from deer_vla_tpu_torch.train.checkpoint import load_checkpoint
-    from deer_vla_tpu_torch.train.trainer import INIT_PACKAGE
+    from deer_vla_tpu_torch.ops.layers import tree_leaves_with_path
+    from deer_vla_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                     rebuild_backbone)
 
     if not args.evaluate_from_checkpoint:
         cfg = model_config(args)
@@ -179,17 +179,12 @@ def load_model(args, dev: torch.device):
     if args.max_layer > 0:
         cfg = dataclasses.replace(cfg, mpt=dataclasses.replace(
             cfg.mpt, n_layers=args.max_layer))
-    init = side.get("meta", {}).get("init") or {}
-    rebuilt = init.get("package") == INIT_PACKAGE
-    if rebuilt:
-        gen_dev = torch.device(init["generator_device"])
-        if gen_dev.type == "cuda" and not torch.cuda.is_available():
-            raise SystemExit(f"{path}: its backbone was drawn on a CUDA "
-                             "device; rebuilding it needs one")
-        params = tree_map(lambda t: t.to(dev),
-                          init_deer(cfg, seed=int(init["seed"]),
-                                    device=gen_dev))
-    else:
+    try:
+        params = rebuild_backbone(side.get("meta", {}).get("init"), cfg, dev)
+    except RuntimeError as err:
+        raise SystemExit(f"{path}: {err}") from err
+    rebuilt = params is not None
+    if not rebuilt:
         params = init_deer(cfg, seed=args.seed, device=dev)
     params, _, loaded = load_checkpoint(path, params)
     n_loaded = loaded["meta"]["loaded_keys"]

@@ -28,13 +28,16 @@ import numpy as np
 import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
+from deer_vla_tpu_torch.models.flamingo import init_deer
 from deer_vla_tpu_torch.ops.layers import (flat_key, tree_leaves_with_path,
-                                           tree_map_with_path)
+                                           tree_map, tree_map_with_path)
 from deer_vla_tpu_torch.train import msgpack_io
 
 # the key of the port's optimizer state in a .ckpt (the JAX package writes
 # optax's state under "opt_state", which the port cannot restore)
 TORCH_OPT_STATE = "torch_opt_state"
+# the package a meta["init"] record names when the port drew the backbone
+INIT_PACKAGE = "deer_vla_tpu_torch"
 
 
 def _stem(path: str) -> str:
@@ -60,6 +63,42 @@ def to_tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.array(a))
     return t.to(device=device, dtype=dtype)
+
+
+def init_record(seed: int, device) -> Dict:
+    """The sidecar's ``meta["init"]`` for a backbone that
+    ``init_deer(cfg, seed=seed, device=device)`` drew.  A seed draws other
+    numbers on the CPU, on the card and in the JAX package, so the
+    generator's device is part of the record."""
+    return {"package": INIT_PACKAGE, "seed": int(seed),
+            "generator_device": torch.device(device).type}
+
+
+def rebuild_backbone(init: Optional[Dict], cfg: DeerConfig,
+                     device) -> Optional[dict]:
+    """The params drawn as the record ``init`` says, on ``device``; None
+    when ``init`` is not a record of the port's (a delta checkpoint over
+    such a backbone cannot be rebuilt)."""
+    if not init or init.get("package") != INIT_PACKAGE:
+        return None
+    gen_dev = torch.device(init["generator_device"])
+    if gen_dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("its backbone was drawn on a CUDA device; "
+                           "rebuilding it needs one")
+    return tree_map(lambda t: t.to(device),
+                    init_deer(cfg, seed=int(init["seed"]), device=gen_dev))
+
+
+def check_init(recorded: Optional[Dict], own: Optional[Dict],
+               path: str) -> None:
+    """Refuse to overlay the delta checkpoint at ``path``, trained over the
+    backbone ``recorded``, on a backbone drawn as ``own`` (None: weights
+    the caller gave)."""
+    if (recorded or None) != own:
+        raise ValueError(
+            f"checkpoint {path} was trained over the backbone {recorded}, "
+            f"this run's is {own}: resume with the seed and on the device "
+            "the run started with")
 
 
 def save_checkpoint(path: str, params: dict, cfg: DeerConfig,

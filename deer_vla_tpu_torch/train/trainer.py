@@ -32,7 +32,9 @@ from deer_vla_tpu_torch.models.flamingo import (cast_frozen_to_bf16,
                                                 trainable_mask)
 from deer_vla_tpu_torch.ops.layers import (flat_key, tree_leaves_with_path,
                                            tree_map_with_path)
-from deer_vla_tpu_torch.train.checkpoint import (find_latest_checkpoint,
+from deer_vla_tpu_torch.train.checkpoint import (check_init,
+                                                 find_latest_checkpoint,
+                                                 init_record,
                                                  load_checkpoint,
                                                  save_checkpoint)
 from deer_vla_tpu_torch.train.optimizer import (adaptive_lr, flat_leaves,
@@ -41,9 +43,6 @@ from deer_vla_tpu_torch.train.train_step import (TrainState,
                                                  init_train_state,
                                                  make_train_step)
 from deer_vla_tpu_torch.utils.heartbeat import Heartbeat
-
-# what the sidecar's meta records about a backbone the trainer drew itself
-INIT_PACKAGE = "deer_vla_tpu_torch"
 
 
 @dataclass
@@ -82,10 +81,6 @@ class TrainConfig:
     save_every_iter: int = -1
     logging_steps: int = 100
     seed: int = 42
-    # liveness file; empty = <run_dir>/heartbeat.json
-    heartbeat_path: str = ""
-    # frozen leaves in bf16 (no fp32 master needed without updates)
-    bf16_frozen: bool = True
     # > 0: an exponential moving average of the checkpointed leaves; each
     # checkpoint gains a sibling <name>_ema.ckpt (the reference has none)
     ema_decay: float = 0.0
@@ -129,7 +124,8 @@ class Trainer:
     Without ``params`` the weights are ``init_deer(cfg, tcfg.seed)`` drawn
     on ``device``, which the checkpoints' meta records so that an
     evaluation can rebuild the frozen backbone a delta checkpoint
-    overlays."""
+    overlays.  In bf16 compute the frozen leaves are cast to bf16 (they
+    need no fp32 master); the liveness file is <run_dir>/heartbeat.json."""
 
     def __init__(self, cfg: DeerConfig, tcfg: TrainConfig, loader,
                  params: Optional[dict] = None,
@@ -140,9 +136,8 @@ class Trainer:
         self.loader = loader
         self.log_fn = log_fn or (lambda d: None)
         self.device = resolve_device(device)
-        self.heartbeat = Heartbeat(
-            tcfg.heartbeat_path
-            or os.path.join(tcfg.run_dir, "heartbeat.json"))
+        self.heartbeat = Heartbeat(os.path.join(tcfg.run_dir,
+                                                "heartbeat.json"))
         # the training draws (shifts, layers, dropout) use a stream other
         # than the init's
         self.gen = torch.Generator(device=self.device).manual_seed(
@@ -150,9 +145,8 @@ class Trainer:
         self.init_meta = None
         if params is None:
             params = init_deer(cfg, seed=tcfg.seed, device=self.device)
-            self.init_meta = {"package": INIT_PACKAGE, "seed": tcfg.seed,
-                              "generator_device": self.device.type}
-        if tcfg.bf16_frozen and cfg.dtypes.compute_dtype == "bfloat16":
+            self.init_meta = init_record(tcfg.seed, self.device)
+        if cfg.dtypes.compute_dtype == "bfloat16":
             params = cast_frozen_to_bf16(
                 params, trainable_mask(params, cfg, "joint"))
         self.params = params
@@ -214,12 +208,16 @@ class Trainer:
     def maybe_resume(self) -> int:
         """Load the newest checkpoint of the run dir, if any; returns the
         epoch training goes on from (a mid-epoch checkpoint re-runs its
-        epoch from the start)."""
+        epoch from the start).  Raises when the checkpoint was trained over
+        another backbone than this run's (another seed or generator
+        device)."""
         ck = find_latest_checkpoint(self.tcfg.run_dir)
         if ck is None:
             return 0
-        self.params, _, sidecar = load_checkpoint(ck, self.params)
+        params, _, sidecar = load_checkpoint(ck, self.params)
         md = sidecar["meta"]
+        check_init(md.get("init"), self.init_meta, ck)
+        self.params = params
         ep = int(md.get("epoch", -1))
         self.start_epoch = ep if md.get("step") is not None else ep + 1
         self._resume_ckpt = ck

@@ -637,6 +637,30 @@ def test_resume_restores_optimizer_state(tmp_path):
     assert tr2.state.opt_state["count"] == 6  # 3 restored + 3 new
 
 
+@pytest.mark.parametrize("change", ["seed", "generator_device",
+                                    "given_params"])
+def test_resume_refuses_another_backbone(tmp_path, change):
+    """A delta checkpoint overlays the backbone it was trained over: resuming
+    with another seed, after a run whose backbone was drawn on another
+    device, or over weights the caller gave, raises."""
+    cfg, tcfg, loader = trainer_setup(tmp_path, batches=1,
+                                      num_joint_epochs=2, num_exit_epochs=0)
+    Trainer(cfg, tcfg, loader, device="cpu").train(num_epochs=1)
+    params = None
+    if change == "seed":
+        tcfg = dataclasses.replace(tcfg, seed=tcfg.seed + 1)
+    elif change == "generator_device":
+        side = tmp_path / "deer_0.json"
+        rec = json.loads(side.read_text())
+        rec["meta"]["init"]["generator_device"] = "cuda"
+        side.write_text(json.dumps(rec))
+    else:
+        params = tflamingo.init_deer(cfg, seed=tcfg.seed, device="cpu")
+    tr = Trainer(cfg, tcfg, loader, params=params, device="cpu")
+    with pytest.raises(ValueError, match="trained over the backbone"):
+        tr.maybe_resume()
+
+
 def test_mid_epoch_checkpoints_and_resume(tmp_path):
     cfg, tcfg, loader = trainer_setup(tmp_path, num_exit_epochs=0,
                                       save_every_epoch=False,
