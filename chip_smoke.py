@@ -29,10 +29,21 @@ guard that refuses a ViT gradient on the card (``--unfreeze_vit``: K1 has
 no backward), ``cli/train --debug`` in-process (deer_3b, batch 6, W=12: 1
 joint and 1 exit-only epoch of 4 steps, 144 ViT images a step through K1,
 K2-K4 not launched; frozen leaves bit-unchanged, trained leaves moved) and
-``cli/eval --evaluate_from_checkpoint`` on its checkpoint.  K1 is checked
-at the ViT batch of every driven path (``vit_batches``), and every shape
-the models hand K1 while the paths run is recorded and must be one of
-those checked.
+``cli/eval --evaluate_from_checkpoint`` on its checkpoint.  Then the CALVIN
+phases on a CALVIN-format tree written at CALVIN's frame sizes (200 px
+static, 84 px gripper; half the episodes DEFLATE-compressed): the native
+npz reader against ``np.load`` bit for bit and both timed, with the
+loader's batches a second (``calvin_data``); ``cli/train --calvin_dataset``
+at JAX's defaults (B=6, W=12, rgb_pad 10, gripper_pad 4), 1 joint and 1
+exit-only epoch of 4 batches, one checkpoint (``train_calvin``); ``--dif_ws``
+at W=24 (288 ViT images a step) without remat, with ``--remat`` and with
+``--remat_policy dots``, losses against each other and peak memory
+(``train_calvin_difws``); ``cli/eval --calvin_dataset`` on that checkpoint,
+which calibrates on the validation split, writes the values sidecar and
+ends with the dropped-env SystemExit, then ``cli/eval --debug`` serving
+those values (``calib_calvin``).  K1 is checked at the ViT batch of every
+driven path (``vit_batches``), and every shape the models hand K1 while the
+paths run is recorded and must be one of those checked.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last line is
@@ -40,7 +51,8 @@ exits non-zero.  The last line is
 Without a CUDA device, or without the port's package beside this file, it
 exits non-zero and prints no result.  Compiler logs go to
 ``chiprun_out/chip_smoke/``; the training run's checkpoints go to
-``build/chip_smoke_train/`` and are deleted at the end.
+``build/chip_smoke_train/`` and the CALVIN tree and its run to
+``build/chip_smoke_calvin/``; both are deleted at the end.
 """
 
 from __future__ import annotations
@@ -115,6 +127,40 @@ VIT_LAYERS = 24
 # its update (a zero-initialized bias is all update after one step)
 TRAIN_TOL_FP32 = {"loss_rel": 1e-5, "grad_rel_l2": 1e-3,
                   "param_rel_l2": 1e-5}
+# the CALVIN phases: a CALVIN-format tree at CALVIN's frame sizes (200 px
+# static, 84 px gripper, CALVIN's keys), every other episode written with
+# savez_compressed; training/ 6 x 64 frames (about 55 MB), validation/
+# 2 x 40
+CALVIN_DIR = REPO / "build" / "chip_smoke_calvin"
+CALVIN_RUN = CALVIN_DIR / "run"
+CALVIN_SPLITS = {"training": (6, 64), "validation": (2, 40)}
+CALVIN_KEYS = ("rgb_static", "rgb_gripper", "rel_actions", "robot_obs",
+               "scene_obs")
+# cli/train on it at JAX's defaults (B=6, W=12, rgb_pad 10, gripper_pad 4);
+# --data_percent 0.08 keeps 24 of the 312 windows: 4 batches an epoch
+CALVIN_TRAIN_ARGV = ["--model", "mpt_dolly_3b", "--calvin_dataset",
+                     str(CALVIN_DIR), "--batch_size_calvin", str(TRAIN_BATCH),
+                     "--num_joint_epochs", "1", "--num_exit_epochs", "1",
+                     "--joint_warmup_steps", "1", "--exit_warmup_steps", "1",
+                     "--logging_steps", "1", "--data_percent", "0.08",
+                     "--from_scratch", "--run_name", str(CALVIN_RUN)]
+# --dif_ws at W=24: 1 joint epoch of 3 batches (18 of 312 windows), one
+# loader thread so the window draws come in the same order in every run
+DIFWS_ARGV = ["--model", "mpt_dolly_3b", "--calvin_dataset", str(CALVIN_DIR),
+              "--batch_size_calvin", str(TRAIN_BATCH), "--dif_ws",
+              "--window_size", "24", "--max_window_size", "24",
+              "--num_joint_epochs", "1", "--num_exit_epochs", "0",
+              "--joint_warmup_steps", "1", "--logging_steps", "1",
+              "--data_percent", "0.06", "--workers", "1", "--from_scratch",
+              "--run_name", str(CALVIN_DIR / "run_difws")]
+DIFWS_STEPS = 3
+DIFWS_RUNS = (("none", []), ("full", ["--remat"]),
+              ("dots", ["--remat", "--remat_policy", "dots"]))
+# the same seeds, batches and draws with and without remat: the forward is
+# the same computation, the gradients differ by the order of atomic sums,
+# so a loss after an update moves by bf16 noise; held to 1e-2 relative
+# (2.56 bf16 ulps)
+DIFWS_LOSS_REL = 1e-2
 
 
 def emit(obj) -> None:
@@ -326,11 +372,13 @@ def vit_batches(cfg) -> dict:
     training cross-checks' W frames."""
     from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE
     calib = CALIB_BATCH_SIZE * cfg.window_size
-    train = TRAIN_BATCH * cfg.window_size
-    return {"bfloat16": sorted({1, 8, calib, train,
+    train = TRAIN_BATCH * cfg.window_size  # also a CALVIN calibration batch
+    difws = TRAIN_BATCH * int(DIFWS_ARGV[DIFWS_ARGV.index("--window_size")
+                                         + 1])
+    return {"bfloat16": sorted({1, 8, calib, train, difws,
                                 *(lanes for lanes, _ in ROLLOUT_RUNS)}),
             "float32": sorted({1, CALIB_CROSS_WINDOW}), "calib": calib,
-            "train": train}
+            "train": train, "difws": difws}
 
 
 def k1_key(q, k, bias) -> tuple:
@@ -503,6 +551,8 @@ def phase_kernels(torch, vit: dict) -> dict:
                 summary["flash_attention_calib"] = row
             elif name == f"vit_strided_b{vit['train']}_bfloat16":
                 summary["flash_attention_train"] = row
+            elif name == f"vit_strided_b{vit['difws']}_bfloat16":
+                summary["flash_attention_difws"] = row
         rows.append(row)
     big = torch.zeros(1, 1, 8, 144, dtype=torch.bfloat16, device="cuda")
     try:
@@ -1332,6 +1382,7 @@ def phase_train(torch, np) -> dict:
     counters = kernel_counters()
     for f in counters.values():
         f.launches = 0
+    held_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     steps, buf = [], io.StringIO()
     t0 = time.perf_counter()
@@ -1384,9 +1435,7 @@ def phase_train(torch, np) -> dict:
     check(moved_in_exit <= exit_keys and exit_grad <= moved_in_exit,
           f"train: exit-only moved {sorted(moved_in_exit - exit_keys)[:5]}, "
           f"left {sorted(exit_grad - moved_in_exit)[:5]}")
-    ends = [s["t"] for s in steps]
-    book = [s["bookkeeping_s"] for s in steps]
-    secs = [ends[i] - ends[i - 1] - book[i - 1] for i in range(1, len(ends))]
+    secs = step_intervals(steps)
     files = {f.name: f.stat().st_size for f in sorted(TRAIN_DIR.iterdir())}
     out = {"phase": "train", "argv": TRAIN_ARGV, "seconds": seconds,
            "steps": len(steps), "losses": [s["loss"] for s in steps],
@@ -1395,6 +1444,7 @@ def phase_train(torch, np) -> dict:
            "joint_step_s_median": statistics.median(secs[:3]),
            "exit_step_s_median": statistics.median(secs[4:]),
            "step_s": secs, "peak_memory_gb": peak_gb,
+           "allocated_before_gb": held_gb,
            "trainable_joint": len(joint_keys),
            "joint_no_gradient": len(joint_keys - joint_nonzero),
            "joint_gradient_below_eps": len(joint_nonzero - joint_grad),
@@ -1456,6 +1506,389 @@ def phase_train_eval(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the CALVIN phases
+# ---------------------------------------------------------------------------
+
+
+def read_ms(fn, reps: int = 10) -> float:
+    """Host milliseconds of one ``fn()`` call, mean of ``reps`` after one."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+@contextlib.contextmanager
+def numpy_reader():
+    """While open, the datasets read their windows with ``np.load``: the
+    native library is set aside as a failed build would leave it."""
+    from deer_vla_tpu_torch.data import native_loader
+    kept = native_loader._lib, native_loader._error
+    native_loader._lib, native_loader._error = None, "set aside to time np.load"
+    try:
+        yield
+    finally:
+        native_loader._lib, native_loader._error = kept
+
+
+def loader_batches_per_s(batches: int) -> float:
+    """Batches a second of ``CalvinLoader`` over the training split at
+    cli/train's defaults (B=6, W=12, 4 loader threads, prefetch 3), after
+    its first batch."""
+    from deer_vla_tpu_torch.data.calvin import (CalvinDataConfig,
+                                                CalvinLoader,
+                                                DiskCalvinDataset)
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    ds = DiskCalvinDataset(CalvinDataConfig(
+        dataset_dir=str(CALVIN_DIR / "training"), window_size=12),
+        validation=False)
+    it = iter(CalvinLoader(ds, HashTokenizer(max_length=32), TRAIN_BATCH,
+                           workers=4))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    rate = batches / (time.perf_counter() - t0)
+    it.close()
+    return rate
+
+
+def phase_calvin_data(np) -> dict:
+    """Writes the CALVIN-format tree, holds the native reader against
+    ``np.load`` bit for bit on a STORED and a DEFLATE window of 12 frames
+    (CALVIN's five keys), times a window's read both ways (the dataset's
+    four keys) and the loader's batches a second with either reader."""
+    from deer_vla_tpu_torch.data import native_loader
+    from deer_vla_tpu_torch.data.calvin import DiskCalvinDataset
+    from deer_vla_tpu_torch.data.debug_data import make_synthetic_calvin
+    shutil.rmtree(CALVIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    split_bytes = {}
+    for i, (split, (n, ep_len)) in enumerate(CALVIN_SPLITS.items()):
+        d = make_synthetic_calvin(str(CALVIN_DIR), n_episodes=n,
+                                  ep_len=ep_len, img_hw=200, grip_hw=84,
+                                  split=split, seed=SEED + i,
+                                  compressed_episodes=set(range(1, n, 2)))
+        split_bytes[split] = sum(f.stat().st_size
+                                 for f in Path(d).glob("episode_*.npz"))
+    write_s = time.perf_counter() - t0
+    native_loader.reset_counts()
+    t0 = time.perf_counter()
+    status = native_loader.status()  # builds the reader
+    build_s = time.perf_counter() - t0
+    check(status["available"],
+          f"calvin_data: the native reader did not build: {status['error']}")
+    train = CALVIN_DIR / "training"
+    ep_len = CALVIN_SPLITS["training"][1]
+    windows = {"stored": range(0, 12), "deflate": range(ep_len, ep_len + 12)}
+    keys = DiskCalvinDataset.EPISODE_KEYS
+    reads = {}
+    for kind, frames in windows.items():
+        paths = [str(train / f"episode_{i:07d}.npz") for i in frames]
+        got = native_loader.read_window_keys(paths, CALVIN_KEYS)
+        check(got is not None, f"calvin_data: no native read of {kind}")
+        loaded = [np.load(p) for p in paths]
+        for k in CALVIN_KEYS:
+            want = np.stack([f[k] for f in loaded])
+            check(got[k].dtype == want.dtype and np.array_equal(got[k], want),
+                  f"calvin_data: {kind} {k} differs from np.load")
+
+        def numpy_window():
+            fs = [np.load(p) for p in paths]
+            return {k: np.stack([f[k] for f in fs]) for k in keys}
+
+        reads[kind] = {
+            "native_ms": read_ms(lambda: native_loader.read_window_keys(
+                paths, keys)),
+            "numpy_ms": read_ms(numpy_window)}
+        reads[kind]["speedup"] = (reads[kind]["numpy_ms"]
+                                  / reads[kind]["native_ms"])
+    native_loader.reset_counts()
+    rates = {"native": loader_batches_per_s(8)}
+    with numpy_reader():
+        rates["numpy"] = loader_batches_per_s(8)
+    rates["native_again"] = loader_batches_per_s(8)
+    served = native_loader.status()
+    check(served["native_windows"] > 0 and served["numpy_windows"] > 0,
+          f"calvin_data: windows served {served}")
+    out = {"phase": "calvin_data", "root": str(CALVIN_DIR),
+           "splits": {k: {"episodes": n, "frames_each": e,
+                          "bytes": split_bytes[k],
+                          "compressed_episodes": list(range(1, n, 2))}
+                      for k, (n, e) in CALVIN_SPLITS.items()},
+           "write_s": write_s, "reader_build_s": build_s,
+           "reader_status": status, "window_read": reads,
+           "loader_batches_per_s": rates, "loader_reader": served}
+    emit(out)
+    return out
+
+
+class TimedLoader:
+    """The trainer's loader, with the seconds the step loop waited for each
+    batch (the first one includes starting the loader)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.waits = []
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+def run_calvin_training(torch, argv, save_last: bool):
+    """cli/train's trainer for ``argv``, built and run on the card as
+    ``cli.train.main`` runs it, each optimizer update recorded, the loader
+    timed and the kernels and readers counted from 0; no epoch checkpoint
+    is written, and with ``save_last`` the last epoch is saved once at the
+    end.  Returns (trainer, record)."""
+    import io
+    from deer_vla_tpu_torch.cli import train as cli
+    from deer_vla_tpu_torch.data import native_loader
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    trainer, _ = cli.build_trainer(argv)
+    trainer.tcfg = dataclasses.replace(trainer.tcfg, save_every_epoch=False)
+    loader = trainer.loader = TimedLoader(trainer.loader)
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    native_loader.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, buf = [], io.StringIO()
+    t0 = time.perf_counter()
+    with train_updates(steps), contextlib.redirect_stdout(buf):
+        trainer.train()
+    seconds = time.perf_counter() - t0
+    record = {"seconds": seconds, "steps": steps,
+              "launches": {n: f.launches for n, f in counters.items()},
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "allocated_before_gb": held_gb,
+              "loader_waits_s": loader.waits,
+              "reader": native_loader.status(), "log": buf.getvalue()}
+    if save_last:
+        t0 = time.perf_counter()
+        path = trainer.save(trainer.tcfg.num_epochs - 1)
+        record["checkpoint"] = {"path": path,
+                                "seconds": time.perf_counter() - t0,
+                                "bytes": Path(path).stat().st_size}
+    return trainer, record
+
+
+def step_intervals(steps: list) -> list:
+    """Seconds between consecutive optimizer updates, less the recording's
+    own time."""
+    ends = [s["t"] for s in steps]
+    book = [s["bookkeeping_s"] for s in steps]
+    return [ends[i] - ends[i - 1] - book[i - 1] for i in range(1, len(ends))]
+
+
+def check_training(np, name: str, record: dict, n_steps: int) -> None:
+    steps, launches = record["steps"], record["launches"]
+    check(len(steps) == n_steps, f"{name}: {len(steps)} steps")
+    check(all(np.isfinite(s["loss"]) for s in steps),
+          f"{name}: losses {[s['loss'] for s in steps]}")
+    check(launches["flash_attention"] == VIT_LAYERS * n_steps,
+          f"{name}: K1 launched {launches['flash_attention']} times")
+    check(all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+          f"{name}: K2-K4 launched: {launches}")
+    check(record["reader"]["native_windows"] > 0
+          and record["reader"]["numpy_windows"] == 0,
+          f"{name}: windows served {record['reader']}")
+
+
+def phase_train_calvin(torch, np) -> dict:
+    """cli/train on the CALVIN tree (deer_3b, bf16, B=6, W=12, rgb_pad 10,
+    gripper_pad 4): 1 joint and 1 exit-only epoch of 4 batches, one
+    checkpoint (the last epoch's).  Checks the losses, K1 24 times a step
+    and K2-K4 never, every window read natively, the frozen leaves bit for
+    bit a fresh draw of the seed, every joint leaf with a gradient above
+    Adam's eps moved, and the exit-only phase trained head leaves only."""
+    from deer_vla_tpu_torch.models.flamingo import (cast_frozen_to_bf16,
+                                                    init_deer,
+                                                    trainable_mask)
+    from deer_vla_tpu_torch.ops.layers import (flat_key,
+                                               tree_leaves_with_path)
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    shutil.rmtree(CALVIN_RUN, ignore_errors=True)
+    trainer, r = run_calvin_training(torch, CALVIN_TRAIN_ARGV, True)
+    (OUT_DIR / "cli_train_calvin.log").write_text(r.pop("log"))
+    n = len(trainer.loader)
+    check(n == 4, f"train_calvin: {n} batches an epoch")
+    check_training(np, "train_calvin", r, 2 * n)
+    steps = r.pop("steps")
+    cfg = trainer.cfg
+    with torch.no_grad():
+        fresh = init_deer(cfg, seed=trainer.tcfg.seed, device="cuda")
+        fresh = cast_frozen_to_bf16(fresh, trainable_mask(fresh, cfg,
+                                                          "joint"))
+    final, start = flat_leaves(trainer.params), flat_leaves(fresh)
+    joint_mask = {flat_key(p): m for p, m in tree_leaves_with_path(
+        trainable_mask(fresh, cfg, "joint"))}
+    frozen_changed = [k for k, m in joint_mask.items()
+                      if not m and not torch.equal(final[k], start[k])]
+    check(not frozen_changed, f"train_calvin: frozen leaves changed: "
+                              f"{frozen_changed[:5]}")
+    joint_grad = set().union(*(s["above_eps"] for s in steps[:n]))
+    unmoved = [k for k in joint_grad if torch.equal(final[k], start[k])]
+    check(not unmoved, f"train_calvin: joint leaves with a gradient did "
+                       f"not move: {unmoved[:5]}")
+    heads = {"lm_head", "extra_exit", "lm_exits"}
+    check(all(k.split("/")[0] in heads for k in steps[n]["keys"]),
+          "train_calvin: the exit-only phase trains non-head leaves")
+    secs = step_intervals(steps)
+    waits = r.pop("loader_waits_s")
+    out = {"phase": "train_calvin", "argv": CALVIN_TRAIN_ARGV,
+           "batches_per_epoch": n, "losses": [s["loss"] for s in steps],
+           "grad_norms": [s["grad_norm"] for s in steps],
+           # warm medians: a phase's first step is not in its list
+           "joint_step_s_median": statistics.median(secs[:n - 1]),
+           "exit_step_s_median": statistics.median(secs[n:]),
+           "step_s": secs, "loader_wait_s": waits,
+           "loader_wait_s_warm_median": statistics.median(waits[1:]),
+           "trainable_joint": len(steps[0]["keys"]),
+           "joint_with_gradient_above_eps": len(joint_grad), **r}
+    emit(out)
+    del trainer, fresh, final, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_calvin_difws(torch, np) -> dict:
+    """cli/train --dif_ws at W=24 (288 ViT images a step), 1 joint epoch
+    of 3 batches, without remat, with --remat and with --remat_policy dots:
+    the same seeds and batches in each.  Checks each run as train_calvin,
+    the losses of the remat runs against no remat (``DIFWS_LOSS_REL``) and
+    the --remat (full) peak memory below no remat's."""
+    runs = {}
+    for name, extra in DIFWS_RUNS:
+        trainer, r = run_calvin_training(torch, DIFWS_ARGV + extra, False)
+        r.pop("log")
+        check(trainer.cfg.window_size == 24
+              and trainer.loader.loader.ds.cfg.max_window_size == 24
+              and trainer.cfg.remat_layers == (name != "none")
+              and (name == "none" or trainer.cfg.remat_policy == name),
+              f"train_calvin_difws {name}: config {trainer.cfg.remat_policy}")
+        check_training(np, f"train_calvin_difws {name}", r, DIFWS_STEPS)
+        steps = r.pop("steps")
+        secs = step_intervals(steps)
+        runs[name] = {"losses": [s["loss"] for s in steps],
+                      "step_s": secs, "step_s_median": statistics.median(secs),
+                      **r}
+        del trainer
+        torch.cuda.empty_cache()
+    base = runs["none"]
+    for name in ("full", "dots"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs[name]["losses"],
+                                                      base["losses"]))
+        runs[name]["loss_max_rel_vs_none"] = rel
+        runs[name]["peak_vs_none"] = (runs[name]["peak_memory_gb"]
+                                      / base["peak_memory_gb"])
+        check(rel <= DIFWS_LOSS_REL, f"train_calvin_difws {name}: losses "
+              f"{runs[name]['losses']} vs {base['losses']}")
+    check(runs["full"]["peak_memory_gb"] < base["peak_memory_gb"],
+          f"train_calvin_difws: remat peak {runs['full']['peak_memory_gb']} "
+          f"GB not below {base['peak_memory_gb']}")
+    out = {"phase": "train_calvin_difws", "argv": DIFWS_ARGV,
+           "loss_tolerance_rel": DIFWS_LOSS_REL, "runs": runs}
+    emit(out)
+    return out
+
+
+def phase_calib_calvin(torch, np) -> dict:
+    """cli/eval --calvin_dataset on train_calvin's checkpoint, without
+    --debug: 2 validation batches of 6 trajectories (W=12, 144 ViT images
+    each through K1), the values sidecar written, then the asserted
+    dropped-env SystemExit; then cli/eval --debug on the same
+    --value_cache stem, which must serve those values (no calibration)."""
+    import io
+    from deer_vla_tpu_torch.cli import eval as cli
+    from deer_vla_tpu_torch.core.config import deer_3b
+    from deer_vla_tpu_torch.data import native_loader
+    from deer_vla_tpu_torch.train.checkpoint import load_calibration_values
+    ckpt = str(CALVIN_RUN / "deer_1.ckpt")
+    stem = str(CALVIN_DIR / "calvin_values")
+    argv = ["--model", "deer_3b", "--calvin_dataset", str(CALVIN_DIR),
+            "--evaluate_from_checkpoint", ckpt, "--value_cache", stem,
+            "--batch_size_calvin", str(TRAIN_BATCH), "--calib_batches", "2",
+            "--exit_ratio", "0.5"]
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    native_loader.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    raised = None
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(argv)
+        except SystemExit as err:
+            raised = str(err)
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    reader = native_loader.status()
+    text = buf.getvalue()
+    (OUT_DIR / "cli_eval_calvin.log").write_text(text + f"\n{raised}\n")
+    check(raised == cli.CALVIN_ENV_DROPPED,
+          f"calib_calvin: ended with {raised!r}")
+    values = load_calibration_values(stem)
+    n_exits = len(deer_3b().all_exit_ids())
+    check(values is not None and values.shape == (n_exits, 2 * TRAIN_BATCH * 6)
+          and bool(np.isfinite(values).all()),
+          f"calib_calvin: values {None if values is None else values.shape}")
+    check(launches["flash_attention"] == 2 * VIT_LAYERS
+          and all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+          f"calib_calvin: launches {launches}")
+    check(reader["native_windows"] > 0 and reader["numpy_windows"] == 0,
+          f"calib_calvin: windows served {reader}")
+    thresholds = text.strip().splitlines()[-1]
+    argv2 = ["--debug", "--model", "deer_3b", "--evaluate_from_checkpoint",
+             ckpt, "--value_cache", stem, "--num_sequences_override", "2",
+             "--ep_len", "40", "--exit_ratio", "0.5"]
+    for f in counters.values():
+        f.launches = 0
+    buf2 = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf2):
+        report = cli.main(argv2)
+    seconds2 = time.perf_counter() - t0
+    launches2 = {n: f.launches for n, f in counters.items()}
+    text2 = buf2.getvalue()
+    (OUT_DIR / "cli_eval_calvin_values.log").write_text(text2)
+    check("reusing calibration values" in text2 and "calibrated" not in text2,
+          "calib_calvin: the --debug run did not serve the cached values")
+    check(text2.strip().splitlines()[-3] == thresholds,
+          f"calib_calvin: thresholds {text2.strip().splitlines()[-3]} vs "
+          f"{thresholds}")
+    out = {"phase": "calib_calvin", "argv": argv, "seconds": seconds,
+           "raised": raised, "values_shape": list(values.shape),
+           "values_median": float(np.median(values)),
+           "thresholds": thresholds, "launches": launches,
+           "loader_reader": reader, "debug_argv": argv2,
+           "debug_seconds": seconds2, "debug_launches": launches2,
+           "avg_seq_len": report["avg_seq_len"],
+           "avg_exit_layer": report["avg_exit_layer"]}
+    emit(out)
+    shutil.rmtree(CALVIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(summary: dict, launches: dict, tc: dict,
                  path_launches: dict) -> dict:
     """``launches`` maps each kernel to its count on the serve path that
@@ -1488,6 +1921,14 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
                 summary["flash_attention_train"]["max_abs_err"],
             "train_shape": "q,k,v (144,16,257,64) bf16 strided views of a "
                            "fused qkv (ViT layer of a training batch)",
+            "difws_ms": summary["flash_attention_difws"]["kernel_ms"],
+            "difws_plain_ms": summary["flash_attention_difws"]["reference_ms"],
+            "difws_library_ms": summary["flash_attention_difws"]["library_ms"],
+            "difws_bound_ms": summary["flash_attention_difws"]["bound_ms"],
+            "difws_max_abs_err":
+                summary["flash_attention_difws"]["max_abs_err"],
+            "difws_shape": "q,k,v (288,16,257,64) bf16 strided views of a "
+                           "fused qkv (ViT layer of a --dif_ws W=24 batch)",
             "tensor_core_sass": tc["flash_attention"]["hmma_hgmma"],
             "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)"}]
     for name, source, line, weights, library in (
@@ -1554,6 +1995,10 @@ def drive_paths(torch, np, cfg) -> tuple:
     rollouts = [phase_rollout(torch, np, lanes, quantize)
                 for lanes, quantize in ROLLOUT_RUNS]
     paths = rollouts + [phase_train(torch, np), phase_train_eval(torch)]
+    phase_calvin_data(np)
+    paths += [phase_train_calvin(torch, np),
+              phase_train_calvin_difws(torch, np),
+              phase_calib_calvin(torch, np)]
     return serve, quantized, calib, paths
 
 
@@ -1590,8 +2035,13 @@ def main() -> int:
         name: sum(b[name] for r in calib["regimes"].values()
                   for b in r["launches_per_batch"])
         for name in kernel_counters()}}
-    for r in paths:  # the rollouts, train and train_eval
-        path_launches[r["phase"]] = r["launches"]
+    for r in paths:  # the rollouts, the training and CALVIN phases
+        if "launches" in r:
+            path_launches[r["phase"]] = r["launches"]
+        for name, run in r.get("runs", {}).items():
+            path_launches[f"{r['phase']}_{name}"] = run["launches"]
+        if "debug_launches" in r:
+            path_launches[r["phase"] + "_debug"] = r["debug_launches"]
     launches = dict(serve["launches"])
     launches["indexed_matmul_q8"] = \
         quantized["int8"]["launches"]["indexed_matmul_q8"]

@@ -1,9 +1,17 @@
 """Evaluation CLI of the port: calibrate the exit thresholds, then serve
-them in closed-loop rollouts (the JAX package's ``cli/eval.py`` with
-``--debug``: the DebugBatcher calibration data and the DebugEnv rollouts).
+them in closed-loop rollouts (the JAX package's ``cli/eval.py``).  The
+calibration batches are DebugBatcher's with ``--debug`` or without
+``--calvin_dataset``, else the CALVIN loader over ``DIR/validation``; the
+rollouts run in the DebugEnv.  Rollouts in the CALVIN env are dropped for
+good (ROADMAP.md), so a run on ``--calvin_dataset`` without ``--debug``
+calibrates, writes the values sidecar (``--value_cache``) and then raises
+SystemExit naming that item; a ``--debug`` run given the same
+``--value_cache`` serves those values.
 
     python -m deer_vla_tpu_torch.cli.eval --debug --model deer_3b \
         --calib_batches 2 --num_sequences_override 2 --exit_ratio 0.5
+    python -m deer_vla_tpu_torch.cli.eval --calvin_dataset DIR \
+        --evaluate_from_checkpoint runs/deer/deer_8.ckpt --value_cache v
 
 ``main(argv, device=None)`` runs on the card; ``device="cpu"`` runs the
 plain versions on the CPU.  The weights are ``init_deer`` draws from
@@ -35,19 +43,23 @@ from deer_vla_tpu_torch.core.device import resolve_device
 MODELS = {"tiny": deer_tiny, "deer_3b": deer_3b, "mpt_dolly_3b": deer_3b}
 # trajectories per DebugBatcher calibration batch
 CALIB_BATCH_SIZE = 2
+# what a run on --calvin_dataset without --debug ends with, once its values
+# sidecar is written
+CALVIN_ENV_DROPPED = ("rollouts in the CALVIN env are not served: the CALVIN "
+                      "env (calvin_env and its data) is dropped for good "
+                      "(ROADMAP.md \"Dropped for good\"); run --debug for "
+                      "DebugEnv rollouts")
 
 # JAX flags not served yet: (flag, JAX default, argparse keywords, the
 # ROADMAP.md item that serves it).  A value other than the default raises.
 _FLAG = {"action": "store_true"}
 UNSERVED = (
-    ("--calvin_dataset", "", {}, "M9 (the CALVIN env and data)"),
     ("--calvin_conf_path", "", {}, "M9 (the CALVIN env and data)"),
     ("--eval_sequences", "eval_sequences.json", {},
      "M9 (the CALVIN env and data)"),
     ("--diverse_inst", False, _FLAG, "M9 (the CALVIN env and data)"),
     ("--annotation_cache", "lang_annotation_cache.json", {},
      "M9 (the CALVIN env and data)"),
-    ("--batch_size_calvin", 6, {"type": int}, "M9 (the CALVIN env and data)"),
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
     ("--tcp_rel", False, _FLAG, "M9 (tcp-frame actions)"),
     ("--visualize", "", {}, "M9 (rollout GIFs)"),
@@ -120,8 +132,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report_json", default="",
                    help="also write the full report to this JSON path")
     p.add_argument("--debug", action="store_true",
-                   help="DebugBatcher calibration data and DebugEnv "
-                        "rollouts (the only backend ported)")
+                   help="DebugBatcher calibration data (also without "
+                        "--calvin_dataset) and DebugEnv rollouts")
+    p.add_argument("--calvin_dataset", default="",
+                   help="a CALVIN-format directory: calibrate on its "
+                        "validation/ split (unless --debug)")
+    p.add_argument("--batch_size_calvin", type=int, default=6,
+                   help="trajectories per CALVIN calibration batch")
     p.add_argument("--num_sequences_override", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--evaluate_from_checkpoint", default="",
@@ -140,6 +157,27 @@ def check_served(args) -> None:
     if args.lanes > 1 and args.replan != -1:
         raise SystemExit("--lanes has no per-lane replan counter; run "
                          "--replan without --lanes")
+
+
+def calibration_batches(args, cfg, tok):
+    """The calibration batches (JAX ``cli/eval._calibration_batches``):
+    DebugBatcher's with ``--debug`` or without ``--calvin_dataset``, else
+    the CALVIN loader over ``DIR/validation`` (hash-fixed windows, no
+    shuffle, ``--batch_size_calvin`` trajectories a batch)."""
+    if args.debug or not args.calvin_dataset:
+        from deer_vla_tpu_torch.data.debug_data import DebugBatcher
+        return DebugBatcher(cfg, tok, batch_size=CALIB_BATCH_SIZE,
+                            num_batches=args.calib_batches,
+                            img_hw=cfg.vit.image_size,
+                            grip_hw=cfg.vit.image_size)
+    from deer_vla_tpu_torch.data.calvin import (CalvinDataConfig,
+                                                CalvinLoader,
+                                                DiskCalvinDataset)
+    dcfg = CalvinDataConfig(
+        dataset_dir=os.path.join(args.calvin_dataset, "validation"),
+        window_size=cfg.window_size, seed=args.seed)
+    ds = DiskCalvinDataset(dcfg, validation=True)
+    return CalvinLoader(ds, tok, args.batch_size_calvin, shuffle=False)
 
 
 def model_config(args):
@@ -229,7 +267,6 @@ def _clean(v):
 def main(argv=None, device: Optional[str] = None) -> dict:
     args = build_parser().parse_args(argv)
     check_served(args)
-    from deer_vla_tpu_torch.data.debug_data import DebugBatcher
     from deer_vla_tpu_torch.data.text import HashTokenizer
     from deer_vla_tpu_torch.eval.batched_rollout import \
         evaluate_policy_batched
@@ -280,9 +317,7 @@ def main(argv=None, device: Optional[str] = None) -> dict:
                 print(f"reusing calibration values from {cache}")
         batches = None
         if values is None:
-            batches = DebugBatcher(cfg, tok, batch_size=CALIB_BATCH_SIZE,
-                                   num_batches=args.calib_batches,
-                                   img_hw=size, grip_hw=size)
+            batches = calibration_batches(args, cfg, tok)
         t0 = time.perf_counter()
         thresholds, values = calibrate(
             params, cfg, batches or [], args.exit_ratio, max_layer=max_layer,
@@ -300,6 +335,9 @@ def main(argv=None, device: Optional[str] = None) -> dict:
                                 "calib_streamed": args.calib_streamed})
         controller.set_thresholds(thresholds)
     thresholds = controller.thresholds
+    if args.calvin_dataset and not args.debug:
+        print(",".join(f"{thresholds[e]:.6f}" for e in sorted(thresholds)))
+        raise SystemExit(CALVIN_ENV_DROPPED)
 
     policy = ScanDeerPolicy(
         params, cfg, threshold_type=args.threshold_type, max_layer=max_layer,

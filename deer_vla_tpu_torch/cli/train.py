@@ -1,6 +1,9 @@
 """Training CLI of the port (the JAX package's ``cli/train.py``, the
-reference's train_calvin_post_strategy.py) with ``--debug`` data:
+reference's train_calvin_post_strategy.py), on a CALVIN-format directory
+(``DIR/training``, ``data/calvin.py``) or on ``--debug`` random batches:
 
+    python -m deer_vla_tpu_torch.cli.train --model mpt_dolly_3b \
+        --calvin_dataset DIR --run_name runs/deer
     python -m deer_vla_tpu_torch.cli.train --debug --model mpt_dolly_3b \
         --num_joint_epochs 1 --num_exit_epochs 1 --joint_warmup_steps 1 \
         --exit_warmup_steps 1 --run_name runs/deer
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from typing import Optional
 
 from deer_vla_tpu_torch.core.config import BF16, FP32, deer_3b, deer_tiny
@@ -29,11 +33,6 @@ MODELS = {"mpt_dolly_3b": deer_3b, "tiny": deer_tiny}
 _FLAG = {"action": "store_true"}
 _VARIANTS = "M10 (model variants)"
 UNSERVED = (
-    ("--dif_ws", False, _FLAG, "M11 (data/calvin.py variable windows)"),
-    ("--min_window_size", 12, {"type": int},
-     "M11 (data/calvin.py variable windows)"),
-    ("--max_window_size", 24, {"type": int},
-     "M11 (data/calvin.py variable windows)"),
     ("--multi_step_action", 1, {"type": int}, _VARIANTS),
     ("--use_state", False, _FLAG, _VARIANTS),
     ("--clip_state", False, _FLAG, _VARIANTS),
@@ -46,11 +45,7 @@ UNSERVED = (
     ("--n_obs_steps", 6, {"type": int}, _VARIANTS),
     ("--diff_horizon", 32, {"type": int}, _VARIANTS),
     ("--gripper_res", 0, {"type": int}, _VARIANTS),
-    ("--calvin_dataset", "", {}, "M11 (data/calvin.py)"),
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
-    ("--text_aug", False, _FLAG, "M11 (data/calvin.py)"),
-    ("--data_percent", 1.0, {"type": float}, "M11 (data/calvin.py)"),
-    ("--workers", 4, {"type": int}, "M11 (data/calvin.py)"),
     ("--tcp_rel", False, _FLAG, "M9b (tcp-frame actions)"),
     ("--cotrain", False, _FLAG, "M16 (vision-language co-training)"),
     ("--cotrain_laion_shards", "", {}, "M16 (vision-language co-training)"),
@@ -64,8 +59,6 @@ UNSERVED = (
     ("--vl_batch_size", None, {"type": int},
      "M16 (vision-language co-training)"),
     ("--vit_tome_r", 0, {"type": int}, "M13 (ToMe)"),
-    ("--remat", False, _FLAG, "M11 (--remat)"),
-    ("--remat_policy", "full", {}, "M11 (--remat)"),
     ("--coordinator", "", {}, "M15 (multi-host)"),
     ("--num_processes", 1, {"type": int}, "M15 (multi-host)"),
     ("--process_id", 0, {"type": int}, "M15 (multi-host)"),
@@ -81,6 +74,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="truncated decoder depth (early_exit_layer + 1)")
     p.add_argument("--exit_interval", type=int, default=2)
     p.add_argument("--window_size", type=int, default=12)
+    p.add_argument("--dif_ws", action="store_true",
+                   help="variable-window training (data.py:250-255): "
+                        "training windows uniform in [min, max], samples "
+                        "padded to max (needs --window_size = "
+                        "--max_window_size)")
+    p.add_argument("--min_window_size", type=int, default=12)
+    p.add_argument("--max_window_size", type=int, default=24)
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--share_exit", action="store_true")
     p.add_argument("--freeze_embed", action="store_true",
@@ -110,6 +110,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--exit_strategy", default="post", choices=["post"])
     p.add_argument("--loss_multiplier_calvin", type=float, default=1.0)
     p.add_argument("--save_freq", type=int, default=1)
+    p.add_argument("--calvin_dataset", default="",
+                   help="a CALVIN-format directory; training reads its "
+                        "training/ split")
+    p.add_argument("--text_aug", action="store_true")
+    p.add_argument("--data_percent", type=float, default=1.0)
+    p.add_argument("--workers", type=int, default=4,
+                   help="loader threads assembling a batch's windows")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each decoder layer in the backward pass "
+                        "(activation memory)")
+    p.add_argument("--remat_policy", default="full", choices=["full", "dots"],
+                   help="full: recompute all of a layer; dots: keep its "
+                        "weight products")
     p.add_argument("--rgb_pad", type=int, default=10)
     p.add_argument("--gripper_pad", type=int, default=4)
     p.add_argument("--traj_cons", action="store_true", default=True)
@@ -138,7 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_every_iter", type=int, default=-1)
     p.add_argument("--ema_decay", type=float, default=0.0)
     p.add_argument("--debug", action="store_true",
-                   help="DebugBatcher data (the only source ported)")
+                   help="DebugBatcher random batches, no dataset")
     for flag, default, kw, _ in UNSERVED:
         p.add_argument(flag, default=default, **kw)
     return p
@@ -152,10 +165,9 @@ def check_served(args) -> None:
     if args.model not in MODELS:
         raise SystemExit(f"--model {args.model} is not served by the "
                          f"PyTorch port yet (ROADMAP.md {_VARIANTS})")
-    if not args.debug:
-        raise SystemExit("training data other than --debug is not served "
-                         "by the PyTorch port yet (ROADMAP.md M11, "
-                         "data/calvin.py)")
+    if not args.debug and not args.calvin_dataset:
+        raise SystemExit("training needs --calvin_dataset DIR (a "
+                         "CALVIN-format directory) or --debug")
 
 
 def make_model_config(args):
@@ -171,6 +183,8 @@ def make_model_config(args):
                "freeze_embed": args.freeze_embed,
                "freeze_sampler": args.freeze_sampler,
                "unfreeze_vit": args.unfreeze_vit,
+               "remat_layers": args.remat,
+               "remat_policy": args.remat_policy,
                "train_params": args.train_params,
                "use_gripper": not args.no_gripper}
     if args.single_exit:
@@ -194,12 +208,41 @@ def make_model_config(args):
     return dataclasses.replace(cfg, **updates)
 
 
+def make_loader(args, cfg, tok):
+    """The training batches: DebugBatcher's with ``--debug``, else the
+    CALVIN loader over ``--calvin_dataset``/training as the JAX CLI builds
+    it (cli/train.py:303-324), as rank 0 of 1 process."""
+    if args.debug:
+        from deer_vla_tpu_torch.data.debug_data import DebugBatcher
+        return DebugBatcher(cfg, tok, batch_size=args.batch_size_calvin,
+                            num_batches=4, img_hw=cfg.vit.image_size,
+                            grip_hw=cfg.vit.image_size)
+    from deer_vla_tpu_torch.data.calvin import (CalvinDataConfig,
+                                                CalvinLoader,
+                                                DiskCalvinDataset)
+    if args.dif_ws and cfg.window_size != args.max_window_size:
+        raise SystemExit(
+            f"--dif_ws pads every sample to --max_window_size "
+            f"({args.max_window_size}); the model window "
+            f"({cfg.window_size}) must equal it (the reference trains "
+            "the LSTM over the padded max window, data.py:212)")
+    dcfg = CalvinDataConfig(
+        dataset_dir=os.path.join(args.calvin_dataset, "training"),
+        window_size=cfg.window_size, act_step=args.multi_step_action,
+        text_aug=args.text_aug, data_percent=args.data_percent,
+        seed=args.seed, dif_ws=args.dif_ws,
+        var_min_window=args.min_window_size,
+        var_max_window=args.max_window_size)
+    ds = DiskCalvinDataset(dcfg, validation=False)
+    return CalvinLoader(ds, tok, args.batch_size_calvin, rank=0,
+                        world_size=1, seed=args.seed, workers=args.workers)
+
+
 def build_trainer(argv=None, device: Optional[str] = None):
     """(the ``Trainer`` the flags ask for, the parsed flags), untrained."""
     args = build_parser().parse_args(argv)
     check_served(args)
     from deer_vla_tpu_torch.core.device import resolve_device
-    from deer_vla_tpu_torch.data.debug_data import DebugBatcher
     from deer_vla_tpu_torch.data.text import HashTokenizer
     from deer_vla_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -209,9 +252,7 @@ def build_trainer(argv=None, device: Optional[str] = None):
                         max_length=cfg.text_len)
     cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id,
                               eoc_token_id=tok.eoc_token_id)
-    loader = DebugBatcher(cfg, tok, batch_size=args.batch_size_calvin,
-                          num_batches=4, img_hw=cfg.vit.image_size,
-                          grip_hw=cfg.vit.image_size)
+    loader = make_loader(args, cfg, tok)
     tcfg = TrainConfig(
         run_dir=args.run_name,
         num_joint_epochs=args.num_joint_epochs,

@@ -1,14 +1,19 @@
-"""Debug data: random batches in the exact training format (a copy of the
-JAX package's ``data/debug_data.DebugBatcher``; the reference's
-DebugDataset, data.py:588-597, get_calvin_dataset_debug :1191-1246).
+"""Debug data (a copy of the JAX package's ``data/debug_data.py``):
+  * DebugBatcher: random batches in the exact training format (the
+    reference's DebugDataset, data.py:588-597, get_calvin_dataset_debug
+    :1191-1246);
+  * make_synthetic_calvin: a CALVIN-format directory on disk
+    (episode_XXXXXXX.npz frames + lang_annotations/auto_lang_ann.npy), so
+    ``data/calvin.py`` and the training CLI run without the dataset.
 
 numpy only and seeded by ``RandomState``, so the same seed gives the same
-batches in both packages.
+batches and files in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator
+from pathlib import Path
+from typing import Callable, Collection, Dict, Iterator
 
 import numpy as np
 
@@ -72,3 +77,41 @@ class DebugBatcher:
                 "input_ids": ids, "attention_mask": mask,
                 "robot_obs_multi": np.zeros(1, np.float32),
             }
+
+
+def make_synthetic_calvin(root: str, n_episodes: int = 3, ep_len: int = 24,
+                          img_hw: int = 32, grip_hw: int = 24,
+                          split: str = "training", seed: int = 0,
+                          compressed_episodes: Collection[int] = ()) -> str:
+    """Write a CALVIN-format split of random frames under ``root``; returns
+    the split directory.  The episodes whose index is in
+    ``compressed_episodes`` are written with ``np.savez_compressed``
+    (DEFLATE members), the others with ``np.savez`` (STORED, as CALVIN
+    ships them); the arrays are the same either way."""
+    r = np.random.RandomState(seed)
+    d = Path(root) / split
+    (d / "lang_annotations").mkdir(parents=True, exist_ok=True)
+    spans, anns, tasks = [], [], []
+    frame = 0
+    for e in range(n_episodes):
+        save = np.savez_compressed if e in compressed_episodes else np.savez
+        start = frame
+        for _ in range(ep_len):
+            save(d / f"episode_{frame:07d}.npz",
+                 rgb_static=r.randint(0, 256, (img_hw, img_hw, 3), np.uint8),
+                 rgb_gripper=r.randint(0, 256, (grip_hw, grip_hw, 3),
+                                       np.uint8),
+                 rel_actions=np.clip(r.randn(7).astype(np.float32) * 0.3,
+                                     -1, 1),
+                 robot_obs=r.randn(15).astype(np.float32),
+                 scene_obs=r.randn(24).astype(np.float32))
+            frame += 1
+        spans.append((start, frame - 1))
+        task = TASKS[e % len(TASKS)]
+        tasks.append(task)
+        anns.append(INSTRUCTIONS[task])
+    lang_data = {"info": {"indx": spans},
+                 "language": {"ann": anns, "task": tasks}}
+    np.save(d / "lang_annotations" / "auto_lang_ann.npy", lang_data,
+            allow_pickle=True)
+    return str(d)

@@ -6,14 +6,18 @@ variant selects layer ``i`` of (L, ...) weights: its four big products go
 through the layer-indexed kernels (K2, or K3 / K4 for int8 / int4 weights)
 with a device-side index, the small LayerNorm leaves are sliced on the
 host.  ``decoder_forward`` runs every layer over the unstacked weights and
-returns all layer outputs (training and calibration).
+returns all layer outputs (training and calibration); with
+``cfg.remat_layers`` each layer's activations are recomputed in the
+backward pass (``remat_layers_fn``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from deer_vla_tpu_torch.core.config import DeerConfig, MPTConfig
 from deer_vla_tpu_torch.models.gated_xattn import (gated_xattn_forward,
@@ -157,6 +161,41 @@ def _layer(params: dict, i: int, x: torch.Tensor, media: torch.Tensor,
     return mpt_block_forward(params["blocks"][i], x, attn_bias, cfg.mpt)
 
 
+def _save_unbatched_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy='dots'``: keep the
+    outputs of matmuls without batch dims (``aten.mm`` / ``aten.addmm``,
+    the weight products), recompute everything else (``aten.bmm`` of the
+    attention included), as ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable`` does."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_layers_fn(cfg: DeerConfig):
+    """``_layer`` as ``decoder_forward`` runs it: as is, or (with
+    ``cfg.remat_layers``) under ``torch.utils.checkpoint``, recomputing all
+    of the layer in the backward ('full') or all but its weight products
+    ('dots'); the JAX package's ``jax.checkpoint`` of each layer
+    (models/mpt.py:242-247)."""
+    if not cfg.remat_layers:
+        return _layer
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not one of "
+                         "'full', 'dots'")
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            _save_unbatched_matmuls)
+
+    def layer(*args):
+        if not torch.is_grad_enabled():
+            return _layer(*args)
+        return ckpt.checkpoint(_layer, *args, **kw)
+    return layer
+
+
 def decoder_forward(params: dict, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor, media: torch.Tensor,
                     cfg: DeerConfig,
@@ -176,8 +215,9 @@ def decoder_forward(params: dict, input_ids: torch.Tensor,
     if media_locations is None:
         media_locations = input_ids == cfg.media_token_id
     attn_bias = make_attn_bias(attention_mask, cfg.mpt, cdt)
+    layer = remat_layers_fn(cfg)
     outs = []
     for i in range(cfg.n_layers):
-        x = _layer(params, i, x, media, media_locations, attn_bias, cfg)
+        x = layer(params, i, x, media, media_locations, attn_bias, cfg)
         outs.append(x)
     return torch.stack(outs), x

@@ -3,9 +3,10 @@ read and written without flax:
 
   * ``<stem>.ckpt``: msgpack (``train/msgpack_io``) of
     ``{"params": {"decoder/xattn/0/to_q/w": array, ...}}``, only the leaves
-    of a mask when one is given (a delta checkpoint); the port's optimizer
-    state goes under ``"torch_opt_state"``, so the JAX package's loader
-    still reads the params of a file the port wrote;
+    of a mask when one is given (a delta checkpoint), and the optimizer
+    state under ``"opt_state"`` in the layout of the JAX package's optax
+    state (``train/optimizer.GroupedAdamW.state_dict``), so each package
+    restores the other's moments;
   * ``<stem>.json``: the config and a ``meta`` record (epoch, phase, seed,
     and for the port's trainer how its backbone was drawn);
   * ``<stem>.values.npz``: cached calibration deltas with the settings
@@ -32,10 +33,8 @@ from deer_vla_tpu_torch.models.flamingo import init_deer
 from deer_vla_tpu_torch.ops.layers import (flat_key, tree_leaves_with_path,
                                            tree_map, tree_map_with_path)
 from deer_vla_tpu_torch.train import msgpack_io
+from deer_vla_tpu_torch.train.optimizer import moments_of_state_dict
 
-# the key of the port's optimizer state in a .ckpt (the JAX package writes
-# optax's state under "opt_state", which the port cannot restore)
-TORCH_OPT_STATE = "torch_opt_state"
 # the package a meta["init"] record names when the port drew the backbone
 INIT_PACKAGE = "deer_vla_tpu_torch"
 
@@ -52,6 +51,13 @@ def to_numpy(t: torch.Tensor):
         return msgpack_io.Bf16Array(t.view(torch.int16).numpy()
                                     .view(np.uint16))
     return t.numpy()
+
+
+def _stored(tree):
+    """A state dict with its tensors as the codec stores them."""
+    if isinstance(tree, dict):
+        return {k: _stored(v) for k, v in tree.items()}
+    return to_numpy(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def to_tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
@@ -108,7 +114,9 @@ def save_checkpoint(path: str, params: dict, cfg: DeerConfig,
     """Write ``<path>.ckpt`` and ``<path>.json``, each through a temporary
     file and a rename, so a crash never leaves a truncated checkpoint for
     ``find_latest_checkpoint`` to pick.  With ``trainable_mask`` only the
-    leaves it marks True are stored (train_utils.py:631-638)."""
+    leaves it marks True are stored (train_utils.py:631-638).
+    ``opt_state`` is an optax-layout state dict
+    (``GroupedAdamW.state_dict``)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     keep = (None if trainable_mask is None
             else {p for p, m in tree_leaves_with_path(trainable_mask) if m})
@@ -116,10 +124,7 @@ def save_checkpoint(path: str, params: dict, cfg: DeerConfig,
                           for p, v in tree_leaves_with_path(params)
                           if keep is None or p in keep}}
     if opt_state is not None:
-        payload[TORCH_OPT_STATE] = {
-            "count": int(opt_state["count"]),
-            "mu": {k: to_numpy(v) for k, v in opt_state["mu"].items()},
-            "nu": {k: to_numpy(v) for k, v in opt_state["nu"].items()}}
+        payload["opt_state"] = _stored(opt_state)
     tmp = path + ".ckpt.tmp"
     with open(tmp, "wb") as f:
         msgpack_io.dump(payload, f)
@@ -141,8 +146,9 @@ def load_checkpoint(path: str, params_template: dict,
     ``meta`` gains ``loaded_keys`` (how many were replaced) and
     ``unconsumed_keys`` (stored leaves the template has no place for, also
     warned about).  ``opt_state`` is the port's optimizer state shaped like
-    ``opt_state_template`` when both are there; a file holding only the
-    JAX package's optax state gives None and a warning."""
+    ``opt_state_template`` (``{"count", "mu", "nu"}``), read from the
+    file's optax-layout state, written by either package, when both are
+    there."""
     path = _stem(path)
     loaded = msgpack_io.load(path + ".ckpt")
     stored = dict(loaded.get("params", {}))
@@ -169,25 +175,23 @@ def load_checkpoint(path: str, params_template: dict,
             f"checkpoint {path}: {len(unconsumed)} stored params not "
             f"matched by the model template (first: {unconsumed[:3]})")
     opt_state = None
-    if opt_state_template is not None:
-        if TORCH_OPT_STATE in loaded:
-            opt_state = _restore_opt_state(loaded[TORCH_OPT_STATE],
-                                           opt_state_template, path)
-        elif "opt_state" in loaded:
-            warnings.warn(f"checkpoint {path} holds the JAX package's "
-                          "optax state, which the port cannot restore; "
-                          "the optimizer starts fresh")
+    if opt_state_template is not None and "opt_state" in loaded:
+        opt_state = _restore_opt_state(loaded["opt_state"],
+                                       opt_state_template, path)
     return params, opt_state, sidecar
 
 
 def _restore_opt_state(stored: dict, template: dict, path: str) -> dict:
-    for moment in ("mu", "nu"):
-        if set(stored[moment]) != set(template[moment]):
+    count, mu, nu = moments_of_state_dict(stored)
+    moments = {"mu": mu, "nu": nu}
+    for m, leaves in moments.items():
+        if set(leaves) != set(template[m]):
             raise ValueError(f"checkpoint {path}: its optimizer state does "
                              "not cover the phase's trainable leaves")
-    return {"count": int(stored["count"]),
-            **{m: {k: to_tensor(stored[m][k], t.device, t.dtype)
-                   for k, t in template[m].items()} for m in ("mu", "nu")}}
+    return {"count": count,
+            **{m: {k: to_tensor(leaves[k], t.device, t.dtype)
+                   for k, t in template[m].items()}
+               for m, leaves in moments.items()}}
 
 
 def find_latest_checkpoint(

@@ -15,21 +15,30 @@ optax chain step for step:
      (step 0 of a warmup has lr 0), heads times ``exit_lr_scale`` in the
      joint phase.
 
-The groups key off the tree's path names, as in the JAX package.
+The groups key off the tree's path names, as in the JAX package.  The
+state is kept flat (``{"count", "mu", "nu"}`` over the trainable leaves);
+``GroupedAdamW.state_dict`` lays it out as flax's ``to_state_dict`` lays
+out the state of the JAX package's chain, and ``moments_of_state_dict``
+reads that layout back, so either package resumes the other's moments.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.ops.layers import (flat_key, keystr,
-                                           tree_leaves_with_path)
+                                           tree_leaves_with_path,
+                                           tree_map_with_path)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# the labels of the JAX chain's multi_transform, each an AdamW chain but
+# 'frozen' (set_to_zero)
+ADAMW_LABELS = ("wd", "nowd", "wd_scaled", "nowd_scaled")
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +176,67 @@ class GroupedAdamW:
             p.add_(-lrs[label] * u)
         state["count"] = count
         return gnorm
+
+    def state_dict(self, state: dict, params: dict) -> dict:
+        """``state`` in the layout ``flax.serialization.to_state_dict``
+        gives the state of the JAX package's chain ``masked(set_to_zero)``
+        -> ``clip_by_global_norm`` -> ``multi_transform`` over the labels
+        (train/optimizer.py:86-140): under each AdamW label
+        ``{"inner_state": {"0": ScaleByAdamState, "1": {}, "2":
+        ScaleByScheduleState}}``, its ``mu`` / ``nu`` shaped like
+        ``params`` (lists as {"0": ...}), a leaf of another label as ``{}``
+        (optax's MaskedNode).  Counts are int32 tensors, the moments the
+        state's own tensors."""
+        count = torch.tensor(state["count"], dtype=torch.int32)
+
+        def moments(label, which):
+            return _state_dict_of(tree_map_with_path(
+                lambda path, _: (state[which][flat_key(path)]
+                                 if self.labels[flat_key(path)] == label
+                                 else {}), params))
+
+        inner = {label: {"inner_state": {
+            "0": {"count": count, "mu": moments(label, "mu"),
+                  "nu": moments(label, "nu")},
+            "1": {}, "2": {"count": count}}} for label in ADAMW_LABELS}
+        inner["frozen"] = {"inner_state": {}}
+        return {"0": {"inner_state": {}}, "1": {},
+                "2": {"inner_states": inner}}
+
+
+def _state_dict_of(tree):
+    """A tree as flax's ``to_state_dict`` gives it: lists and tuples as
+    dicts keyed "0", "1", ..."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict_of(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def moments_of_state_dict(sd: dict) -> Tuple[int, dict, dict]:
+    """(count, {key: mu leaf}, {key: nu leaf}) of an optax-layout state
+    dict (``GroupedAdamW.state_dict``'s, or the JAX package's), the leaves
+    as stored; the AdamW labels' counts must agree."""
+    inner = sd["2"]["inner_states"]
+    counts, mu, nu = set(), {}, {}
+
+    def collect(node, out, prefix=()):
+        if isinstance(node, dict):  # a subtree, or {} for a MaskedNode
+            for k, v in node.items():
+                collect(v, out, prefix + (k,))
+        elif node is not None:
+            out["/".join(prefix)] = node
+
+    for label in ADAMW_LABELS:
+        adam = inner[label]["inner_state"]["0"]
+        counts.add(int(np.asarray(adam["count"])))
+        collect(adam["mu"], mu)
+        collect(adam["nu"], nu)
+    if len(counts) != 1:
+        raise ValueError(f"the optimizer state's labels disagree on the "
+                         f"update count: {sorted(counts)}")
+    return counts.pop(), mu, nu
 
 
 def flat_leaves(params: dict) -> Dict[str, torch.Tensor]:

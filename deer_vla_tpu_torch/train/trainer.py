@@ -277,19 +277,23 @@ class Trainer:
 
     def save(self, epoch: int, step: Optional[int] = None) -> str:
         """A delta checkpoint of the joint phase's trainable leaves, with
-        the phase's optimizer state; the meta holds the epoch, the phase,
-        the seed and how the backbone was drawn."""
+        the phase's optimizer state in the JAX package's optax layout; the
+        meta holds the epoch, the phase, the seed and how the backbone was
+        drawn."""
         mask = checkpoint_mask(self.params, self.cfg)
         name = f"deer_{epoch}" if step is None else f"deer_{epoch}_it{step}"
         path = os.path.join(self.tcfg.run_dir, name)
-        meta = {"epoch": epoch, "phase": self.phase_of_epoch(epoch),
+        phase = self.phase_of_epoch(epoch)
+        meta = {"epoch": epoch, "phase": phase,
                 "seed": self.tcfg.seed, "init": self.init_meta}
         if step is not None:
             meta["step"] = step
+        opt_state = None
+        if self.state is not None:
+            opt_state = self._phases[phase][0].state_dict(
+                self.state.opt_state, self.params)
         out = save_checkpoint(path, self.params, self.cfg, meta=meta,
-                              trainable_mask=mask,
-                              opt_state=None if self.state is None
-                              else self.state.opt_state)
+                              trainable_mask=mask, opt_state=opt_state)
         if self._ema is not None:
             save_checkpoint(path + "_ema", self._ema_params(), self.cfg,
                             meta=dict(meta, ema_decay=self.tcfg.ema_decay),

@@ -1,9 +1,9 @@
 """PyTorch port, checkpoints: its own msgpack codec against
 ``flax.serialization`` (byte for byte, chunked arrays and bf16 included),
 checkpoints written by either package read by the other, the newest
-checkpoint picked as the JAX package picks it, the optimizer state's
-round trip, and the evaluation loader's seed contract.  Values must come
-back bit for bit.
+checkpoint picked as the JAX package picks it, the optimizer state in
+optax's layout restored across the packages, and the evaluation loader's
+seed contract.  Values must come back bit for bit.
 """
 
 import io
@@ -15,6 +15,7 @@ import flax.serialization as fser
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -29,6 +30,7 @@ from deer_vla_tpu_torch.models import flamingo as tflamingo
 from deer_vla_tpu_torch.ops.layers import flat_key, tree_leaves_with_path
 from deer_vla_tpu_torch.train import checkpoint as tckpt
 from deer_vla_tpu_torch.train import msgpack_io
+from deer_vla_tpu_torch.train import optimizer as toptim
 from deer_vla_tpu_torch.train.optimizer import make_optimizer
 
 
@@ -137,12 +139,17 @@ def test_jax_written_checkpoint_reads_as_jax_reads_it(tiny, tmp_path):
     template = tflamingo.cast_frozen_to_bf16(
         template, tflamingo.trainable_mask(template, tcfg, "joint"))
     tp = tflamingo.init_deer(tcfg, 0, "cpu")
-    with pytest.warns(UserWarning, match="optax state"):
-        got, opt_state, meta = tckpt.load_checkpoint(
-            path, template, opt_state_template=make_optimizer(
-                tp, tcfg, phase="joint", learning_rate=1e-3,
-                warmup_steps=0, total_steps=2).init(tp))
-    assert opt_state is None
+    tmask = tflamingo.checkpoint_mask(tp, tcfg)
+    got, opt_state, meta = tckpt.load_checkpoint(
+        path, template, opt_state_template=make_optimizer(
+            tp, tcfg, phase="joint", learning_rate=1e-3, warmup_steps=0,
+            total_steps=2, trainable=tmask).init(tp))
+    # the optax state of a fresh chain: count 0, zero moments of every
+    # trainable leaf
+    assert opt_state["count"] == 0
+    assert set(opt_state["mu"]) == {
+        flat_key(p) for p, m in tree_leaves_with_path(tmask) if m}
+    assert all(not v.any() for v in opt_state["nu"].values())
     assert meta["meta"]["loaded_keys"] == wmeta["meta"]["loaded_keys"] > 0
     assert meta["meta"]["unconsumed_keys"] == []
     assert meta["config"] == json.loads(jcfg.to_json())
@@ -164,7 +171,7 @@ def test_port_written_checkpoint_reads_in_jax(tiny, tmp_path):
     state["count"] = 3
     path = str(tmp_path / "full")
     tckpt.save_checkpoint(path, tp, tcfg, meta={"epoch": 1},
-                          opt_state=state)
+                          opt_state=opt.state_dict(state, tp))
     template = jflamingo.init_deer(jax.random.PRNGKey(5), jcfg)
     got, _, meta = jckpt.load_checkpoint(path, template)
     assert meta["meta"]["loaded_keys"] == len(tree_leaves_with_path(tp))
@@ -316,3 +323,103 @@ def test_eval_loader_needs_a_card_for_a_card_drawn_backbone(tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="drawn on a CUDA device"):
         eval_cli.load_model(eval_args(path + ".ckpt"), torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the optimizer state in optax's layout
+# ---------------------------------------------------------------------------
+
+
+def state_paths(tree, prefix=()):
+    """{path: leaf} of a state dict, an empty dict (optax's MaskedNode or
+    EmptyState) kept as a leaf."""
+    if isinstance(tree, dict) and tree:
+        out = {}
+        for k, v in tree.items():
+            out.update(state_paths(v, prefix + (str(k),)))
+        return out
+    return {"/".join(prefix): tree}
+
+
+@pytest.mark.parametrize("phase", ["joint", "exit_only"])
+def test_optax_layout_state_restores_across_packages(tmp_path, phase):
+    """Three updates with the same gradients in each package.  The port's
+    opt_state has flax's to_state_dict layout of the JAX chain (every path,
+    MaskedNodes included) with JAX's values within 1e-6; JAX's
+    load_checkpoint restores it into an optax template, and the port
+    restores a JAX-written one, both to the stored count, mu and nu bit for
+    bit."""
+    jcfg, tcfg = jconfig.deer_tiny(), tconfig.deer_tiny()
+    jp = jax.tree.map(np.asarray, jflamingo.init_deer(jax.random.PRNGKey(0),
+                                                      jcfg))
+    tp = to_torch(jp, "cpu")
+    kw = dict(phase=phase, learning_rate=1e-2, warmup_steps=0,
+              total_steps=3, exit_lr_scale=2.0, weight_decay=0.1)
+    jmask = jflamingo.trainable_mask(jp, jcfg, phase)
+    jopt = joptim.make_optimizer(jp, jcfg, trainable=jmask, **kw)
+    topt = make_optimizer(tp, tcfg, trainable=tflamingo.trainable_mask(
+        tp, tcfg, phase), **kw)
+    jparams, jstate = jax.tree.map(jnp.asarray, jp), None
+    jstate = jopt.init(jparams)
+    tstate = topt.init(tp)
+    r = np.random.RandomState(1)
+    for _ in range(3):
+        grads = jax.tree.map(lambda x: r.randn(*x.shape).astype(np.float32)
+                             * 0.1, jp)
+        upd, jstate = jopt.update(jax.tree.map(jnp.asarray, grads), jstate,
+                                  jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        tflat = {flat_key(p): torch.as_tensor(v)
+                 for p, v in tree_leaves_with_path(grads)}
+        topt.update(tp, {k: tflat[k] for k in topt.trainable_keys()},
+                    tstate)
+    assert tstate["count"] == 3
+    port_path, jax_path = str(tmp_path / "port"), str(tmp_path / "jax")
+    tckpt.save_checkpoint(port_path, tp, tcfg,
+                          opt_state=topt.state_dict(tstate, tp))
+    raw = fser.msgpack_restore(open(port_path + ".ckpt", "rb").read())
+    want = state_paths(fser.to_state_dict(jstate))
+    got = state_paths(raw["opt_state"])
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        if isinstance(w, dict) or w is None:  # a MaskedNode, a None leaf
+            assert got[k] == w, k
+        else:
+            assert np.asarray(got[k]).dtype == np.asarray(w).dtype, k
+            np.testing.assert_allclose(got[k], w, rtol=0, atol=1e-6,
+                                       err_msg=k)
+    # the port's state in JAX
+    _, restored, _ = jckpt.load_checkpoint(port_path, jparams,
+                                           opt_state_template=jopt.init(
+                                               jparams))
+    inner = restored[2].inner_states
+    for label in toptim.ADAMW_LABELS:
+        adam = inner[label].inner_state[0]
+        assert int(adam.count) == 3 and \
+            int(inner[label].inner_state[2].count) == 3
+        for which in ("mu", "nu"):
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    getattr(adam, which))[0]:
+                key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                               for p in path)
+                assert topt.labels[key] == label, key
+                np.testing.assert_array_equal(
+                    np.asarray(leaf), tstate[which][key].numpy(), err_msg=key)
+    # JAX's state in the port
+    jckpt.save_checkpoint(jax_path, jparams, jcfg, opt_state=jstate)
+    _, back, _ = tckpt.load_checkpoint(jax_path, tp,
+                                       opt_state_template=topt.init(tp))
+    assert back["count"] == 3
+    jflat = state_paths(fser.to_state_dict(jstate))
+    for which in ("mu", "nu"):
+        assert back[which].keys() == tstate[which].keys()
+        for key, v in back[which].items():
+            stored = jflat[f"2/inner_states/{topt.labels[key]}/inner_state/"
+                           f"0/{which}/{key}"]
+            np.testing.assert_array_equal(v.numpy(), np.asarray(stored))
+    # a template over other leaves is refused
+    other = make_optimizer(tp, tcfg, phase="joint", learning_rate=1e-3,
+                           warmup_steps=0, total_steps=1).init(tp)
+    if phase == "exit_only":
+        with pytest.raises(ValueError, match="does not cover"):
+            tckpt.load_checkpoint(jax_path, tp, opt_state_template=other)

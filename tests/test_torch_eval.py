@@ -1,7 +1,9 @@
 """PyTorch port, the evaluation path: the copied host modules (tokenizer,
 metrics, sequences, FLOPs), closed-loop rollouts through both packages'
 ScanDeerPolicy on DebugEnv (sequential and 2 lanes), and the port's
-``cli/eval`` on the CPU.
+``cli/eval`` on the CPU, also calibrating on a CALVIN-format directory
+(the batches bit for bit, the values within 1e-4 relative L2 and the
+thresholds within 1e-4 relative of JAX's, given JAX's layer draws).
 
 The rollout parity runs bridged deer_tiny weights in fp32 with the same
 thresholds: the per-chain results, the exit histograms and the per-task
@@ -17,10 +19,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from deer_vla_tpu.core import config as jconfig
 from deer_vla_tpu.data import text as jtext
+from deer_vla_tpu.cli import eval as jcli
 from deer_vla_tpu.eval import batched_rollout as jbatched
+from deer_vla_tpu.eval import calibrate as jcal
 from deer_vla_tpu.eval import flops as jflops
 from deer_vla_tpu.eval import metrics as jmetrics
 from deer_vla_tpu.eval import rollout as jrollout
@@ -29,8 +34,11 @@ from deer_vla_tpu.eval.scan_policy import ScanDeerPolicy as JaxPolicy
 from deer_vla_tpu.models.flamingo import init_deer as jinit
 from deer_vla_tpu_torch.cli import eval as cli
 from deer_vla_tpu_torch.core import config as tconfig
+from deer_vla_tpu_torch.bridge import to_torch
 from deer_vla_tpu_torch.data import text as ttext
+from deer_vla_tpu_torch.data.debug_data import make_synthetic_calvin
 from deer_vla_tpu_torch.eval import batched_rollout as tbatched
+from deer_vla_tpu_torch.eval import calibrate as tcal
 from deer_vla_tpu_torch.eval import flops as tflops
 from deer_vla_tpu_torch.eval import metrics as tmetrics
 from deer_vla_tpu_torch.eval import rollout as trollout
@@ -286,3 +294,110 @@ def test_cli_lanes_and_fixed_thresholds(capsys):
 def test_cli_unserved_flags_raise_naming_the_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         cli.main(CLI_ARGS + flag, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# calibration on a CALVIN-format directory
+# ---------------------------------------------------------------------------
+
+CALIB_REL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def calvin_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("calvin"))
+    make_synthetic_calvin(root, n_episodes=2, ep_len=10, img_hw=200,
+                          grip_hw=84)
+    make_synthetic_calvin(root, n_episodes=3, ep_len=12, img_hw=200,
+                          grip_hw=84, split="validation", seed=1,
+                          compressed_episodes={0})
+    return root
+
+
+def calib_args(parser, root, batch):
+    return parser.parse_args(["--calvin_dataset", root, "--batch_size_calvin",
+                              str(batch), "--calib_batches", "2"])
+
+
+def jax_calibration_draws(jcfg, batch, num):
+    """forward_train's sampling-1 layers in JAX calibrate, from the key
+    chain of generate_calibration_values (rng -> rng, prep, fwd)."""
+    rng = jax.random.PRNGKey(0)
+    exit_ids = jnp.asarray(jcfg.all_exit_ids())
+    out = []
+    for _ in range(num):
+        rng, _, fwd = jax.random.split(rng, 3)
+        lay1 = exit_ids[jax.random.randint(jax.random.split(fwd, 8)[2],
+                                           (batch, jcfg.window_size), 0,
+                                           jcfg.num_exits)]
+        out.append({"rand_layer_ids": torch.as_tensor(np.array(lay1))})
+    return out
+
+
+def test_calibration_batches_and_thresholds_match_jax(calvin_root):
+    """DIR/validation, hash-fixed windows, no shuffle, --batch_size_calvin
+    trajectories: the batches equal JAX's _calibration_batches' bit for
+    bit, and calibrate gives JAX's values and thresholds."""
+    tok = ttext.HashTokenizer(vocab_size=128, max_length=8)
+    jcfg, tcfg = (dataclasses.replace(c, media_token_id=tok.media_token_id)
+                  for c in (jconfig.deer_tiny(), tconfig.deer_tiny()))
+    jbatches = list(jcli._calibration_batches(
+        calib_args(jcli.build_parser(), calvin_root, 3), jcfg, tok))
+    tloader = cli.calibration_batches(
+        calib_args(cli.build_parser(), calvin_root, 3), tcfg, tok)
+    assert not tloader.shuffle and tloader.ds.validation
+    assert tloader.ds.dir.name == "validation"
+    tbatches = list(tloader)
+    # 3 episodes of 12 frames: 8 windows of 4 each
+    assert len(tbatches) == len(jbatches) == 3 * 8 // 3
+    for got, want in zip(tbatches, jbatches):
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert tbatches[0]["rgb_static"].shape == (3, 4, 200, 200, 3)
+    params = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(3), jcfg))
+    r = np.random.RandomState(4)
+    for x in params["decoder"]["xattn"]:
+        x["attn_gate"] = r.uniform(-1, 1, (1,)).astype(np.float32)
+        x["ff_gate"] = r.uniform(-1, 1, (1,)).astype(np.float32)
+    th_j, vals_j = jcal.calibrate(jax.tree.map(jnp.asarray, params), jcfg,
+                                  jbatches, 0.5, max_batches=2)
+    th_t, vals_t = tcal.calibrate(to_torch(params, "cpu"), tcfg, tbatches,
+                                  0.5, max_batches=2,
+                                  draws=jax_calibration_draws(jcfg, 3, 2))
+    # 2 batches of 3 trajectories, 2 samples each (W=4)
+    assert vals_t.shape == vals_j.shape == (tcfg.num_exits, 2 * 3 * 2)
+    vals_j = np.asarray(vals_j, np.float64)
+    assert np.linalg.norm(vals_t - vals_j) <= \
+        CALIB_REL * np.linalg.norm(vals_j)
+    assert th_t.keys() == th_j.keys()
+    np.testing.assert_allclose([th_t[e] for e in th_t],
+                               [th_j[e] for e in th_j], rtol=CALIB_REL)
+
+
+def test_cli_calibrates_on_calvin_then_stops_before_the_calvin_env(
+        tmp_path, capsys, calvin_root):
+    """Without --debug: calibrate on DIR/validation, write the sidecar,
+    then the dropped-env SystemExit; a --debug run on the same stem serves
+    those values instead of recomputing them."""
+    cache = str(tmp_path / "calvin_values")
+    args = ["--model", "tiny", "--precision", "fp32", "--calvin_dataset",
+            calvin_root, "--batch_size_calvin", "3", "--calib_batches", "2",
+            "--exit_ratio", "0.5", "--value_cache", cache]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(args, device="cpu")
+    assert str(exc.value) == cli.CALVIN_ENV_DROPPED
+    assert "Dropped for good" in str(exc.value)
+    out = capsys.readouterr().out
+    assert "calibrated 12 samples" in out  # 2 batches x 3 x 2
+    vals = load_calibration_values(cache)
+    assert vals.shape == (tconfig.deer_tiny().num_exits, 12)
+    th = [float(t) for t in out.strip().splitlines()[-1].split(",")]
+    report = cli.main(CLI_ARGS + ["--value_cache", cache], device="cpu")
+    out2 = capsys.readouterr().out
+    assert "reusing calibration values" in out2 and "calibrated" not in out2
+    assert last_three(out2)[0] == th
+    assert report["env_steps"] > 0
+    # --debug beside --calvin_dataset keeps the debug batches (JAX :604)
+    cli.main(CLI_ARGS + ["--calvin_dataset", calvin_root], device="cpu")
+    assert "calibrated 16 samples" in capsys.readouterr().out

@@ -136,3 +136,30 @@ def test_new_train_modules_are_walked():
               "train.train_step", "train.trainer", "train.msgpack_io",
               "utils.heartbeat", "ops.dropout", "ops.kernels.guard"):
         assert f"deer_vla_tpu_torch.{m}" in mods
+
+
+def test_new_data_modules_are_walked_and_build_nothing_at_import():
+    """The CALVIN data layer is walked by the import check above; importing
+    it builds no native library and imports no h5py (real_hdf5 imports it
+    inside the functions that open a file)."""
+    import ast
+    mods = port_modules()
+    for m in ("data.calvin", "data.native_loader", "data.real_hdf5",
+              "data.debug_data"):
+        assert f"deer_vla_tpu_torch.{m}" in mods
+    code = (
+        "import sys\n"
+        "from deer_vla_tpu_torch.data import calvin, native_loader, "
+        "real_hdf5\n"
+        "assert native_loader._lib is None and native_loader._error is None\n"
+        "print('H5PY', 'h5py' in sys.modules)\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "H5PY False" in out.stdout
+    tree = ast.parse((PORT / "data" / "real_hdf5.py").read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert not any(a.name == "h5py" for n in top for a in n.names)
+    inner = [n for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+             for n in ast.walk(f) if isinstance(n, ast.Import)]
+    assert sum(a.name == "h5py" for n in inner for a in n.names) == 2

@@ -9,6 +9,12 @@ seed.  The random draws the packages cannot share are taken from the JAX
 side and handed to the port: the layer draws of forward_train and every
 dropout keep mask, recorded in call order while JAX traces its forward.
 
+CALVIN-format batches (200 px static, 84 px gripper frames of a synthetic
+directory, also at ``dif_ws`` windows) go through both ``prepare_batch``es
+with JAX's random shifts: frames within 2e-5 absolute (the cubic resize's
+fp32 sums); ``--remat`` ('full' and 'dots') gradients within 1e-6 relative
+L2 of no remat and 1e-4 of JAX's remat step.
+
 Tolerances (fp32, both sides sum the same products in other orders):
 loss and head outputs within 1e-6 absolute on values of unit scale; the
 optimizer's params within 1e-6 absolute after three updates at lr 1e-2;
@@ -32,6 +38,7 @@ import torch
 
 from deer_vla_tpu.core import config as jconfig
 from deer_vla_tpu.models import action_head as jhead
+from deer_vla_tpu.train import trainer as jtrainer
 from deer_vla_tpu.models import flamingo as jflamingo
 from deer_vla_tpu.train import losses as jlosses
 from deer_vla_tpu.train import optimizer as joptim
@@ -40,10 +47,15 @@ from deer_vla_tpu_torch.bridge import to_torch
 from deer_vla_tpu_torch.cli import eval as eval_cli
 from deer_vla_tpu_torch.cli import train as train_cli
 from deer_vla_tpu_torch.core import config as tconfig
-from deer_vla_tpu_torch.data.debug_data import DebugBatcher
+from deer_vla_tpu_torch.data import calvin as tcalvin
+from deer_vla_tpu_torch.data.debug_data import (DebugBatcher,
+                                                make_synthetic_calvin)
 from deer_vla_tpu_torch.data.text import HashTokenizer
 from deer_vla_tpu_torch.models import action_head as thead
 from deer_vla_tpu_torch.models import flamingo as tflamingo
+from deer_vla_tpu_torch.models import mpt as tmpt
+from deer_vla_tpu_torch.ops import attention as tattn
+from deer_vla_tpu_torch.ops import rand_shift as tshift
 from deer_vla_tpu_torch.ops.dropout import Dropout
 from deer_vla_tpu_torch.ops.kernels.guard import check_no_grad
 from deer_vla_tpu_torch.ops.layers import flat_key, keystr, \
@@ -52,7 +64,8 @@ from deer_vla_tpu_torch.train import losses as tlosses
 from deer_vla_tpu_torch.train import optimizer as toptim
 from deer_vla_tpu_torch.train import train_step as tstep
 from deer_vla_tpu_torch.train.checkpoint import load_checkpoint
-from deer_vla_tpu_torch.train.trainer import TrainConfig, Trainer
+from deer_vla_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                              prepare_batch)
 
 LOSS_ATOL = 1e-6
 OPT_ATOL = 1e-6
@@ -60,6 +73,8 @@ STEP_LOSS_REL = 1e-5
 GRAD_REL_L2 = 1e-4
 PARAM_REL_L2 = 1e-5
 UPDATE_REL_L2 = GRAD_REL_L2
+FRAME_ATOL = 2e-5
+REMAT_REL_L2 = 1e-6
 
 
 def rel_l2(got, want) -> float:
@@ -421,8 +436,9 @@ def make_batch(cfg, b, seed):
     mask[::3, -2:] = 0
     labels = np.clip(r.randn(b, w, 7) * 0.5, -1, 1).astype(np.float32)
     labels[..., 6] = np.sign(labels[..., 6])
-    return {"image": r.randn(b * w, 1, 1, 3, 28, 28).astype(np.float32),
-            "gripper": r.randn(b * w, 1, 1, 3, 28, 28).astype(np.float32),
+    hw = cfg.vit.image_size
+    return {"image": r.randn(b * w, 1, 1, 3, hw, hw).astype(np.float32),
+            "gripper": r.randn(b * w, 1, 1, 3, hw, hw).astype(np.float32),
             "input_ids": ids, "attention_mask": mask, "labels": labels}
 
 
@@ -568,6 +584,204 @@ def test_exit_only_backbone_gets_no_gradient(tiny_np):
                                        gen=torch.Generator().manual_seed(0))
     assert grads[keys[0]] is None and grads[keys[1]] is None
     assert float(grads[keys[2]].abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# CALVIN batches: prepare_batch and the train step from them
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def calvin_root(tmp_path_factory):
+    """A CALVIN-format directory at CALVIN's frame sizes (200 px static,
+    84 px gripper): training/ and validation/."""
+    root = str(tmp_path_factory.mktemp("calvin"))
+    make_synthetic_calvin(root, n_episodes=2, ep_len=10, img_hw=200,
+                          grip_hw=84, compressed_episodes={1})
+    make_synthetic_calvin(root, n_episodes=2, ep_len=10, img_hw=200,
+                          grip_hw=84, split="validation", seed=1)
+    return root
+
+
+def calvin_batch(root, cfg, dif_ws):
+    """The first batch of 2 trajectories of a CalvinLoader epoch; with
+    ``dif_ws`` windows drawn in [2, window] and padded to the window."""
+    kw = (dict(dif_ws=True, var_min_window=2,
+               var_max_window=cfg.window_size) if dif_ws else {})
+    ds = tcalvin.DiskCalvinDataset(tcalvin.CalvinDataConfig(
+        dataset_dir=f"{root}/training", window_size=cfg.window_size,
+        seed=1, **kw), validation=False)
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size,
+                        max_length=cfg.text_len)
+    loader = tcalvin.CalvinLoader(ds, tok, 2, seed=2, workers=1)
+    return next(iter(loader))
+
+
+def prepared_pair(monkeypatch, raw, jcfg, tcfg, key):
+    """(JAX's prepare_batch as numpy, the port's with JAX's shifts)."""
+    jb = jtrainer.prepare_batch(raw, jcfg, key, jtrainer.TrainConfig())
+    n = raw["rgb_static"].shape[0] * raw["rgb_static"].shape[1]
+    k1, k2 = jax.random.split(key)
+    shifts = [torch.as_tensor(np.array(jax.random.randint(
+        k, (n, 2), 1, 2 * pad + 1))) for k, pad in ((k1, 10), (k2, 4))]
+    monkeypatch.setattr(tshift, "draw_shifts",
+                        lambda gen, n, low, pad: shifts.pop(0))
+    tb = prepare_batch(raw, tcfg, None, TrainConfig(), "cpu")
+    assert not shifts  # both cameras took JAX's draws
+    return {k: np.asarray(v) for k, v in jb.items()}, tb
+
+
+@pytest.mark.parametrize("dif_ws", [False, True])
+def test_prepare_batch_on_calvin_frames_matches_jax(monkeypatch,
+                                                    calvin_root, dif_ws):
+    jcfg, tcfg = configs()
+    raw = calvin_batch(calvin_root, tcfg, dif_ws)
+    assert raw["rgb_static"].shape[1:] == (tcfg.window_size, 200, 200, 3)
+    assert raw["rgb_gripper"].shape[2:] == (84, 84, 3)
+    jb, tb = prepared_pair(monkeypatch, raw, jcfg, tcfg,
+                           jax.random.PRNGKey(3))
+    for k in ("image", "gripper"):
+        assert tb[k].shape == jb[k].shape == (
+            2 * tcfg.window_size, 1, 1, 3, 28, 28)
+        np.testing.assert_allclose(tb[k].numpy(), jb[k], rtol=0,
+                                   atol=FRAME_ATOL, err_msg=k)
+    for k in ("input_ids", "attention_mask", "labels"):
+        np.testing.assert_array_equal(tb[k].numpy(), jb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("phase,dif_ws", [("joint", False),
+                                          ("exit_only", False),
+                                          ("joint", True),
+                                          ("exit_only", True)])
+def test_train_step_on_calvin_batch_matches_jax(monkeypatch, tiny_np,
+                                                calvin_root, phase, dif_ws):
+    """One step from a prepared CALVIN batch (dropout on, JAX's draws)."""
+    jcfg, tcfg = configs(dropout=0.3, lstm_dropout=0.2)
+    raw = calvin_batch(calvin_root, tcfg, dif_ws)
+    jb, tb = prepared_pair(monkeypatch, raw, jcfg, tcfg,
+                           jax.random.PRNGKey(4))
+    jp = jax.tree.map(jnp.asarray, tiny_np)
+    tp = to_torch(tiny_np, "cpu")
+    kw = dict(phase=phase, learning_rate=1e-3, warmup_steps=0,
+              total_steps=2, weight_decay=0.1)
+    jmask = jflamingo.trainable_mask(jp, jcfg, phase)
+    jopt = optax.chain(capture_grads(), joptim.make_optimizer(
+        jp, jcfg, trainable=jmask, **kw))
+    topt = toptim.make_optimizer(
+        tp, tcfg, trainable=tflamingo.trainable_mask(tp, tcfg, phase), **kw)
+    js = jstep.init_train_state(jp, jopt)
+    rng = jax.random.PRNGKey(5)
+    draws = jax_draws(jcfg, jp, jb, rng, 1)
+    _, _, grads = tstep.loss_and_grads(tp, topt.trainable_keys(), tb, tcfg,
+                                       phase=phase, draws=port_draws(draws))
+    js, jm = jstep.make_train_step(jcfg, jopt, phase=phase, bin_coef=0.01,
+                                   donate=False, trainable=jmask)(
+        js, {k: jnp.asarray(v) for k, v in jb.items()}, rng)
+    _, tm = tstep.make_train_step(tcfg, topt, phase=phase, bin_coef=0.01)(
+        tstep.init_train_state(tp, topt), tb, draws=port_draws(draws))
+    assert abs(float(tm["loss"]) - float(jm["loss"])) <= \
+        STEP_LOSS_REL * abs(float(jm["loss"]))
+    jg = jax_flat(js.opt_state[0])
+    for k in topt.trainable_keys():
+        assert rel_l2(grads[k], jg[k]) <= GRAD_REL_L2, k
+
+
+# ---------------------------------------------------------------------------
+# --remat
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_gradients_match_no_remat_and_jax(monkeypatch, tiny_np,
+                                                policy):
+    """Every decoder layer recomputed in the backward (counted): the
+    gradients equal no remat's within 1e-6 and JAX's remat step's within
+    1e-4."""
+    jcfg, tcfg = configs(remat_layers=True, remat_policy=policy)
+    _, plain = configs()
+    jp = jax.tree.map(jnp.asarray, tiny_np)
+    tp = to_torch(tiny_np, "cpu")
+    batch = make_batch(jcfg, 2, seed=31)
+    rng = jax.random.PRNGKey(32)
+    draws = jax_draws(jcfg, jp, batch, rng, 1)
+    keys = toptim.make_optimizer(
+        tp, tcfg, phase="joint", learning_rate=1e-3, warmup_steps=0,
+        total_steps=1, trainable=tflamingo.trainable_mask(
+            tp, tcfg, "joint")).trainable_keys()
+    calls = []
+    real = tmpt.ckpt.checkpoint
+
+    def counted(fn, *args, **kw):
+        calls.append(kw)
+        return real(fn, *args, **kw)
+
+    monkeypatch.setattr(tmpt.ckpt, "checkpoint", counted)
+    tb = torch_batch(batch)
+    loss_r, _, g_remat = tstep.loss_and_grads(tp, keys, tb, tcfg,
+                                              draws=port_draws(draws))
+    assert len(calls) == tcfg.n_layers
+    assert all(not c["use_reentrant"] for c in calls)
+    assert all(("context_fn" in c) == (policy == "dots") for c in calls)
+    loss_p, _, g_plain = tstep.loss_and_grads(tp, keys, tb, plain,
+                                              draws=port_draws(draws))
+    assert len(calls) == tcfg.n_layers
+    assert float(loss_r) == pytest.approx(float(loss_p), rel=REMAT_REL_L2)
+    for k in keys:
+        assert rel_l2(g_remat[k], g_plain[k]) <= REMAT_REL_L2, k
+    jmask = jflamingo.trainable_mask(jp, jcfg, "joint")
+    jopt = optax.chain(capture_grads(), joptim.make_optimizer(
+        jp, jcfg, phase="joint", learning_rate=1e-3, warmup_steps=0,
+        total_steps=1, trainable=jmask))
+    js, _ = jstep.make_train_step(jcfg, jopt, bin_coef=0.01, donate=False,
+                                  trainable=jmask)(
+        jstep.init_train_state(jp, jopt),
+        {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    jg = jax_flat(js.opt_state[0])
+    for k in keys:
+        assert rel_l2(g_remat[k], jg[k]) <= GRAD_REL_L2, k
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_keeps_the_kernel_guard_for_unfreeze_vit(monkeypatch, policy):
+    """K1 stands outside every checkpointed region: with the kernel forced
+    on the ViT's queries (as on the card, where they reach it) and its
+    guard on, a remat step with a frozen ViT trains, and one with
+    ``unfreeze_vit`` raises the guard's error."""
+    from deer_vla_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_reference
+    seen = []
+
+    def kernel(q, k, v, bias=None, scale=None):
+        check_no_grad("flash_attention", q, k, v, bias)
+        seen.append(q.shape[2])
+        return flash_attention_reference(q, k, v, bias, scale)
+
+    monkeypatch.setattr(tattn, "flash_attention", kernel)
+    base = tconfig.deer_tiny()
+    # 56 px: 17 ViT tokens, the only queries of at least KERNEL_MIN_SQ
+    monkeypatch.setattr(tattn, "KERNEL_MIN_SQ", 17)
+    for unfreeze in (False, True):
+        cfg = dataclasses.replace(
+            base, vit=dataclasses.replace(base.vit, image_size=56),
+            remat_layers=True, remat_policy=policy, unfreeze_vit=unfreeze)
+        params = tflamingo.init_deer(cfg, seed=0, device="cpu")
+        batch = torch_batch(make_batch(cfg, 1, seed=33))
+        keys = toptim.make_optimizer(
+            params, cfg, phase="joint", learning_rate=1e-3, warmup_steps=0,
+            total_steps=1, trainable=tflamingo.trainable_mask(
+                params, cfg, "joint")).trainable_keys()
+        assert any(k.startswith("vit/") for k in keys) == unfreeze
+        gen = torch.Generator().manual_seed(0)
+        if unfreeze:
+            with pytest.raises(RuntimeError, match="flash_attention: an "
+                                                   "input requires grad"):
+                tstep.loss_and_grads(params, keys, batch, cfg, gen=gen)
+        else:
+            loss, _, grads = tstep.loss_and_grads(params, keys, batch, cfg,
+                                                  gen=gen)
+            assert np.isfinite(float(loss))
+            assert grads["decoder/xattn/0/to_q/w"] is not None
+    assert seen and set(seen) == {17}
 
 
 # ---------------------------------------------------------------------------
@@ -752,9 +966,9 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
     (["--use_state"], "M10"), (["--use_hist"], "M10"),
     (["--fusion_mode", "pre"], "M10"), (["--sep_resampler"], "M10"),
     (["--multi_step_action", "2"], "M10"), (["--gripper_res", "84"], "M10"),
-    (["--vit_tome_r", "4"], "M13"), (["--remat"], "M11"),
+    (["--vit_tome_r", "4"], "M13"), (["--n_timesteps", "10"], "M10"),
     (["--tcp_rel"], "M9b"), (["--tokenizer_path", "x"], "M9"),
-    (["--coordinator", "h:1"], "M15"), (["--dif_ws"], "M11"),
+    (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
     (["--model", "mpt_9b"], "M10")])
 def test_train_cli_unserved_flags_raise(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
@@ -762,5 +976,54 @@ def test_train_cli_unserved_flags_raise(flag, item):
 
 
 def test_train_cli_without_debug_raises():
-    with pytest.raises(SystemExit, match="M11"):
+    """Without --debug the CLI trains on --calvin_dataset; with neither it
+    refuses."""
+    with pytest.raises(SystemExit, match="--calvin_dataset"):
         train_cli.main(["--model", "tiny"], device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["window", "dif_ws_remat"])
+def test_train_cli_on_calvin_then_eval_from_checkpoint(tmp_path, capsys,
+                                                       calvin_root, variant):
+    """cli/train without --debug on a CALVIN-format directory: the loader
+    gives every epoch (set_epoch) its len(loader) steps; cli/eval serves
+    the checkpoint."""
+    run = str(tmp_path / "run")
+    argv = ["--model", "tiny", "--calvin_dataset", calvin_root,
+            "--num_joint_epochs", "1", "--num_exit_epochs", "1",
+            "--batch_size_calvin", "2", "--run_name", run,
+            "--joint_warmup_steps", "1", "--exit_warmup_steps", "1",
+            "--precision", "fp32", "--workers", "2", "--window_size", "4"]
+    # 2 batches an epoch: 4 of the 12 windows, or of dif_ws' 16
+    if variant == "dif_ws_remat":
+        argv += ["--dif_ws", "--min_window_size", "2", "--max_window_size",
+                 "4", "--remat", "--remat_policy", "dots", "--text_aug",
+                 "--data_percent", "0.25"]
+    else:
+        argv += ["--data_percent", "0.34"]
+    tr = train_cli.main(argv, device="cpu")
+    loader = tr.loader
+    assert isinstance(loader, tcalvin.CalvinLoader)
+    assert loader.epoch == 1
+    assert tr.state.opt_state["count"] == len(loader) == 2
+    ds = loader.ds
+    assert ds.cfg.dataset_dir == f"{calvin_root}/training"
+    assert ds.cfg.dif_ws == (variant == "dif_ws_remat")
+    assert tr.cfg.remat_layers == (variant == "dif_ws_remat")
+    assert sorted(f for f in os.listdir(run) if f.endswith(".ckpt")) == \
+        ["deer_0.ckpt", "deer_1.ckpt"]
+    capsys.readouterr()
+    report = eval_cli.main(["--debug", "--evaluate_from_checkpoint",
+                            os.path.join(run, "deer_1.ckpt"),
+                            "--calib_batches", "1", "--precision", "fp32",
+                            "--num_sequences_override", "2"], device="cpu")
+    assert "param groups from ckpt" in capsys.readouterr().out
+    assert report["avg_seq_len"] >= 0
+
+
+def test_train_cli_refuses_dif_ws_off_the_max_window(calvin_root, tmp_path):
+    with pytest.raises(SystemExit, match="--max_window_size"):
+        train_cli.main(["--model", "tiny", "--calvin_dataset", calvin_root,
+                        "--dif_ws", "--window_size", "4",
+                        "--max_window_size", "6", "--run_name",
+                        str(tmp_path)], device="cpu")
