@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -144,16 +145,16 @@ CALVIN_TRAIN_ARGV = ["--model", "mpt_dolly_3b", "--calvin_dataset",
                      "--joint_warmup_steps", "1", "--exit_warmup_steps", "1",
                      "--logging_steps", "1", "--data_percent", "0.08",
                      "--from_scratch", "--run_name", str(CALVIN_RUN)]
-# --dif_ws at W=24: 1 joint epoch of 3 batches (18 of 312 windows), one
+# --dif_ws at W=24: 1 joint epoch of 5 batches (31 of 312 windows), one
 # loader thread so the window draws come in the same order in every run
 DIFWS_ARGV = ["--model", "mpt_dolly_3b", "--calvin_dataset", str(CALVIN_DIR),
               "--batch_size_calvin", str(TRAIN_BATCH), "--dif_ws",
               "--window_size", "24", "--max_window_size", "24",
               "--num_joint_epochs", "1", "--num_exit_epochs", "0",
               "--joint_warmup_steps", "1", "--logging_steps", "1",
-              "--data_percent", "0.06", "--workers", "1", "--from_scratch",
+              "--data_percent", "0.1", "--workers", "1", "--from_scratch",
               "--run_name", str(CALVIN_DIR / "run_difws")]
-DIFWS_STEPS = 3
+DIFWS_STEPS = 5
 DIFWS_RUNS = (("none", []), ("full", ["--remat"]),
               ("dots", ["--remat", "--remat_policy", "dots"]))
 # the same seeds, batches and draws with and without remat: the forward is
@@ -161,6 +162,15 @@ DIFWS_RUNS = (("none", []), ("full", ["--remat"]),
 # so a loss after an update moves by bf16 noise; held to 1e-2 relative
 # (2.56 bf16 ulps)
 DIFWS_LOSS_REL = 1e-2
+
+
+def released_gb(torch) -> float:
+    """Frees what earlier phases left to the garbage collector (an
+    exception's traceback cycle can hold a step's tensors) and returns the
+    device memory still allocated, in GB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
 
 
 def emit(obj) -> None:
@@ -1382,7 +1392,7 @@ def phase_train(torch, np) -> dict:
     counters = kernel_counters()
     for f in counters.values():
         f.launches = 0
-    held_gb = torch.cuda.memory_allocated() / 1e9
+    held_gb = released_gb(torch)
     torch.cuda.reset_peak_memory_stats()
     steps, buf = [], io.StringIO()
     t0 = time.perf_counter()
@@ -1660,7 +1670,7 @@ def run_calvin_training(torch, argv, save_last: bool):
     import io
     from deer_vla_tpu_torch.cli import train as cli
     from deer_vla_tpu_torch.data import native_loader
-    held_gb = torch.cuda.memory_allocated() / 1e9
+    held_gb = released_gb(torch)
     trainer, _ = cli.build_trainer(argv)
     trainer.tcfg = dataclasses.replace(trainer.tcfg, save_every_epoch=False)
     loader = trainer.loader = TimedLoader(trainer.loader)
@@ -1771,7 +1781,7 @@ def phase_train_calvin(torch, np) -> dict:
 
 def phase_train_calvin_difws(torch, np) -> dict:
     """cli/train --dif_ws at W=24 (288 ViT images a step), 1 joint epoch
-    of 3 batches, without remat, with --remat and with --remat_policy dots:
+    of 5 batches, without remat, with --remat and with --remat_policy dots:
     the same seeds and batches in each.  Checks each run as train_calvin,
     the losses of the remat runs against no remat (``DIFWS_LOSS_REL``) and
     the --remat (full) peak memory below no remat's."""
