@@ -41,9 +41,20 @@ at W=24 (288 ViT images a step) without remat, with ``--remat`` and with
 (``train_calvin_difws``); ``cli/eval --calvin_dataset`` on that checkpoint,
 which calibrates on the validation split, writes the values sidecar and
 ends with the dropped-env SystemExit, then ``cli/eval --debug`` serving
-those values (``calib_calvin``).  K1 is checked at the ViT batch of every
-driven path (``vit_batches``), and every shape the models hand K1 while the
-paths run is recorded and must be one of those checked.
+those values (``calib_calvin``).  The serving variants run between the
+serve cross-checks and calibration: the host-bucketed ``DeerPolicy`` (8 B=1
+steps, each held against ``ScanDeerPolicy`` with the same products from the
+same carry: equal exits), the vision caches on both engines and the action
+cache (hits counted, every step equal to the uncached step),
+``BatchedDeerPolicy`` at B=8 against ``ScanDeerPolicy.step_batch``, and
+ToMe (r = 8) at B=1 / B=8 plus a full-depth step against fp32 on the CPU
+with the merges compared layer by layer; the rollouts add one ``cli/eval``
+run per serving option (``ROLLOUT_RUNS``; the pipelined lanes' report must
+equal ``--lanes 4``'s) and ``--layerwise_exit_eval`` on the trained
+checkpoint.  K1 is checked at the ViT batch of every driven path
+(``vit_batches``), at the ToMe lengths with their bias too, and every shape
+the models hand K1 while the paths run is recorded and must be one of those
+checked.  A line before the kernels line gives the script's total seconds.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last line is
@@ -105,8 +116,51 @@ CROSS_TOL_BF16 = {"arm_max_abs": 5e-2, "hidden_rel_l2": 5e-2}
 # only the summation order differs.
 CROSS_TOL_FP32 = {"arm_max_abs": 1e-3, "hidden_rel_l2": 1e-3}
 
-# the cli/eval rollout phases: (lanes, --quantize)
-ROLLOUT_RUNS = ((1, None), (2, None), (1, "int8"), (1, "int4"))
+# ToMe: patch tokens merged a ViT layer in the ToMe phases (--vit_tome_r)
+TOME_R = 8
+# the cli/eval rollout phases: (phase, flags after ROLLOUT_ARGV)
+ROLLOUT_RUNS = (
+    ("rollout", []), ("rollout_lanes2", ["--lanes", "2"]),
+    ("rollout_int8", ["--quantize", "int8"]),
+    ("rollout_int4", ["--quantize", "int4"]),
+    ("rollout_bucketed", ["--engine", "bucketed"]),
+    ("rollout_exit_id5", ["--exit_id", "5"]),
+    ("rollout_bucketed_ensemble", ["--engine", "bucketed",
+                                   "--use_action_ensemble"]),
+    ("rollout_bucketed_multi_execution2", ["--engine", "bucketed",
+                                           "--multi_execution", "2"]),
+    ("rollout_tome8", ["--vit_tome_r", str(TOME_R)]),
+    ("rollout_vision_cache_scan", ["--vision_cache_tau", "0.05"]),
+    ("rollout_vision_cache_bucketed", ["--engine", "bucketed",
+                                       "--vision_cache_tau", "0.05"]),
+    ("rollout_action_cache", ["--action_cache_tau", "0.03"]),
+    ("rollout_bucketed_int8", ["--engine", "bucketed", "--quantize",
+                               "int8"]),
+    ("rollout_lanes4", ["--lanes", "4"]),
+    ("rollout_lanes4_pipeline2", ["--lanes", "4", "--pipeline", "2",
+                                  "--env_workers", "2"]))
+# the rollout report entries that --pipeline / --env_workers must not move
+PIPELINE_SAME = ("avg_seq_len", "chain_sr", "success_exit_hist",
+                 "fail_exit_hist", "avg_exit_layer", "task_info")
+# the thresholds the serve phases sweep, one a step (a stream at B=8), over
+# three decades: with these random heads the exit deltas lie around 1e-5
+# (the first full run), so the dynamic exit has room to pick different
+# layers
+SWEEP = [10.0 ** (-6 + 3 * s / 7) for s in range(8)]
+# DeerPolicy against ScanDeerPolicy with the same bf16 products (cuBLAS, no
+# K2) on the same weights, inputs, thresholds and carry: the same layers in
+# the same order, so the exits must be equal; the actions (tanh outputs in
+# [-1, 1]) are held to 1e-2, a few bf16 ulps of a unit value
+BUCKETED_TOL = {"arm_max_abs": 1e-2}
+# the ToMe step at full depth against fp32 on the CPU: on the card in fp32
+# only the summation order differs (CROSS_TOL_FP32, and every merge must
+# agree).  In bf16 pairs whose similarities lie within bf16 rounding of each
+# other merge otherwise than in fp32 (from the second merging layer on, in
+# the first run on an H100), which moves whole tokens of the perceiver's
+# input, and after the first such layer the token order differs too; the
+# actions are held to the exact step's tolerance, the hidden state and the
+# merges are reported
+TOME_TOL_BF16 = {"arm_max_abs": 5e-2}
 # the window of the fp32 calibration cross-check (one trajectory)
 CALIB_CROSS_WINDOW = 2
 # the training phases: cli/train's default batch (trajectories of W=12),
@@ -373,22 +427,39 @@ def k1_cases(torch):
     return cases
 
 
+def rollout_streams() -> set:
+    """The streams a dispatch of each cli/eval rollout phase hands the ViT:
+    1 sequentially, the lanes over the pipeline's groups with --lanes."""
+    from deer_vla_tpu_torch.cli import eval as cli
+    out = set()
+    for _, flags in ROLLOUT_RUNS:
+        args = cli.build_parser().parse_args(ROLLOUT_ARGV + flags)
+        groups = max(1, min(args.pipeline, args.lanes))
+        while args.lanes % groups:
+            groups -= 1
+        out.add(max(args.lanes, 1) // groups)
+    return out
+
+
 def vit_batches(cfg) -> dict:
     """The ViT batches, in streams (a stream is both cameras' frames), that
     the paths this script drives hand K1, by compute dtype: the serve
-    phases' B=1 and B=8, each rollout's lanes, a calibration batch's B*W
+    phases' B=1 and B=8, each rollout's dispatch, a calibration batch's B*W
     frames (phase calibrate and ``cli/eval``), a training batch's B*W
     frames; in fp32 the serve cross-checks' B=1 and the calibration and
-    training cross-checks' W frames."""
+    training cross-checks' W frames.  ``tome`` holds the batches the ToMe
+    tower runs at: phase serve_tome's B=1 and B=8 and its fp32 cross-check,
+    and the ToMe rollout's calibration and serving."""
     from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE
     calib = CALIB_BATCH_SIZE * cfg.window_size
     train = TRAIN_BATCH * cfg.window_size  # also a CALVIN calibration batch
     difws = TRAIN_BATCH * int(DIFWS_ARGV[DIFWS_ARGV.index("--window_size")
                                          + 1])
     return {"bfloat16": sorted({1, 8, calib, train, difws,
-                                *(lanes for lanes, _ in ROLLOUT_RUNS)}),
+                                *rollout_streams()}),
             "float32": sorted({1, CALIB_CROSS_WINDOW}), "calib": calib,
-            "train": train, "difws": difws}
+            "train": train, "difws": difws,
+            "tome": {"bfloat16": [1, 8, calib], "float32": [1]}}
 
 
 def k1_key(q, k, bias) -> tuple:
@@ -428,6 +499,55 @@ def vit_strided_qkv(torch, streams: int, dt):
     check(not q.is_contiguous() and q.data_ptr() == qkv.data_ptr(),
           "split_heads did not give a view")
     return q, k, v
+
+
+def tome_k1_cases(torch, streams: int, dt) -> list:
+    """(name, q, k, v, bias, scale) as the ToMe tower at r = TOME_R hands
+    them to K1: at layer i >= 1 Sq = Sk = 257 - TOME_R * i, for every i
+    whose Sq reaches ``ops.attention.KERNEL_MIN_SQ`` (layer 0 runs before
+    any merge, at the exact tower's shape and without a bias);
+    ``split_heads`` views of one fused qkv and the (2B, 1, Sq, Sq)
+    log-size bias, an expand of one row per image (random merged sizes)."""
+    from deer_vla_tpu_torch.ops.attention import KERNEL_MIN_SQ, split_heads
+    from deer_vla_tpu_torch.ops.tome import (proportional_attn_bias,
+                                             tome_schedule)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11 * streams)
+    cases, n = [], 256
+    for i, r in enumerate(tome_schedule(n, VIT_LAYERS, TOME_R)):
+        sq = n + 1
+        if sq < KERNEL_MIN_SQ:
+            break
+        if i > 0:
+            qkv = torch.randn(2 * streams, sq, 3 * 1024, generator=gen,
+                              device="cuda").to(dt)
+            q, k, v = (split_heads(t, 16) for t in qkv.chunk(3, dim=-1))
+            sizes = torch.randint(1, 9, (2 * streams, sq), generator=gen,
+                                  device="cuda").float()
+            sizes[:, 0] = 1.0  # CLS
+            cases.append((f"tome_l{i}_sq{sq}_b{streams}_{str(dt)[6:]}", q,
+                          k, v, proportional_attn_bias(sizes, sq), 0.125))
+        n -= r
+    return cases
+
+
+def k1_bias_times(torch, q, k, v, bias, scale) -> dict:
+    """``k1_times`` with a bias: K1 and its plain version on the expanded
+    bias as the ViT gives it, SDPA on the bias cast to q's dtype (its float
+    masks take that dtype only)."""
+    from deer_vla_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    F = torch.nn.functional
+    mask = bias.to(q.dtype)
+    return {"kernel_ms": graph_ms(
+                torch, lambda: flash_attention(q, k, v, bias, scale), 48),
+            "kernel_eager_ms": time_ms(
+                torch, lambda: flash_attention(q, k, v, bias, scale), 48),
+            "reference_ms": graph_ms(
+                torch, lambda: flash_attention_reference(q, k, v, bias,
+                                                         scale), 12),
+            "library_ms": graph_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale), 48)}
 
 
 DECODER_PRODUCTS = (("wqkv", 2048, 6144), ("out_proj", 2048, 2048),
@@ -528,7 +648,12 @@ def phase_kernels(torch, vit: dict) -> dict:
             q, k, v = vit_strided_qkv(torch, streams, getattr(torch, dts))
             cases.append((f"vit_strided_b{streams}_{dts}", q, k, v, None,
                           0.125))
+    for dts, batches in vit["tome"].items():
+        for streams in batches:
+            cases += tome_k1_cases(torch, streams, getattr(torch, dts))
     summary["k1_checked"] = set()
+    summary["flash_attention_tome"] = []
+    summary["flash_attention_tome_calib"] = []
     for name, q, k, v, bias, scale in cases:
         summary["k1_checked"].add(k1_key(q, k, bias))
         dt = str(q.dtype)[6:]
@@ -563,6 +688,17 @@ def phase_kernels(torch, vit: dict) -> dict:
                 summary["flash_attention_train"] = row
             elif name == f"vit_strided_b{vit['difws']}_bfloat16":
                 summary["flash_attention_difws"] = row
+        elif name.startswith("tome") and name.endswith("bfloat16"):
+            b, h, sq, dd = q.shape
+            streams = b // 2
+            if streams in (1, vit["calib"]):
+                # q, k, v and the output once, the bias's one row an image
+                nbytes = (4 * q.numel() * q.element_size()
+                          + b * sq * bias.element_size())
+                row.update(bound(nbytes, 4 * b * h * sq * sq * dd, dt))
+                row.update(k1_bias_times(torch, q, k, v, bias, scale))
+                summary["flash_attention_tome" if streams == 1
+                        else "flash_attention_tome_calib"].append(row)
         rows.append(row)
     big = torch.zeros(1, 1, 8, 144, dtype=torch.bfloat16, device="cuda")
     try:
@@ -825,16 +961,13 @@ DECODER_KERNEL = {None: "indexed_matmul", "int8": "indexed_matmul_q8",
 
 
 def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
-                b8_steps=4) -> dict:
+                b8_steps=4, name=None) -> dict:
     """Serve ``b1_steps`` single-stream steps, then ``b8_steps`` eight-stream
     steps, with every kernel's launch count set to 0 just before and read
-    just after."""
+    just after; the thresholds are SWEEP's."""
     from deer_vla_tpu_torch.ops.quant import tree_bytes
     n_exits = len(pol.exits)
-    # one threshold per step (per stream at B=8), over three decades: with
-    # these random heads the exit deltas lie around 1e-5 (the first full
-    # run), so the dynamic exit has room to pick different layers
-    sweep = [10.0 ** (-6 + 3 * s / 7) for s in range(8)]
+    sweep = SWEEP
     counters = kernel_counters()
     for f in counters.values():
         f.launches = 0
@@ -873,8 +1006,10 @@ def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
     if quantize:
         check(launches["indexed_matmul"] == 0,
               f"{quantize}: the bf16 kernel K2 ran: {launches}")
-    out = {"phase": "serve" if quantize is None else f"serve_{quantize}",
+    out = {"phase": name or ("serve" if quantize is None
+                             else f"serve_{quantize}"),
            "config": "deer_3b", "quantize": quantize,
+           "tome_r": cfg.vit.tome_r,
            "vit": [cfg.vit.layers, cfg.vit.width], "mpt": [cfg.n_layers,
                                                            cfg.mpt.d_model],
            "compute": str(cfg.dtypes.cdt)[6:],
@@ -1142,17 +1277,28 @@ ROLLOUT_ARGV = ["--debug", "--model", "deer_3b", "--calib_batches", "2",
                 "--exit_ratio", "0.5"]
 
 
-def phase_rollout(torch, np, lanes: int, quantize=None) -> dict:
-    """``cli/eval.main`` in-process on the card, bf16: calibrate deer_3b on
-    2 debug batches, serve the thresholds (``--quantize``) in DebugEnv
-    rollouts of 2 sequences, sequentially or over ``lanes`` streams; the
-    kernel counts are set to 0 before the call and read after it."""
+def decoder_kernel(args):
+    """The decoder kernel a cli/eval run launches: none on the host-bucketed
+    engine (DeerPolicy runs ``linear`` on per-layer weights, as the JAX
+    package's segment programs do), else K2 or, quantized, K3 / K4."""
+    bucketed = (args.engine == "bucketed" or args.exit_id is not None
+                or args.use_action_ensemble or args.multi_execution > 1
+                or args.layerwise_exit_eval)
+    if bucketed and args.lanes <= 1:
+        return None
+    return DECODER_KERNEL[None if args.quantize == "none" else args.quantize]
+
+
+def phase_rollout(torch, np, phase: str, argv: list) -> dict:
+    """``cli/eval.main(argv)`` in-process on the card, bf16: calibrate
+    deer_3b on 2 debug batches (unless --exit_id), serve in DebugEnv
+    rollouts of 2 sequences through the engine and options the flags ask
+    for; the kernel counts are set to 0 before the call and read after it.
+    K1 must launch, the decoder's kernel (``decoder_kernel``) too, and the
+    other decoder kernels not."""
     import io
     from deer_vla_tpu_torch.cli import eval as cli
-    argv = (ROLLOUT_ARGV + (["--lanes", str(lanes)] if lanes > 1 else [])
-            + (["--quantize", quantize] if quantize else []))
-    phase = "_".join(["rollout"] + ([f"lanes{lanes}"] if lanes > 1 else [])
-                     + ([quantize] if quantize else []))
+    args = cli.build_parser().parse_args(argv)
     counters = kernel_counters()
     for f in counters.values():
         f.launches = 0
@@ -1166,34 +1312,314 @@ def phase_rollout(torch, np, lanes: int, quantize=None) -> dict:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / f"cli_eval_{phase}.log").write_text(text)
     last = text.strip().splitlines()[-3:]
-    th = [float(t) for t in last[0].split(",")]
-    exits = set(cli.model_config(
-        cli.build_parser().parse_args(argv)).all_exit_ids())
+    th = [float(t) for t in last[0].split(",") if t]
+    exits = set(cli.model_config(args).all_exit_ids())
     taken = {e for e, p in enumerate(report["exit_hist"]) if p > 0}
-    check(len(th) == len(exits)
+    check(len(th) == (0 if args.exit_id is not None else len(exits))
           and abs(float(last[1]) - report["avg_seq_len"]) < 1e-5
           and abs(float(last[2]) - (report["avg_exit_layer"] - 1)) < 1e-5,
           f"{phase}: parse contract {last}")
-    check(taken and taken <= exits, f"{phase}: exits {taken} not in {exits}")
-    decoder = DECODER_KERNEL[quantize]
-    check(launches["flash_attention"] > 0 and launches[decoder] > 0,
+    want = exits if args.exit_id is None else {args.exit_id}
+    check(taken and taken <= want, f"{phase}: exits {taken} not in {want}")
+    decoder = decoder_kernel(args)
+    check(launches["flash_attention"] > 0
+          and (decoder is None or launches[decoder] > 0),
           f"{phase}: K1 / {decoder} not launched: {launches}")
-    if quantize:
-        check(launches["indexed_matmul"] == 0,
-              f"{phase}: the bf16 kernel K2 ran: {launches}")
+    others = set(DECODER_KERNEL.values()) - {decoder}
+    check(all(launches[k] == 0 for k in others),
+          f"{phase}: a decoder kernel other than {decoder} ran: {launches}")
     out = {"phase": phase, "argv": argv, "seconds": seconds,
+           "decoder_kernel": decoder,
            "avg_seq_len": report["avg_seq_len"],
            "avg_exit_layer": report["avg_exit_layer"],
            "exit_hist": report["exit_hist"],
            "avg_llm_gflops": report["avg_llm_gflops"],
            "exit_contract_max_abs_gap":
-               report["exit_contract"]["max_abs_gap"],
+               report.get("exit_contract", {}).get("max_abs_gap"),
            "thresholds": th, "env_steps": report["env_steps"],
            "rollout_seconds": report["rollout_seconds"],
            "steps_per_s": report["env_steps"] / report["rollout_seconds"],
-           "launches": launches}
+           "launches": launches,
+           "report": {k: report[k] for k in PIPELINE_SAME}}
+    for key in ("action_cache_hit_rate", "vision_cache_hit_rate",
+                "batched_exit_waste"):
+        if key in report:
+            out[key] = report[key]
     emit(out)
     torch.cuda.empty_cache()
+    return out
+
+
+def serve_launches(counters, before: dict) -> dict:
+    return {n: f.launches - before.get(n, 0) for n, f in counters.items()}
+
+
+def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve) -> dict:
+    """The host-bucketed ``DeerPolicy`` (bf16, a controller with SWEEP's
+    threshold a step): 8 single-stream steps with the kernel counts set to
+    0 before and read after (K1 in the encode prefix; K2-K4 must not run:
+    the decoder runs ``linear`` on per-layer weights).  Each step is then
+    held against ``scan_plain``, a ``ScanDeerPolicy`` with the same
+    products (cuBLAS, indexed_mm off), on the same weights, inputs,
+    thresholds and carry: the same exit (BUCKETED_TOL on the actions).
+    ``serve`` is phase serve's result, for its B=1 median (K2) beside."""
+    ctrl = deer.controller
+    n = len(deer.bucket_exits)
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    steps = []
+    deer.reset()
+    for s in range(8):
+        ctrl.set_threshold_values([SWEEP[s]] * n)
+        inputs = make_policy_inputs(np, cfg, 1, seed=100 + s)
+        carry_in = (None if deer.carry is None
+                    else tuple(c.clone() for c in deer.carry))
+        deer.set_timestep(s)
+        t0 = time.perf_counter()
+        act = deer.step(*inputs)
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "exit": deer.last_exit_layer, "act": act,
+                      "inputs": inputs, "carry_in": carry_in})
+        check(act.shape == (7,) and bool(np.isfinite(act).all()),
+              f"serve_bucketed step {s}: action {act}")
+    launches = {n_: f.launches for n_, f in counters.items()}
+    check(launches["flash_attention"] > 0
+          and all(launches[k] == 0 for k in DECODER_KERNEL.values()),
+          f"serve_bucketed: K1 must run and K2-K4 not: {launches}")
+    exits = [st["exit"] for st in steps]
+    check(len(set(exits)) > 1, f"serve_bucketed: exits all at {exits}")
+    scan_ms, scan_exits, err = [], [], 0.0
+    for s, st in enumerate(steps):
+        scan_plain.set_thresholds([SWEEP[s]] * n)
+        scan_plain.reset()
+        if st["carry_in"] is not None:
+            scan_plain.carry, scan_plain._carry_rows = st["carry_in"], 1
+        t0 = time.perf_counter()
+        act = scan_plain.step(*st["inputs"])
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+        scan_exits.append(scan_plain.last_exit_layer)
+        err = max(err, float(np.abs(act - st["act"]).max()))
+    check(scan_exits == exits,
+          f"serve_bucketed: exits {exits}, ScanDeerPolicy {scan_exits}")
+    check(err <= BUCKETED_TOL["arm_max_abs"],
+          f"serve_bucketed: actions differ by {err}")
+    out = {"phase": "serve_bucketed", "config": "deer_3b",
+           "engine": "DeerPolicy", "thresholds": SWEEP, "exit_layers": exits,
+           "b1_step_ms": [st["ms"] for st in steps],
+           "b1_median_ms": statistics.median(st["ms"] for st in steps),
+           "scan_cublas_exit_layers": scan_exits,
+           "scan_cublas_step_ms": scan_ms,
+           "scan_cublas_median_ms": statistics.median(scan_ms),
+           "scan_k2_b1_median_ms": serve["b1_median_ms"],
+           "vs_scan_arm_max_abs": err, "tolerance": BUCKETED_TOL,
+           "launches": launches}
+    emit(out)
+    return out
+
+
+@contextlib.contextmanager
+def merge_log(log: list):
+    """While open, appends (src, dst) on the host for every ToMe merge the
+    models run (``ops.tome.match_pairs``, one call a merging layer)."""
+    from deer_vla_tpu_torch.ops import tome
+    match = tome.match_pairs
+
+    def logged(metric, r):
+        src, unm, dst = match(metric, r)
+        log.append((src.cpu(), dst.cpu()))
+        return src, unm, dst
+
+    tome.match_pairs = logged
+    try:
+        yield log
+    finally:
+        tome.match_pairs = match
+
+
+def merges_agree(torch, a: list, b: list) -> list:
+    """Per merging layer, the share of (image, merge) entries whose source
+    and destination tokens are the same in two runs' logs."""
+    check(len(a) == len(b), f"{len(a)} against {len(b)} merging layers")
+    return [float(((sa == sb) & (da == db)).float().mean())
+            for (sa, da), (sb, db) in zip(a, b)]
+
+
+def phase_serve_tome(torch, np, cfg, params, cpu_params) -> dict:
+    """``ScanDeerPolicy`` with ToMe (r = TOME_R) in bf16: phase_serve's B=1
+    and B=8 steps (K1 at the ToMe shapes with their bias), then one
+    full-depth step on the card in bf16 and in fp32 against fp32 on the CPU
+    through the plain versions, with the merge indices compared layer by
+    layer (TOME_TOL_BF16 / CROSS_TOL_FP32 on the step; in fp32 the merges
+    must agree)."""
+    from deer_vla_tpu_torch.core.config import FP32
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    cfg_t = dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, tome_r=TOME_R))
+    pol = ScanDeerPolicy(params, cfg_t, indexed_mm=True)
+    res = phase_serve(torch, np, cfg_t, pol, name="serve_tome")
+    inputs = make_policy_inputs(np, cfg, 1, seed=300)
+    logs = {"bf16": [], "fp32": [], "cpu": []}
+    with merge_log(logs["bf16"]):
+        act_bf16, hid_bf16 = full_depth_step(np, pol, cfg_t, inputs)
+    del pol
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg_t, dtypes=FP32)
+    card32 = ScanDeerPolicy(params, cfg32, indexed_mm=True)
+    with merge_log(logs["fp32"]):
+        act_f32, hid_f32 = full_depth_step(np, card32, cfg32, inputs)
+    del card32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = ScanDeerPolicy(cpu_params, cfg32, indexed_mm=True, device="cpu")
+    with merge_log(logs["cpu"]):
+        act_ref, hid_ref = full_depth_step(np, cpu, cfg32, inputs)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    bf16 = compare(np, torch, act_bf16, hid_bf16, act_ref, hid_ref)
+    f32 = compare(np, torch, act_f32, hid_f32, act_ref, hid_ref)
+    agree_bf16 = merges_agree(torch, logs["bf16"], logs["cpu"])
+    agree_f32 = merges_agree(torch, logs["fp32"], logs["cpu"])
+    out = {"phase": "serve_tome_cross_check", "tome_r": TOME_R,
+           "merging_layers": len(logs["cpu"]),
+           "bf16_first_layer_merging_otherwise": next(
+               (i for i, a in enumerate(agree_bf16) if a < 1.0), None),
+           "card_bf16_vs_cpu_fp32": bf16, "tol_bf16": TOME_TOL_BF16,
+           "card_fp32_vs_cpu_fp32": f32, "tol_fp32": CROSS_TOL_FP32,
+           "merges_agree_bf16_per_layer": agree_bf16,
+           "merges_agree_fp32_per_layer": agree_f32, "cpu_seconds": cpu_s}
+    emit(out)
+    for got, tol, what in ((bf16, TOME_TOL_BF16, "bf16"),
+                           (f32, CROSS_TOL_FP32, "fp32")):
+        for key, limit in tol.items():
+            check(got[key] <= limit, f"serve_tome {what} {key} {got[key]}")
+    check(all(a == 1.0 for a in agree_f32),
+          f"serve_tome: fp32 merges differ from the CPU's: {agree_f32}")
+    res["cross_check"] = out
+    return res
+
+
+# frames of the cache phases: a frame three times, a new one twice
+CACHE_FRAMES = (0, 0, 0, 1, 1)
+# the action cache: the first frame four times (a refresh at the fourth),
+# then a new one twice: misses at 0, 3, 4, hits at 1, 2, 5
+ACTION_CACHE_FRAMES = (0, 0, 0, 0, 1, 1)
+
+
+def phase_caches(torch, np, cfg, scan, deer) -> dict:
+    """The vision caches around ``scan`` (ScanDeerPolicy, K2) and ``deer``
+    (DeerPolicy) over CACHE_FRAMES: encode hits counted (K1 launches only on
+    a miss), and every step's action equal to the uncached policy's step
+    from the same carry; then the action cache around ``scan`` over
+    ACTION_CACHE_FRAMES: hits, refreshes and the replayed actions."""
+    from deer_vla_tpu_torch.eval.caching import (ActionCachePolicy,
+                                                 VisionCacheDeerPolicy,
+                                                 VisionCacheScanPolicy)
+    counters = kernel_counters()
+    n = len(scan.exits)
+    scan.set_thresholds([SWEEP[3]] * n)
+    deer.controller.set_threshold_values([SWEEP[3]] * n)
+    out = {"phase": "caches", "thresholds": [SWEEP[3]] * n, "vision": {}}
+    for name, inner, wrap in (("scan", scan, VisionCacheScanPolicy),
+                              ("bucketed", deer, VisionCacheDeerPolicy)):
+        cache = wrap(inner, tau=0.05)
+        launches = {k: 0 for k in counters}
+        exits, ms = [], []
+        for t, seed in enumerate(CACHE_FRAMES):
+            inputs = make_policy_inputs(np, cfg, 1, seed=500 + seed)
+            carry_in = (None if inner.carry is None
+                        else tuple(c.clone() for c in inner.carry))
+            before = {k: f.launches for k, f in counters.items()}
+            cache.set_timestep(t)
+            t0 = time.perf_counter()
+            act = cache.step(*inputs)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for k, v in serve_launches(counters, before).items():
+                launches[k] += v
+            exit_layer, carry_out = cache.last_exit_layer, inner.carry
+            inner.carry = carry_in
+            if name == "scan" and carry_in is not None:
+                inner._carry_rows = 1
+            ref = inner.step(*inputs)
+            check(np.array_equal(act, ref)
+                  and inner.last_exit_layer == exit_layer,
+                  f"caches {name} step {t}: {act} / {exit_layer} against "
+                  f"the uncached {ref} / {inner.last_exit_layer}")
+            inner.carry = carry_out
+            exits.append(exit_layer)
+        misses = len(set(CACHE_FRAMES))
+        check(cache.encode_hits == len(CACHE_FRAMES) - misses,
+              f"caches {name}: {cache.encode_hits} encode hits")
+        check(launches["flash_attention"] == misses * VIT_LAYERS,
+              f"caches {name}: K1 ran {launches['flash_attention']} times "
+              f"for {misses} encodes")
+        out["vision"][name] = {"encode_hits": cache.encode_hits,
+                               "steps": cache.steps, "exit_layers": exits,
+                               "step_ms": ms, "launches": launches}
+    scan.reset()
+    cache = ActionCachePolicy(scan, tau=0.03, refresh_every=3)
+    acts, exits = [], []
+    for t, seed in enumerate(ACTION_CACHE_FRAMES):
+        cache.set_timestep(t)
+        acts.append(cache.step(*make_policy_inputs(np, cfg, 1,
+                                                   seed=500 + seed)))
+        exits.append(cache.last_exit_layer)
+    hits = [e == -1 for e in exits]
+    frames = ACTION_CACHE_FRAMES
+    refreshes = sum(not h and t > 0 and frames[t] == frames[t - 1]
+                    for t, h in enumerate(hits))
+    check(hits == [False, True, True, False, False, True] and refreshes == 1
+          and cache.hits == 3 and cache.steps == 6
+          and np.array_equal(acts[1], acts[0])
+          and np.array_equal(acts[5], acts[4]),
+          f"action cache: exits {exits}, {cache.hits} hits")
+    out["action"] = {"hits": cache.hits, "steps": cache.steps,
+                     "refreshes": refreshes, "exit_layers": exits}
+    out["launches"] = {k: sum(v["launches"][k] for v in out["vision"].values())
+                       for k in counters}
+    emit(out)
+    return out
+
+
+def phase_batched_bucketed(torch, np, cfg, params, scan_plain) -> dict:
+    """``BatchedDeerPolicy`` at B=8 (one shared threshold, SWEEP[3], at
+    every exit), 4 steps, against ``scan_plain.step_batch`` on the same
+    inputs from the same (zero) carry: the same exits per stream, actions
+    within BUCKETED_TOL; the kernel counts are those of the batched steps
+    (K1 in its encode, no K2-K4)."""
+    from deer_vla_tpu_torch.eval.batched_policy import BatchedDeerPolicy
+    n = len(scan_plain.exits)
+    bp = BatchedDeerPolicy(params, cfg, batch=8,
+                           thresholds=[SWEEP[3]] * (n - 1) + [1e8])
+    scan_plain.set_thresholds([SWEEP[3]] * n)
+    scan_plain.reset()
+    counters = kernel_counters()
+    launches = {k: 0 for k in counters}
+    ms, exits, err = [], [], 0.0
+    for s in range(4):
+        inputs = make_policy_inputs(np, cfg, 8, seed=200 + s)
+        before = {k: f.launches for k, f in counters.items()}
+        t0 = time.perf_counter()
+        acts, ex = bp.step(*inputs)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in serve_launches(counters, before).items():
+            launches[k] += v
+        ref, ex_ref = scan_plain.step_batch(*inputs)
+        check(np.array_equal(ex, ex_ref),
+              f"batched_bucketed step {s}: exits {ex} against {ex_ref}")
+        err = max(err, float(np.abs(acts - ref).max()))
+        exits.append(ex.tolist())
+    check(err <= BUCKETED_TOL["arm_max_abs"],
+          f"batched_bucketed: actions differ by {err}")
+    check(launches["flash_attention"] > 0
+          and all(launches[k] == 0 for k in DECODER_KERNEL.values()),
+          f"batched_bucketed: K1 must run and K2-K4 not: {launches}")
+    out = {"phase": "batched_bucketed", "batch": 8, "threshold": SWEEP[3],
+           "exit_layers": exits, "b8_step_ms": ms,
+           "b8_median_ms": statistics.median(ms),
+           "vs_scan_arm_max_abs": err, "tolerance": BUCKETED_TOL,
+           "launches": launches}
+    emit(out)
     return out
 
 
@@ -1472,11 +1898,13 @@ def phase_train(torch, np) -> dict:
     return out
 
 
-def phase_train_eval(torch) -> dict:
+def phase_train_eval(torch, np) -> dict:
     """``cli/eval --evaluate_from_checkpoint`` on the training run's last
     checkpoint, in-process on the card: the delta overlays the rebuilt
     backbone (every stored leaf consumed), then calibration and 2 DebugEnv
-    rollout sequences with K1 and K2 counted."""
+    rollout sequences with K1 and K2 counted; then the same with
+    ``--layerwise_exit_eval`` (each exit's own trained head, on the
+    host-bucketed engine: ``phase_rollout``'s checks)."""
     import io
     import warnings
     from deer_vla_tpu_torch.cli import eval as cli
@@ -1511,6 +1939,9 @@ def phase_train_eval(torch) -> dict:
            "avg_exit_layer": report["avg_exit_layer"],
            "exit_hist": report["exit_hist"], "launches": launches}
     emit(out)
+    layerwise = phase_rollout(torch, np, "train_eval_layerwise",
+                              argv + ["--layerwise_exit_eval"])
+    out["runs"] = {"layerwise": layerwise}
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
@@ -1899,6 +2330,14 @@ def phase_calib_calvin(torch, np) -> dict:
     return out
 
 
+def tome_rows(rows: list) -> list:
+    """K1 at the ToMe shapes, one entry a query length."""
+    return [{"sq": r["shape"][2], "ms": r["kernel_ms"],
+             "plain_ms": r["reference_ms"], "library_ms": r["library_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "max_abs_err": r["max_abs_err"]} for r in rows]
+
+
 def kernels_line(summary: dict, launches: dict, tc: dict,
                  path_launches: dict) -> dict:
     """``launches`` maps each kernel to its count on the serve path that
@@ -1940,7 +2379,13 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
             "difws_shape": "q,k,v (288,16,257,64) bf16 strided views of a "
                            "fused qkv (ViT layer of a --dif_ws W=24 batch)",
             "tensor_core_sass": tc["flash_attention"]["hmma_hgmma"],
-            "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)"}]
+            "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)",
+            "tome_shape": f"ToMe r={TOME_R}: q,k,v (2B,16,Sq,64) bf16 "
+                          "strided, Sk = Sq, bias (2B,1,Sq,Sq) fp32 "
+                          "(stride 0 along Sq), B=1 and a calibration "
+                          "batch (B=24)",
+            "tome_b1": tome_rows(summary["flash_attention_tome"]),
+            "tome_calib": tome_rows(summary["flash_attention_tome_calib"])}]
     for name, source, line, weights, library in (
             ("indexed_matmul", "indexed_matmul.cu", 289,
              "W (12, K, N) bf16", "x @ W[i]"),
@@ -1977,11 +2422,14 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
 
 def drive_paths(torch, np, cfg) -> tuple:
     """The main paths on seeded deer_3b weights: serving in every mode with
-    its cross-checks, calibration with its cross-check, the train step's
-    cross-check and guard, the cli/eval rollouts, then cli/train and
+    its cross-checks, the serving variants (DeerPolicy, the caches,
+    BatchedDeerPolicy, ToMe), calibration with its cross-check, the train
+    step's cross-check and guard, the cli/eval rollouts, then cli/train and
     cli/eval on its checkpoint."""
     from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.eval.policy import DeerPolicy
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.models.value_net import ExitController
     t0 = time.perf_counter()
     params = build_weights(torch, cfg)
     pol = ScanDeerPolicy(params, cfg, indexed_mm=True)
@@ -1992,7 +2440,15 @@ def drive_paths(torch, np, cfg) -> tuple:
                                       serve["stacked_bytes"])
     cpu_params = to_torch(params, "cpu")
     phase_cross_check(torch, np, cfg, params, cpu_params, pol)
-    del pol
+    deer = DeerPolicy(params, cfg, controller=ExitController(
+        exit_id_list=list(cfg.all_exit_ids()), max_layer=cfg.n_layers))
+    scan_plain = ScanDeerPolicy(params, cfg)  # cuBLAS products, no K2
+    variants = [phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve),
+                phase_caches(torch, np, cfg, pol, deer),
+                phase_batched_bucketed(torch, np, cfg, params, scan_plain)]
+    del pol, deer, scan_plain
+    torch.cuda.empty_cache()
+    variants.append(phase_serve_tome(torch, np, cfg, params, cpu_params))
     torch.cuda.empty_cache()
     phase_cross_check_quantized(torch, np, cfg, params, cpu_params)
     calib = phase_calibrate(torch, np, cfg, params)
@@ -2002,9 +2458,14 @@ def drive_paths(torch, np, cfg) -> tuple:
     phase_train_guard(torch, params)
     del params
     torch.cuda.empty_cache()
-    rollouts = [phase_rollout(torch, np, lanes, quantize)
-                for lanes, quantize in ROLLOUT_RUNS]
-    paths = rollouts + [phase_train(torch, np), phase_train_eval(torch)]
+    rollouts = {name: phase_rollout(torch, np, name, ROLLOUT_ARGV + flags)
+                for name, flags in ROLLOUT_RUNS}
+    piped, plain = (rollouts["rollout_lanes4_pipeline2"]["report"],
+                    rollouts["rollout_lanes4"]["report"])
+    check(piped == plain, f"--pipeline 2 --env_workers 2 changed the "
+                          f"report: {piped} against {plain}")
+    paths = variants + list(rollouts.values()) + [
+        phase_train(torch, np), phase_train_eval(torch, np)]
     phase_calvin_data(np)
     paths += [phase_train_calvin(torch, np),
               phase_train_calvin_difws(torch, np),
@@ -2013,6 +2474,7 @@ def drive_paths(torch, np, cfg) -> tuple:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2057,6 +2519,7 @@ def main() -> int:
         quantized["int8"]["launches"]["indexed_matmul_q8"]
     launches["indexed_matmul_q4"] = \
         quantized["int4"]["launches"]["indexed_matmul_q4"]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(summary, launches, tc, path_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

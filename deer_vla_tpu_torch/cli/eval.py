@@ -8,6 +8,14 @@ calibrates, writes the values sidecar (``--value_cache``) and then raises
 SystemExit naming that item; a ``--debug`` run given the same
 ``--value_cache`` serves those values.
 
+The sequential rollouts serve through ``ScanDeerPolicy`` or the
+host-bucketed ``DeerPolicy`` (``--engine``, ``--exit_id``,
+``--use_action_ensemble``, ``--multi_execution``,
+``--layerwise_exit_eval``), optionally behind the vision and action caches;
+``--lanes`` through ``ScanDeerPolicy.step_batch`` (``--pipeline``,
+``--env_workers``); ``--vit_tome_r`` merges ViT tokens in calibration and
+serving (``build_policy``).
+
     python -m deer_vla_tpu_torch.cli.eval --debug --model deer_3b \
         --calib_batches 2 --num_sequences_override 2 --exit_ratio 0.5
     python -m deer_vla_tpu_torch.cli.eval --calvin_dataset DIR \
@@ -69,23 +77,8 @@ UNSERVED = (
     ("--future_act_len", -1, {"type": int}, "M10 (the diffusion head)"),
     ("--gripper_res", -1, {"type": int}, "M10 (gripper_res)"),
     ("--calib_warm", 0, {"type": int}, "M10 (window-folded models)"),
-    ("--exit_id", None, {"type": int},
-     "M13 (the host-bucketed DeerPolicy)"),
-    ("--engine", "auto", {}, "M13 (the host-bucketed DeerPolicy)"),
-    ("--use_action_ensemble", False, _FLAG,
-     "M13 (the host-bucketed DeerPolicy)"),
-    ("--multi_execution", 1, {"type": int},
-     "M13 (the host-bucketed DeerPolicy)"),
-    ("--layerwise_exit_eval", False, _FLAG,
-     "M13 (the host-bucketed DeerPolicy)"),
-    ("--pipeline", 1, {"type": int},
-     "M13 (dispatch_batch / finish_batch)"),
-    ("--env_workers", 0, {"type": int}, "M13 (threaded env stepping)"),
-    ("--action_cache_tau", 0.0, {"type": float}, "M13 (eval/caching)"),
-    ("--action_cache_refresh", 5, {"type": int}, "M13 (eval/caching)"),
-    ("--frame_cache", False, _FLAG, "M13 (eval/caching)"),
-    ("--vision_cache_tau", 0.0, {"type": float}, "M13 (eval/caching)"),
-    ("--vit_tome_r", 0, {"type": int}, "M13 (ToMe)"),
+    ("--frame_cache", False, _FLAG,
+     "M10 (window-folded models: the rolling frame cache)"),
 )
 
 
@@ -118,6 +111,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lanes", type=int, default=1,
                    help=">1: that many env streams in lockstep through one "
                         "batched policy step (eval/batched_rollout.py)")
+    p.add_argument("--pipeline", type=int, default=1,
+                   help=">1: split the lanes into this many groups, one "
+                        "group's env steps overlapping the others' steps; "
+                        "rounded down to a divisor of --lanes")
+    p.add_argument("--env_workers", type=int, default=0,
+                   help=">1: step a lane group's envs through a thread pool "
+                        "(needs --lanes)")
+    p.add_argument("--exit_id", type=int, default=None,
+                   help="fixed exit layer (no calibration, no dynamic exit)")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "fused", "bucketed"],
+                   help="fused: ScanDeerPolicy (one host loop a step, "
+                        "stacked weights); bucketed: the host-bucketed "
+                        "DeerPolicy (steps_per_stage, ensemble, "
+                        "--multi_execution, --layerwise_exit_eval)")
+    p.add_argument("--use_action_ensemble", action="store_true",
+                   help="average the last two evaluated exits' actions "
+                        "(bucketed engine, value_net.py:92-95)")
+    p.add_argument("--multi_execution", type=int, default=1,
+                   help="repeat each action this many env steps")
+    p.add_argument("--layerwise_exit_eval", action="store_true",
+                   help="the final action from the chosen exit's own head "
+                        "(lm_exits[i] / lm_head), each head streaming its "
+                        "own carry; the criterion stays on the extra exit")
+    p.add_argument("--action_cache_tau", type=float, default=0.0,
+                   help=">0: replay the previous action while the frame "
+                        "delta stays at or below tau (eval/caching.py)")
+    p.add_argument("--action_cache_refresh", type=int, default=5)
+    p.add_argument("--vision_cache_tau", type=float, default=0.0,
+                   help=">0: reuse the encoded vision prefix while the frame "
+                        "delta stays at or below tau (both engines; not "
+                        "with --lanes)")
+    p.add_argument("--vit_tome_r", type=int, default=0,
+                   help="ToMe: merge N ViT patch-token pairs a layer "
+                        "(ops/tome.py), in calibration and serving; 0 = the "
+                        "exact tower")
     p.add_argument("--value_cache", default="",
                    help="calibration values .npz sidecar stem (reused "
                         "unless --recompute_values)")
@@ -154,9 +183,53 @@ def check_served(args) -> None:
         if getattr(args, flag[2:]) != default:
             raise SystemExit(f"{flag} is not served by the PyTorch port yet "
                              f"(ROADMAP.md {item})")
-    if args.lanes > 1 and args.replan != -1:
-        raise SystemExit("--lanes has no per-lane replan counter; run "
-                         "--replan without --lanes")
+    if args.env_workers > 1 and args.lanes <= 1:
+        raise SystemExit("--env_workers only applies to the batched "
+                         "rollout; add --lanes N")
+    if args.lanes > 1:
+        for bad, why in (
+                (args.exit_id is not None, "--exit_id (it needs dynamic "
+                                           "exit)"),
+                (args.vision_cache_tau > 0, "--vision_cache_tau (per-lane "
+                                            "frame caching is not "
+                                            "implemented)"),
+                (args.action_cache_tau > 0, "--action_cache_tau (per-lane "
+                                            "action caching is not "
+                                            "implemented)"),
+                (args.multi_execution > 1 or args.use_action_ensemble,
+                 "--multi_execution / --use_action_ensemble (they need the "
+                 "sequential harness)"),
+                (args.replan != -1, "--replan (no per-lane replan "
+                                    "counter)")):
+            if bad:
+                raise SystemExit(f"--lanes does not compose with {why}")
+
+
+def check_layerwise(args, cfg):
+    """--layerwise_exit_eval's config and refusals (JAX cli/eval.py:252-272):
+    the config with ``layerwise_exit_eval`` set, or as it was under
+    ``share_exit`` (a no-op there)."""
+    if cfg.share_exit:
+        print("WARNING: --layerwise_exit_eval is a no-op with share_exit "
+              "(every exit IS the shared lm_head)")
+    elif not cfg.multi_exit:
+        raise SystemExit("--layerwise_exit_eval needs a multi-exit "
+                         "checkpoint (per-layer lm_exits heads)")
+    else:
+        cfg = dataclasses.replace(cfg, layerwise_exit_eval=True)
+    if args.engine == "fused":
+        raise SystemExit("--layerwise_exit_eval serves through the "
+                         "host-bucketed engine (per-exit-head carries); drop "
+                         "--engine fused")
+    if args.lanes > 1:
+        raise SystemExit("--layerwise_exit_eval does not compose with "
+                         "--lanes")
+    if args.use_action_ensemble:
+        raise SystemExit("--layerwise_exit_eval does not compose with "
+                         "--use_action_ensemble: the ensemble averages the "
+                         "extra-exit criterion actions, which would override "
+                         "the layerwise head's action")
+    return cfg
 
 
 def calibration_batches(args, cfg, tok):
@@ -264,13 +337,99 @@ def _clean(v):
     return v
 
 
+def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
+                          dev) -> None:
+    """Sets ``controller``'s thresholds: ``--thresholds`` as given, else
+    calibrated (values from ``--value_cache`` when it holds them for this
+    regime), the values written back to ``--value_cache``."""
+    from deer_vla_tpu_torch.eval.calibrate import calibrate
+    from deer_vla_tpu_torch.train.checkpoint import (load_calibration_info,
+                                                     load_calibration_values,
+                                                     save_calibration_values)
+    if args.thresholds:
+        n = len([e for e in controller.exit_id_list
+                 if e <= controller.effective_max])
+        controller.set_threshold_values(args.thresholds[:n])
+        return
+    cache = args.value_cache
+    values = None
+    if cache and not args.recompute_values:
+        values = load_calibration_values(cache)
+        cached = bool(load_calibration_info(cache).get("calib_streamed",
+                                                       False))
+        if values is not None and cached != args.calib_streamed:
+            print(f"values sidecar was calibrated with streamed={cached}; "
+                  f"recomputing with streamed={args.calib_streamed}")
+            values = None
+        elif values is not None:
+            print(f"reusing calibration values from {cache}")
+    batches = None
+    if values is None:
+        batches = calibration_batches(args, cfg, tok)
+    t0 = time.perf_counter()
+    thresholds, values = calibrate(
+        params, cfg, batches or [], args.exit_ratio, max_layer=max_layer,
+        exit_dist=args.exit_dist, model_name=args.model,
+        threshold_type=args.threshold_type, values=values,
+        max_batches=args.calib_batches, streamed=args.calib_streamed,
+        gen=torch.Generator(device=dev).manual_seed(args.seed))
+    if batches is not None:
+        print(f"calibrated {values.shape[1]} samples in "
+              f"{time.perf_counter() - t0:.3f} s")
+    if cache:
+        save_calibration_values(
+            cache, values, {"exit_ratio": args.exit_ratio, "calib_warm": 0,
+                            "calib_streamed": args.calib_streamed})
+    controller.set_thresholds(thresholds)
+
+
+def build_policy(args, cfg, params, controller, max_layer, dev):
+    """The sequential policy, routed as the JAX CLI routes it
+    (cli/eval.py:348-434): ``ScanDeerPolicy`` for dynamic exit unless the
+    bucketed engine is asked for or needed (the ensemble, --multi_execution,
+    --layerwise_exit_eval, a fixed --exit_id), each wrapped in its vision
+    cache with --vision_cache_tau, then in the action cache with
+    --action_cache_tau."""
+    from deer_vla_tpu_torch.eval.caching import (ActionCachePolicy,
+                                                 VisionCacheDeerPolicy,
+                                                 VisionCacheScanPolicy)
+    from deer_vla_tpu_torch.eval.policy import DeerPolicy
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    quantize = None if args.quantize == "none" else args.quantize
+    use_fused = (args.engine == "fused"
+                 or (args.engine == "auto" and controller is not None
+                     and not args.use_action_ensemble))
+    if cfg.layerwise_exit_eval or args.multi_execution > 1:
+        use_fused = False
+    if use_fused and controller is not None:
+        policy = ScanDeerPolicy(
+            params, cfg, threshold_type=args.threshold_type,
+            max_layer=max_layer, steps_per_stage=args.steps_per_stage,
+            indexed_mm=True, quantize=quantize, device=dev)
+        policy.set_thresholds(controller.thresholds)
+        if args.vision_cache_tau > 0:
+            policy = VisionCacheScanPolicy(policy, tau=args.vision_cache_tau)
+    else:
+        policy = DeerPolicy(params, cfg, controller=controller,
+                            exit_id=args.exit_id,
+                            threshold_type=args.threshold_type,
+                            use_action_ensemble=args.use_action_ensemble,
+                            multi_execution=args.multi_execution,
+                            quantize=quantize, device=dev)
+        if args.vision_cache_tau > 0:
+            policy = VisionCacheDeerPolicy(policy, tau=args.vision_cache_tau)
+    if args.action_cache_tau > 0:
+        policy = ActionCachePolicy(policy, tau=args.action_cache_tau,
+                                   refresh_every=args.action_cache_refresh)
+    return policy
+
+
 def main(argv=None, device: Optional[str] = None) -> dict:
     args = build_parser().parse_args(argv)
     check_served(args)
     from deer_vla_tpu_torch.data.text import HashTokenizer
     from deer_vla_tpu_torch.eval.batched_rollout import \
         evaluate_policy_batched
-    from deer_vla_tpu_torch.eval.calibrate import calibrate
     from deer_vla_tpu_torch.eval.flops import (avg_llm_gflops,
                                                llm_flops_per_exit,
                                                paper_convention_gflops)
@@ -283,68 +442,35 @@ def main(argv=None, device: Optional[str] = None) -> dict:
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     from deer_vla_tpu_torch.models.value_net import (ExitController,
                                                      exit_probs)
-    from deer_vla_tpu_torch.train.checkpoint import (load_calibration_info,
-                                                     load_calibration_values,
-                                                     save_calibration_values)
 
     dev = resolve_device(device)
     cfg, params = load_model(args, dev)
     tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
     cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+    if args.vit_tome_r > 0:
+        # weight-free: flipped before calibration, so that the thresholds
+        # match the deltas served
+        cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
+            cfg.vit, tome_r=args.vit_tome_r))
+    if args.layerwise_exit_eval:
+        cfg = check_layerwise(args, cfg)
     max_layer = args.max_layer if args.max_layer > 0 else cfg.n_layers
     exits = list(cfg.all_exit_ids())
     size = cfg.vit.image_size
 
-    controller = ExitController(
-        exit_id_list=exits, steps_per_stage=args.steps_per_stage,
-        max_layer=max_layer, threshold_type=args.threshold_type)
-    real_ids = [e for e in exits if e <= controller.effective_max]
-    if args.thresholds:
-        controller.set_threshold_values(args.thresholds[:len(real_ids)])
-    else:
-        cache = args.value_cache
-        values = None
-        if cache and not args.recompute_values:
-            values = load_calibration_values(cache)
-            cached = bool(load_calibration_info(cache).get("calib_streamed",
-                                                           False))
-            if values is not None and cached != args.calib_streamed:
-                print(f"values sidecar was calibrated with streamed="
-                      f"{cached}; recomputing with streamed="
-                      f"{args.calib_streamed}")
-                values = None
-            elif values is not None:
-                print(f"reusing calibration values from {cache}")
-        batches = None
-        if values is None:
-            batches = calibration_batches(args, cfg, tok)
-        t0 = time.perf_counter()
-        thresholds, values = calibrate(
-            params, cfg, batches or [], args.exit_ratio, max_layer=max_layer,
-            exit_dist=args.exit_dist, model_name=args.model,
-            threshold_type=args.threshold_type, values=values,
-            max_batches=args.calib_batches, streamed=args.calib_streamed,
-            gen=torch.Generator(device=dev).manual_seed(args.seed))
-        if batches is not None:
-            print(f"calibrated {values.shape[1]} samples in "
-                  f"{time.perf_counter() - t0:.3f} s")
-        if cache:
-            save_calibration_values(
-                cache, values, {"exit_ratio": args.exit_ratio,
-                                "calib_warm": 0,
-                                "calib_streamed": args.calib_streamed})
-        controller.set_thresholds(thresholds)
-    thresholds = controller.thresholds
+    controller = None
+    thresholds = {}
+    if args.exit_id is None:
+        controller = ExitController(
+            exit_id_list=exits, steps_per_stage=args.steps_per_stage,
+            max_layer=max_layer, threshold_type=args.threshold_type)
+        calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
+                              dev)
+        thresholds = controller.thresholds
     if args.calvin_dataset and not args.debug:
         print(",".join(f"{thresholds[e]:.6f}" for e in sorted(thresholds)))
         raise SystemExit(CALVIN_ENV_DROPPED)
-
-    policy = ScanDeerPolicy(
-        params, cfg, threshold_type=args.threshold_type, max_layer=max_layer,
-        steps_per_stage=args.steps_per_stage, indexed_mm=True,
-        quantize=None if args.quantize == "none" else args.quantize,
-        device=dev)
-    policy.set_thresholds(thresholds)
+    policy = build_policy(args, cfg, params, controller, max_layer, dev)
 
     oracle = DebugTaskOracle(threshold=0.05)
     sequences = make_debug_sequences(args.num_sequences_override or 8)
@@ -355,10 +481,20 @@ def main(argv=None, device: Optional[str] = None) -> dict:
             for _ in range(max(args.lanes, 1))]
     t0 = time.perf_counter()
     if args.lanes > 1:
+        bpolicy = policy
+        if not isinstance(policy, ScanDeerPolicy):
+            bpolicy = ScanDeerPolicy(
+                params, cfg, threshold_type=args.threshold_type,
+                max_layer=max_layer, steps_per_stage=args.steps_per_stage,
+                indexed_mm=True,
+                quantize=None if args.quantize == "none" else args.quantize,
+                device=dev)
+            bpolicy.set_thresholds(thresholds)
         report = evaluate_policy_batched(
-            policy, envs, sequences[:n_seq], {}, oracle, tok,
+            bpolicy, envs, sequences[:n_seq], {}, oracle, tok,
             text_len=cfg.text_len, ep_len=ep_len, n_layers=cfg.n_layers,
-            reset=args.reset)
+            pipeline=args.pipeline, reset=args.reset,
+            env_workers=args.env_workers)
     else:
         procs = process_count()
         report = evaluate_policy(
@@ -378,7 +514,8 @@ def main(argv=None, device: Optional[str] = None) -> dict:
                   + sum(report["fail_exit_hist"])))
     report["exit_hist"] = hist.tolist()
     report["avg_llm_gflops"] = avg_llm_gflops(cfg, hist)
-    if not args.thresholds:
+    if controller is not None and not args.thresholds:
+        real_ids = [e for e in exits if e <= controller.effective_max]
         probs = exit_probs(len(real_ids), args.exit_ratio, args.exit_dist,
                            args.model)
         report["exit_contract"] = exit_contract(report, probs, real_ids)
@@ -389,6 +526,13 @@ def main(argv=None, device: Optional[str] = None) -> dict:
     report["avg_llm_gflops_paper_conv"] = float(sum(
         paper_convention_gflops(cfg, i) * p for i, p in enumerate(hist)
         if p > 0))
+    if args.action_cache_tau > 0:
+        report["action_cache_hit_rate"] = policy.hits / max(1, policy.steps)
+        print(f"action cache: {policy.hits}/{policy.steps} hits")
+    if args.vision_cache_tau > 0:
+        vc = policy.policy if args.action_cache_tau > 0 else policy
+        report["vision_cache_hit_rate"] = vc.encode_hits / max(1, vc.steps)
+        print(f"vision-token cache: {vc.encode_hits}/{vc.steps} encode hits")
     print(format_report(report))
     if args.report_json:
         payload = {"report": _clean(report),

@@ -58,7 +58,6 @@ UNSERVED = (
      "M16 (vision-language co-training)"),
     ("--vl_batch_size", None, {"type": int},
      "M16 (vision-language co-training)"),
-    ("--vit_tome_r", 0, {"type": int}, "M13 (ToMe)"),
     ("--coordinator", "", {}, "M15 (multi-host)"),
     ("--num_processes", 1, {"type": int}, "M15 (multi-host)"),
     ("--process_id", 0, {"type": int}, "M15 (multi-host)"),
@@ -117,6 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_percent", type=float, default=1.0)
     p.add_argument("--workers", type=int, default=4,
                    help="loader threads assembling a batch's windows")
+    p.add_argument("--vit_tome_r", type=int, default=0,
+                   help="ToMe token merging in the frozen ViT (ops/tome.py):"
+                        " merge N patch-token pairs a layer; 0 = the exact "
+                        "tower")
     p.add_argument("--remat", action="store_true",
                    help="recompute each decoder layer in the backward pass "
                         "(activation memory)")
@@ -205,6 +208,10 @@ def make_model_config(args):
         head_updates["lstm_layernorm"] = True
     if head_updates:
         updates["head"] = dataclasses.replace(cfg.head, **head_updates)
+    if args.vit_tome_r > 0:
+        # the merged tower in training too; weight-free, so a checkpoint
+        # serves with any tome_r
+        updates["vit"] = dataclasses.replace(cfg.vit, tome_r=args.vit_tome_r)
     return dataclasses.replace(cfg, **updates)
 
 

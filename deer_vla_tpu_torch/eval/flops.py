@@ -10,25 +10,11 @@ multiply-accumulate x 2 (thop's convention for Linear).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict
 
 from deer_vla_tpu_torch.core.config import (DeerConfig, MPTConfig,
                                             PerceiverConfig, ViTConfig)
-
-
-def tome_schedule(num_patches: int, layers: int, r: int,
-                  min_keep: int = 2) -> List[int]:
-    """Per-layer ToMe merge counts for a constant-r schedule: layer i merges
-    ``min(r, n_i // 2, n_i - min_keep)`` patch tokens (CLS never merges).
-    A copy of the JAX package's ``ops/tome.tome_schedule``."""
-    if r <= 0:
-        return [0] * layers
-    out, n = [], num_patches
-    for _ in range(layers):
-        ri = max(0, min(r, n // 2, n - min_keep))
-        out.append(ri)
-        n -= ri
-    return out
+from deer_vla_tpu_torch.ops.tome import tome_schedule
 
 
 def linear_flops(tokens: int, d_in: int, d_out: int) -> int:

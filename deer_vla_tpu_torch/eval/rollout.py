@@ -33,12 +33,14 @@ class DebugEnv:
     """Fake CALVIN env (eval_utils.py:152-175).  With ``dynamic=True`` the
     observations follow an internal state the actions drive, so closed-loop
     behaviour and success detection are testable without the simulator.
-    ``steps`` counts the env steps taken."""
+    ``host_latency_ms`` sleeps that long a step, standing in for a
+    simulator's host time.  ``steps`` counts the env steps taken."""
 
     def __init__(self, img_hw: int = 200, grip_hw: int = 84,
-                 dynamic: bool = True):
+                 dynamic: bool = True, host_latency_ms: float = 0.0):
         self.img_hw, self.grip_hw = img_hw, grip_hw
         self.dynamic = dynamic
+        self.host_latency_ms = host_latency_ms
         self.steps = 0
         self.reset()
 
@@ -58,6 +60,8 @@ class DebugEnv:
                 "robot_obs": self._state.copy()}
 
     def step(self, action: np.ndarray):
+        if self.host_latency_ms > 0:
+            time.sleep(self.host_latency_ms / 1e3)
         action = np.asarray(action, np.float32)
         self._state[:6] += 0.02 * action[:6]
         self._state[6] = action[6]

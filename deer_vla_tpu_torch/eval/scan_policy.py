@@ -14,6 +14,10 @@ Semantics kept exactly:
   * an exit fires where ``~done & (delta <= thresholds[..., i])``, with
     (n_layers,) or per-stream (B, n_layers) threshold rows;
   * exactly one carry is committed per stream, from its chosen exit.
+
+``encode`` / ``step_from_encoded`` split the step at the encoded prefix (the
+vision cache reuses a prefix); ``dispatch_batch`` / ``finish_batch`` split
+``step_batch`` for the pipelined batched rollout.
 """
 
 from __future__ import annotations
@@ -54,6 +58,18 @@ def xattn_index(cfg: DeerConfig) -> np.ndarray:
     return xidx
 
 
+def prune_encoder_params(params: dict) -> dict:
+    """The unstacked leaves the encode prefix reads: the ViT / perceiver
+    non-layer leaves and the token embedding (their layers ride the stacked
+    encoder tree)."""
+    vit = {k: v for k, v in params["vit"].items() if k != "blocks"}
+    vit["blocks"] = []
+    per = {k: v for k, v in params["perceiver"].items() if k != "layers"}
+    per["layers"] = []
+    return {"vit": vit, "perceiver": per,
+            "decoder": {"wte": params["decoder"]["wte"]}}
+
+
 def stack_encoder_layers(params: dict, cdt) -> dict:
     return {"vit": stack_vit_blocks(params["vit"], cdt),
             "perceiver": stack_perceiver_layers(params["perceiver"], cdt)}
@@ -81,14 +97,8 @@ def stack_decoder_layers(params: dict, cfg: DeerConfig,
 def prune_serving_params(params: dict, cfg: DeerConfig) -> dict:
     """Only the unstacked leaves the step reads: ViT / perceiver non-layer
     leaves, the token embedding and the one exit head."""
-    vit = {k: v for k, v in params["vit"].items() if k != "blocks"}
-    vit["blocks"] = []
-    per = {k: v for k, v in params["perceiver"].items() if k != "layers"}
-    per["layers"] = []
     head_key = "lm_head" if cfg.share_exit else "extra_exit"
-    return {"vit": vit, "perceiver": per,
-            "decoder": {"wte": params["decoder"]["wte"]},
-            head_key: params[head_key]}
+    return dict(prune_encoder_params(params), **{head_key: params[head_key]})
 
 
 def check_serving_supported(cfg: DeerConfig) -> None:
@@ -105,13 +115,14 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     threshold_type: str = "L2",
                     max_layer: Optional[int] = None,
                     indexed_mm: bool = False):
-    """Returns (step, exits, encode, decode).
+    """Returns (exits, encode, decode).
 
-    ``step(params, stacked, img, grip, ids, mask, carry, thresholds)`` ->
-    (arm (B, 6k), grip (B, k), carry, exit_layer (B,) int32, x) where
-    ``thresholds`` is (n_layers,) or (B, n_layers) with +1e30 at the forced
-    last exit and -1e30 at non-exit layers, and ``x`` is the hidden state
-    after the last decoder layer that ran."""
+    ``encode(params, stacked, img, grip, ids)`` -> (media, x, media
+    locations); ``decode(params, stacked, media, x, mloc, mask, carry,
+    thresholds)`` -> (arm (B, 6k), grip (B, k), carry, exit_layer (B,)
+    int32, x) where ``thresholds`` is (n_layers,) or (B, n_layers) with
+    +1e30 at the forced last exit and -1e30 at non-exit layers, and ``x``
+    is the hidden state after the last decoder layer that ran."""
     ml = (max_layer if max_layer is not None else cfg.n_layers) - 1
     exits = [e for e in exit_ids if e <= ml]
     if not exits:
@@ -203,15 +214,49 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     break
         return st["arm"], st["grip"], st["carry"], st["exit"], x
 
-    def step(params, stacked, img, grip, ids, mask, carry, thresholds):
-        media, x, mloc = encode(params, stacked, img, grip, ids)
-        return decode(params, stacked, media, x, mloc, mask, carry,
-                      thresholds)
-
-    return step, exits, encode, decode
+    return exits, encode, decode
 
 
-class ScanDeerPolicy(nn.Module):
+class HostInputs:
+    """Moves a step's host inputs to ``self.device``: frames (numpy or
+    tensors) as fp32, token ids checked against the vocabulary first, the
+    attention mask as given."""
+
+    def _upload(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _ids(self, input_ids) -> torch.Tensor:
+        """Token ids are checked on the host before upload: an id outside
+        [0, vocab_size) raises instead of gathering garbage."""
+        ids = (input_ids.cpu().numpy() if isinstance(input_ids, torch.Tensor)
+               else np.asarray(input_ids))
+        vocab = self.cfg.mpt.vocab_size
+        if ids.size and (ids.min() < 0 or ids.max() >= vocab):
+            raise ValueError(f"token ids outside [0, {vocab}): min "
+                             f"{ids.min()}, max {ids.max()}")
+        return torch.as_tensor(ids.astype(np.int64), device=self.device)
+
+    def _image(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+
+def host_actions(arm: np.ndarray, grip: np.ndarray, k: int) -> np.ndarray:
+    """(B, 6k) arm and (B, k) gripper probabilities -> (B, 7) actions, or
+    (B, k, 7) plans for multi_step_action k > 1, the gripper at +-1."""
+    b = arm.shape[0]
+    g = np.where(grip > 0.5, 1.0, -1.0)
+    if k > 1:
+        acts = np.concatenate([arm.reshape(b, k, 6), g[:, :, None]], -1)
+    else:
+        acts = np.concatenate([arm, g], -1)
+    return acts.astype(np.float32)
+
+
+class ScanDeerPolicy(nn.Module, HostInputs):
     """Dynamic-exit policy over B >= 1 streams.  The weights (stacked
     layers and the pruned unstacked leaves) are registered buffers; the
     device is explicit and defaults to the card.  ``quantize`` is None or
@@ -240,7 +285,7 @@ class ScanDeerPolicy(nn.Module):
         self._params_def = self._register_tree(
             "params", prune_serving_params(params, cfg))
         exit_ids = list(exit_ids or cfg.all_exit_ids())
-        self._step, self.exits, self._encode, self._decode = build_scan_step(
+        self.exits, self._encode, self._decode = build_scan_step(
             cfg, exit_ids, threshold_type, max_layer, indexed_mm=indexed_mm)
         self.steps_per_stage = steps_per_stage
         self.set_thresholds(thresholds if thresholds is not None
@@ -338,34 +383,15 @@ class ScanDeerPolicy(nn.Module):
                            for f, c in zip(fresh, self.carry))
 
     # -- inputs --------------------------------------------------------------
-    def _upload(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device)
-
-    def _ids(self, input_ids) -> torch.Tensor:
-        """Token ids are checked on the host before upload: an id outside
-        [0, vocab_size) raises instead of gathering garbage."""
-        ids = (input_ids.cpu().numpy() if isinstance(input_ids, torch.Tensor)
-               else np.asarray(input_ids))
-        vocab = self.cfg.mpt.vocab_size
-        if ids.size and (ids.min() < 0 or ids.max() >= vocab):
-            raise ValueError(f"token ids outside [0, {vocab}): min "
-                             f"{ids.min()}, max {ids.max()}")
-        return torch.as_tensor(ids.astype(np.int64), device=self.device)
-
-    def _image(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device, torch.float32)
-        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-
     def _run(self, image, gripper, input_ids, attention_mask, thresholds):
-        ids = self._ids(input_ids)
-        mask = self._upload(np.asarray(
-            attention_mask.cpu() if isinstance(attention_mask, torch.Tensor)
-            else attention_mask))
-        self._ensure_carry(ids.shape[0])
-        arm, grip, self.carry, exit_layer, self.last_hidden = self._step(
-            self.params, self.stacked, self._image(image),
-            self._image(gripper), ids, mask, self.carry, thresholds)
+        media, x, mloc = self.encode(image, gripper, input_ids)
+        return self._run_decode(media, x, mloc, attention_mask, thresholds)
+
+    def _run_decode(self, media, x, mloc, attention_mask, thresholds):
+        self._ensure_carry(x.shape[0])
+        arm, grip, self.carry, exit_layer, self.last_hidden = self._decode(
+            self.params, self.stacked, media, x, mloc,
+            self._upload(attention_mask), self.carry, thresholds)
         return arm, grip, exit_layer
 
     # -- serving -----------------------------------------------------------
@@ -380,29 +406,62 @@ class ScanDeerPolicy(nn.Module):
         return self._postprocess(arm, grip)
 
     @torch.inference_mode()
+    def encode(self, image, gripper, input_ids):
+        """The vision and embedding prefix on its own: (media, x,
+        media_locations) on the device, for ``step_from_encoded``."""
+        return self._encode(self.params, self.stacked, self._image(image),
+                            self._image(gripper), self._ids(input_ids))
+
+    @torch.inference_mode()
+    def step_from_encoded(self, media, x, mloc,
+                          attention_mask) -> np.ndarray:
+        """``step`` from a (possibly cached) encoded prefix."""
+        arm, grip, exit_layer = self._run_decode(media, x, mloc,
+                                                 attention_mask,
+                                                 self._stage_thresholds())
+        self.last_exit_layer = int(exit_layer[0])
+        return self._postprocess(arm, grip)
+
+    @torch.inference_mode()
+    def dispatch_batch(self, image, gripper, input_ids, attention_mask):
+        """The first half of ``step_batch``: runs the step, commits the
+        carry, and starts copying (arm, grip, exit) to the host.
+
+        The decode reads the host once per exit segment, so this returns
+        only after the layer loop has ended; what it defers is the
+        device-to-host copy of the step's outputs, a ``non_blocking`` copy
+        into pinned memory with an event that ``finish_batch`` waits on.
+        The pipelined rollout steps another lane group's envs meanwhile;
+        true overlap of one group's layers with another's host work waits
+        for a loop without host reads (ROADMAP.md M7b)."""
+        outs = self._run(image, gripper, input_ids, attention_mask,
+                         self.thresholds)
+        if self.device.type != "cuda":
+            return outs + (None,)
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in outs)
+        for h, t in zip(host, outs):
+            h.copy_(t, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        return host + (copied,)
+
+    def finish_batch(self, handles):
+        """The blocking half: waits for the copy, then (actions (B, 7) or
+        (B, k, 7) plans, exit_layers (B,) int64)."""
+        arm, grip, exit_layer, copied = handles
+        if copied is not None:
+            copied.synchronize()
+        return (host_actions(arm.cpu().numpy(), grip.cpu().numpy(),
+                             self.cfg.head.multi_step_action),
+                exit_layer.cpu().numpy().astype(np.int64))
+
     def step_batch(self, image, gripper, input_ids, attention_mask):
         """B parallel streams with per-stream exits: (actions (B, 7) or
         (B, k, 7), exit_layers (B,) int64)."""
-        arm, grip, exit_layer = self._run(image, gripper, input_ids,
-                                          attention_mask, self.thresholds)
-        b = arm.shape[0]
-        k = self.cfg.head.multi_step_action
-        a = arm.cpu().numpy()
-        g = np.where(grip.cpu().numpy() > 0.5, 1.0, -1.0)
-        if k > 1:
-            acts = np.concatenate([a.reshape(b, k, 6), g[:, :, None]], -1)
-        else:
-            acts = np.concatenate([a, g], -1)
-        return acts.astype(np.float32), exit_layer.cpu().numpy().astype(
-            np.int64)
+        return self.finish_batch(self.dispatch_batch(
+            image, gripper, input_ids, attention_mask))
 
     def _postprocess(self, arm, grip) -> np.ndarray:
-        k = self.cfg.head.multi_step_action
-        a = arm[0].cpu().numpy()
-        gp = grip[0].cpu().numpy().reshape(-1)
-        if k > 1:
-            g = np.where(gp > 0.5, 1.0, -1.0).astype(np.float32)
-            return np.concatenate([a.reshape(k, 6), g[:, None]],
-                                  -1).astype(np.float32)
-        g = 1.0 if float(gp[0]) > 0.5 else -1.0
-        return np.concatenate([a, [g]]).astype(np.float32)
+        return host_actions(arm[:1].cpu().numpy(), grip[:1].cpu().numpy(),
+                            self.cfg.head.multi_step_action)[0]

@@ -15,27 +15,29 @@ import torch
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
 from deer_vla_tpu_torch.models.action_head import HeadOutput, init_head
-from deer_vla_tpu_torch.models.heads import any_head_forward
-from deer_vla_tpu_torch.models.mpt import decoder_forward, init_decoder
+from deer_vla_tpu_torch.models.heads import any_head_forward, any_head_step
+from deer_vla_tpu_torch.models.mpt import (decoder_forward,
+                                           decoder_segment_forward,
+                                           embed_tokens, init_decoder)
 from deer_vla_tpu_torch.models.perceiver import (init_perceiver,
                                                  perceiver_forward,
                                                  perceiver_forward_stacked)
 from deer_vla_tpu_torch.models.vit import (init_vit, vit_forward,
-                                           vit_forward_stacked)
+                                           vit_forward_stacked,
+                                           vit_forward_tome)
 from deer_vla_tpu_torch.ops.dropout import Dropout
 from deer_vla_tpu_torch.ops.layers import tree_map, tree_map_with_path
 
 
 def check_vision_supported(cfg: DeerConfig) -> None:
     """The ported vision path: 'post' fusion, one shared resampler, no
-    proprio token, no frame window, exact (un-merged) ViT."""
+    proprio token, no frame window, both cameras at one resolution."""
     unsupported = {
         "fusion_mode": cfg.fusion_mode != "post",
         "sep_resampler": cfg.sep_resampler,
         "use_state": cfg.use_state,
         "use_hist": cfg.use_hist,
         "gripper_res": cfg.gripper_res != 0,
-        "vit.tome_r": cfg.vit.tome_r != 0,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -94,15 +96,20 @@ def dual_camera_tokens(params: dict, vision_rgb: torch.Tensor,
 
 def vision_tokens(params: dict, v: torch.Tensor, cfg: DeerConfig,
                   stacked: Optional[dict] = None) -> torch.Tensor:
-    """ViT forward -> token grid (B, T, F, P, width).  The ViT is cut from
-    the graph unless ``cfg.unfreeze_vit`` (the JAX package's
-    ``stop_gradient``, flamingo.py:202-207): it runs under ``no_grad``,
-    which also keeps none of its activations."""
+    """ViT forward -> token grid (B, T, F, P, width); with
+    ``cfg.vit.tome_r`` > 0 the ToMe-merged tower (P less the merges; the
+    perceiver reads tokens as a set).  The ViT is cut from the graph unless
+    ``cfg.unfreeze_vit`` (the JAX package's ``stop_gradient``,
+    flamingo.py:202-207): it runs under ``no_grad``, which also keeps none
+    of its activations."""
     b, t, f = v.shape[:3]
     flat = v.reshape((b * t * f,) + v.shape[3:]).to(cfg.dtypes.cdt)
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and cfg.unfreeze_vit):
-        if stacked and "vit" in stacked:
+        if cfg.vit.tome_r > 0:
+            _, tokens = vit_forward_tome(params["vit"], flat, cfg.vit,
+                                         (stacked or {}).get("vit"))
+        elif stacked and "vit" in stacked:
             _, tokens = vit_forward_stacked(params["vit"], stacked["vit"],
                                             flat, cfg.vit)
         else:
@@ -222,6 +229,46 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     extra_out2 = run_head(extra_head, feat2)
     return TrainOutputs(exit_outputs, final_out, extra_out, extra_out2,
                         hidden, rand_feat, lay1)
+
+
+# ---------------------------------------------------------------------------
+# fixed-exit inference forward (the exit_id path, flamingo_mpt.py:446-461)
+# ---------------------------------------------------------------------------
+
+
+def forward_fixed_exit(params: dict, vision_x: torch.Tensor,
+                       lang_x: torch.Tensor, attention_mask: torch.Tensor,
+                       cfg: DeerConfig, exit_id: int,
+                       vision_gripper: Optional[torch.Tensor] = None,
+                       carry=None) -> Tuple[HeadOutput, object]:
+    """One streaming frame at a fixed exit: layers [0, exit_id] only (the
+    layers above it never run), then the exit's head (``resolve_head``) in
+    fp32 with its carry.  Returns (head output, new carry)."""
+    check_vision_supported(cfg)
+    if exit_id < 0:
+        exit_id += cfg.n_layers
+    if not 0 <= exit_id < cfg.n_layers:
+        raise ValueError(f"exit_id {exit_id} out of range for a "
+                         f"{cfg.n_layers}-layer decoder")
+    media = encode_vision(params, vision_x, vision_gripper, cfg)
+    x = embed_tokens(params["decoder"], lang_x, cfg.dtypes.cdt)
+    _, x = decoder_segment_forward(params["decoder"], x, attention_mask,
+                                   media, cfg, 0, exit_id + 1,
+                                   lang_x == cfg.media_token_id)
+    return any_head_step(resolve_head(params, cfg, exit_id), x.float(),
+                         carry, cfg)
+
+
+def resolve_head(params: dict, cfg: DeerConfig, exit_id: int) -> dict:
+    """The head of an exit (flamingo_mpt.py:450-457): the shared ``lm_head``
+    with ``share_exit``; else the extra exit, unless
+    ``layerwise_exit_eval``, where each exit has its own (``lm_head`` at the
+    last layer)."""
+    if cfg.share_exit or not cfg.layerwise_exit_eval:
+        return params["lm_head"] if cfg.share_exit else params["extra_exit"]
+    if exit_id == cfg.n_layers - 1:
+        return params["lm_head"]
+    return params["lm_exits"][str(exit_id)]
 
 
 # ---------------------------------------------------------------------------

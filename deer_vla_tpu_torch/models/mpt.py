@@ -221,3 +221,21 @@ def decoder_forward(params: dict, input_ids: torch.Tensor,
         x = layer(params, i, x, media, media_locations, attn_bias, cfg)
         outs.append(x)
     return torch.stack(outs), x
+
+
+def decoder_segment_forward(params: dict, x: torch.Tensor,
+                            attention_mask: torch.Tensor, media: torch.Tensor,
+                            cfg: DeerConfig, start: int, stop: int,
+                            media_locations: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layers [start, stop) on the unstacked tree from an embedded input:
+    (the input of layer stop-1, the output of layer stop-1).  The first is
+    what the first exit's pseudo action reads (value_net.py:122-126).  The
+    products run through ``linear`` on per-layer weights, as the JAX
+    package's segment programs do, so none of K2-K4 runs here."""
+    attn_bias = make_attn_bias(attention_mask, cfg.mpt, x.dtype)
+    x_prev = x
+    for i in range(start, stop):
+        x_prev = x
+        x = _layer(params, i, x, media, media_locations, attn_bias, cfg)
+    return x_prev, x

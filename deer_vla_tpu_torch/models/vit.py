@@ -4,7 +4,10 @@ The per-patch tokens after ``ln_post`` feed the perceiver.  The patch
 embedding is the stride-14 convolution written as a (B, P, c*ph*pw) x
 (c*ph*pw, width) matmul, with the JAX package's flatten order (c, ph, pw).
 The self-attention goes through ``ops.attention.dot_attention``, which sends
-the 257-token blocks to the fused kernel K1.
+the 257-token blocks to the fused kernel K1.  ``vit_forward_tome`` merges
+patch tokens between attention and MLP (``ops/tome.py``); its layers after
+the first merge hand K1 a proportional-attention bias at a query length
+that shrinks every layer.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ from deer_vla_tpu_torch.ops.layers import (init_layernorm, init_linear,
                                            layer_slice, layernorm, linear,
                                            normal, quick_gelu,
                                            stack_layer_tree, trunc_normal)
+from deer_vla_tpu_torch.ops.tome import (bipartite_merge,
+                                         proportional_attn_bias,
+                                         tome_schedule)
 
 
 def init_vit(gen, cfg: ViTConfig, device="cpu", dtype=torch.float32) -> dict:
@@ -98,6 +104,49 @@ def vit_forward(params: dict, x: torch.Tensor, cfg: ViTConfig
     h = _prologue(params, x, cfg)
     for blk in params["blocks"]:
         h = _block(blk, h, cfg.heads, _act(cfg))
+    h = layernorm(params["ln_post"], h)
+    return h[:, 0], h[:, 1:]
+
+
+def _block_tome(p: dict, x: torch.Tensor, sizes: torch.Tensor, heads: int,
+                act, r: int, any_merged: bool):
+    """One block with ToMe merging between attention and MLP.  x (B, 1+n,
+    D) with CLS at 0, sizes (B, n); returns (x', sizes') with n' = n - r.
+    Until the first merge every size is 1, so ``any_merged`` False passes
+    no bias and those layers equal ``_block`` bit for bit."""
+    h = layernorm(p["ln_1"], x)
+    q, k, v = linear(p["qkv"], h).chunk(3, dim=-1)
+    q, k, v = (split_heads(t, heads) for t in (q, k, v))
+    bias = None
+    if any_merged:
+        bias = proportional_attn_bias(
+            torch.cat([torch.ones_like(sizes[:, :1]), sizes], dim=1),
+            x.shape[1])
+    x = x + linear(p["out"], merge_heads(dot_attention(q, k, v, bias=bias)))
+    if r > 0:
+        metric = k.mean(dim=1)  # (B, 1+n, head_dim): the mean attention key
+        patches, sizes = bipartite_merge(x[:, 1:], metric[:, 1:], sizes, r)
+        x = torch.cat([x[:, :1], patches], dim=1)
+    h = layernorm(p["ln_2"], x)
+    return x + linear(p["mlp_proj"], act(linear(p["mlp_fc"], h))), sizes
+
+
+def vit_forward_tome(params: dict, x: torch.Tensor, cfg: ViTConfig,
+                     stacked_blocks: dict = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``vit_forward`` with ``cfg.tome_r`` patch tokens merged a layer;
+    with ``stacked_blocks`` the (L, ...) serving stack is sliced a layer.
+    Returns (pooled CLS, tokens (B, P - sum(schedule), width))."""
+    h = _prologue(params, x, cfg)
+    schedule = tome_schedule(cfg.num_patches, cfg.layers, cfg.tome_r)
+    sizes = torch.ones(h.shape[0], cfg.num_patches, device=h.device)
+    any_merged = False
+    for i in range(cfg.layers):
+        blk = (params["blocks"][i] if stacked_blocks is None
+               else layer_slice(stacked_blocks, i))
+        h, sizes = _block_tome(blk, h, sizes, cfg.heads, _act(cfg),
+                               schedule[i], any_merged)
+        any_merged = any_merged or schedule[i] > 0
     h = layernorm(params["ln_post"], h)
     return h[:, 0], h[:, 1:]
 

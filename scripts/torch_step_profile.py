@@ -5,7 +5,8 @@
 Serves deer_3b (the same seeded random weights as chip_smoke.py) in three
 settings: B=1 exiting at the first exit, B=1 at full depth, and B=8 at full
 depth, once for each serving mode given (``none`` is bf16; the others are
-``ScanDeerPolicy``'s ``quantize`` modes; default ``none``).  For each it
+``ScanDeerPolicy``'s ``quantize`` modes; default ``none``) and each ToMe
+setting given (``--tome_r 0,8``: 0 is the exact tower; default 0).  For each it
 prints one JSON line with the host-clock step time (median and spread of 10
 steps after 2 warm-up steps) and, from torch.profiler over 3 more steps,
 the device time that kernels took, the device's idle share of the wall
@@ -95,6 +96,9 @@ def main() -> int:
     ap.add_argument("--quantize", default="none",
                     help="comma-separated serving modes: none (bf16), "
                          "int8, int4, int8_w8a8, int4_w8a8")
+    ap.add_argument("--tome_r", default="0",
+                    help="comma-separated ToMe merges a ViT layer (0: the "
+                         "exact tower)")
     ap.add_argument("--kernels", action="store_true",
                     help="time K1-K4 alone at the serving shapes first")
     ap.add_argument("--calibrate", action="store_true",
@@ -126,9 +130,10 @@ def main() -> int:
     if args.calibrate:
         profile_calibration(torch, smoke, cfg, params)
     for mode in args.quantize.split(","):
-        profile_mode(torch, np, smoke, cfg, params,
-                     None if mode == "none" else mode)
-        torch.cuda.empty_cache()
+        for r in args.tome_r.split(","):
+            profile_mode(torch, np, smoke, cfg, params,
+                         None if mode == "none" else mode, int(r))
+            torch.cuda.empty_cache()
     if args.train:
         del params
         torch.cuda.empty_cache()
@@ -287,8 +292,12 @@ def profile_training(torch, smoke) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_mode(torch, np, smoke, cfg, params, quantize):
+def profile_mode(torch, np, smoke, cfg, params, quantize, tome_r=0):
+    import dataclasses
+
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit,
+                                                           tome_r=tome_r))
     pol = ScanDeerPolicy(params, cfg, indexed_mm=True, quantize=quantize)
     for name, b, th in SETTINGS:
         pol.set_thresholds_batch([[th] * len(pol.exits)] * b)
@@ -309,7 +318,8 @@ def profile_mode(torch, np, smoke, cfg, params, quantize):
             times.append((time.perf_counter() - t0) * 1e3)
         times = times[2:]
         q = statistics.quantiles(times, n=4)
-        out = {"setting": name, "quantize": quantize, "streams": b,
+        out = {"setting": name, "quantize": quantize, "tome_r": tome_r,
+               "streams": b,
                "exit_layer": exits[-1],
                "step_ms_median": statistics.median(times),
                "step_ms_q1": q[0], "step_ms_q3": q[2], "steps": len(times)}

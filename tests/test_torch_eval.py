@@ -286,11 +286,11 @@ def test_cli_lanes_and_fixed_thresholds(capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--visualize", "gifs"], "M9"),
-    (["--frame_cache"], "M13"),
+    (["--frame_cache"], "M10"),
     (["--head_type", "gpt"], "M10"),
-    (["--pipeline", "2"], "M13"),
+    (["--gripper_res", "84"], "M10"),
     (["--calvin_conf_path", "conf"], "M9"),
-    (["--exit_id", "3"], "M13")])
+    (["--calib_warm", "3"], "M10")])
 def test_cli_unserved_flags_raise_naming_the_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         cli.main(CLI_ARGS + flag, device="cpu")

@@ -32,7 +32,9 @@ def run_python(code: str, env=None) -> subprocess.CompletedProcess:
 
 def test_port_imports_no_jax_and_no_jax_package():
     mods = port_modules()
-    assert "deer_vla_tpu_torch.eval.scan_policy" in mods
+    for name in ("eval.scan_policy", "eval.policy", "eval.caching",
+                 "eval.batched_policy", "eval.batched_rollout", "ops.tome"):
+        assert f"deer_vla_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -966,7 +966,7 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
     (["--use_state"], "M10"), (["--use_hist"], "M10"),
     (["--fusion_mode", "pre"], "M10"), (["--sep_resampler"], "M10"),
     (["--multi_step_action", "2"], "M10"), (["--gripper_res", "84"], "M10"),
-    (["--vit_tome_r", "4"], "M13"), (["--n_timesteps", "10"], "M10"),
+    (["--clip_state"], "M10"), (["--n_timesteps", "10"], "M10"),
     (["--tcp_rel"], "M9b"), (["--tokenizer_path", "x"], "M9"),
     (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
     (["--model", "mpt_9b"], "M10")])
