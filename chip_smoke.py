@@ -54,7 +54,20 @@ equal ``--lanes 4``'s) and ``--layerwise_exit_eval`` on the trained
 checkpoint.  K1 is checked at the ViT batch of every driven path
 (``vit_batches``), at the ToMe lengths with their bias too, and every shape
 the models hand K1 while the paths run is recorded and must be one of those
-checked.  A line before the kernels line gives the script's total seconds.
+checked.  Then deer_9b (MPT-7B, d_model 4096, x-attn every 4 layers) at its
+preset depth of 12 layers: K2 / K3 / K4 at its four products (K = 4096 /
+16384, N up to 16384) first, each layer against the plain version, timed
+against the bound and cuBLAS, bit-identical across launches and graph
+replays, every block config (``kernels_9b``); then served in every mode
+(8 B=1 and 4 B=8 steps), ``DeerPolicy`` against the scan engine, a
+full-depth step against fp32 on the CPU, K3 / K4 against their plain
+products in fp32, calibration and ``cli/eval --debug --model mpt_9b``.
+Then bc_llama (the llama decoder, d_model 4096, 32 layers) in bf16 and
+int8 (K2-K4 never launch: they compute the MPT block's products), a
+bf16 step against fp32 on the card, and ``cli/eval --debug --model
+llama_9b``.  Every K2-K4 shape the driven paths launch must be one a
+phase checked (``k2_shapes``).  A line before the kernels line gives the
+script's total seconds.
 
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last line is
@@ -488,6 +501,32 @@ def k1_calls(seen: set):
         attention.flash_attention = kernel
 
 
+@contextlib.contextmanager
+def k2_calls(seen: set):
+    """While open, adds (kernel, m, k, n, x dtype) of every K2 / K3 / K4
+    call the models make on the card (the stacked MPT block reaches them
+    through ``models.mpt``) to ``seen``."""
+    from deer_vla_tpu_torch.models import mpt
+    names = ("indexed_matmul", "indexed_matmul_q8", "indexed_matmul_q4")
+    kernels = {name: getattr(mpt, name) for name in names}
+
+    def logged(name):
+        def call(x, *stack, **kw):
+            if x.is_cuda:
+                seen.add((name, x.numel() // x.shape[-1], x.shape[-1],
+                          stack[0].shape[-1], str(x.dtype)[6:]))
+            return kernels[name](x, *stack, **kw)
+        return call
+
+    for name in names:
+        setattr(mpt, name, logged(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in kernels.items():
+            setattr(mpt, name, fn)
+
+
 def vit_strided_qkv(torch, streams: int, dt):
     """q, k, v as the ViT hands them to K1: ``split_heads`` views of one
     fused (2B, 257, 3 * 1024) qkv projection, no copy."""
@@ -550,21 +589,31 @@ def k1_bias_times(torch, q, k, v, bias, scale) -> dict:
                     q, k, v, attn_mask=mask, scale=scale), 48)}
 
 
-DECODER_PRODUCTS = (("wqkv", 2048, 6144), ("out_proj", 2048, 2048),
-                    ("mlp_up", 2048, 8192), ("mlp_down", 8192, 2048))
-# (streams, x dtype) of the indexed-matmul cases: M = 32 text rows a stream
-INDEXED_CASES = ((1, "bfloat16"), (2, "bfloat16"), (4, "bfloat16"),
-                 (8, "bfloat16"), (32, "bfloat16"), (1, "float32"))
+# a decoder layer's four stacked products (name, K, N), by model: the MPT
+# block's fused wqkv, out_proj, mlp_up and mlp_down (12 layers each)
+DECODER_PRODUCTS = {
+    "deer_3b": (("wqkv", 2048, 6144), ("out_proj", 2048, 2048),
+                ("mlp_up", 2048, 8192), ("mlp_down", 8192, 2048)),
+    "deer_9b": (("wqkv", 4096, 12288), ("out_proj", 4096, 4096),
+                ("mlp_up", 4096, 16384), ("mlp_down", 16384, 4096))}
+# (streams, x dtype) of the indexed-matmul cases, by model: M = 32 text rows
+# a stream.  deer_9b: the serve phase's B=1 and B=8, and B=1 in fp32 (the
+# cross-checks' fp32 steps)
+INDEXED_CASES = {
+    "deer_3b": ((1, "bfloat16"), (2, "bfloat16"), (4, "bfloat16"),
+                (8, "bfloat16"), (32, "bfloat16"), (1, "float32")),
+    "deer_9b": ((1, "bfloat16"), (8, "bfloat16"), (1, "float32"))}
+
 # row counts at which each of K2's block configs is checked and timed: 1-4
 # and 8 streams (96 rows fill a 128-row block partly)
 K2_CONFIG_ROWS = (32, 64, 96, 128, 256)
 
 
-def k2_cases(torch, streams: int, dt):
+def k2_cases(torch, streams: int, dt, model: str = "deer_3b"):
     """(name, x, w) for the decoder's four stacked products."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + streams)
     out = []
-    for name, k, n in DECODER_PRODUCTS:
+    for name, k, n in DECODER_PRODUCTS[model]:
         x = torch.randn(32 * streams, k, generator=gen, device="cuda").to(dt)
         w = (torch.randn(12, k, n, generator=gen, device="cuda")
              * k ** -0.5).to(dt)
@@ -590,10 +639,10 @@ def k2_times(torch, run, plain, library, idxs) -> dict:
 
 
 def indexed_case(torch, kernel: str, name: str, x, n: int, nbytes: int,
-                 run, plain, library, idxs) -> dict:
+                 run, plain, library, idxs, checked: set) -> dict:
     """One layer-indexed product: every one of the 12 layers checked
     against the plain version (tolerance relative to max|y|), then timed
-    by ``k2_times``."""
+    by ``k2_times``; its (kernel, m, k, n, x dtype) joins ``checked``."""
     dts = str(x.dtype)[6:]
     err = 0.0
     scale = 0.0
@@ -605,6 +654,7 @@ def indexed_case(torch, kernel: str, name: str, x, n: int, nbytes: int,
     tol = K2_REL_TOL[dts] * scale
     check(err <= tol, f"{kernel} {name}: max abs err {err} > {tol}")
     m, kk = x.shape
+    checked.add((kernel, m, kk, n, dts))
     row = {"kernel": kernel, "case": name, "m": m, "k": kk, "n": n,
            "layers": 12, "max_abs_err": err, "tolerance": tol}
     row.update(bound(nbytes, 2 * m * kk * n, dts))
@@ -613,8 +663,9 @@ def indexed_case(torch, kernel: str, name: str, x, n: int, nbytes: int,
 
 
 def layer_summary(rows: list, m: int = 32) -> dict:
-    """One deer_3b decoder layer in bf16 at ``m`` rows (32 a stream): the
-    four products' times, bytes and operations summed, and their bound."""
+    """One decoder layer of the model ``rows`` hold (``DECODER_PRODUCTS``)
+    in bf16 at ``m`` rows (32 a stream): the four products' times, bytes
+    and operations summed, and their bound."""
     out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bytes": 0, "flops": 0, "max_abs_err": 0.0}
     for row in rows:
@@ -632,11 +683,10 @@ def layer_summary(rows: list, m: int = 32) -> dict:
 def phase_kernels(torch, vit: dict) -> dict:
     """K1-K4 against their plain versions and timed; ``vit`` is
     ``vit_batches``.  The summary's ``k1_checked`` holds the ``k1_key`` of
-    every K1 case checked."""
+    every K1 case checked, its ``k2_checked`` the (kernel, m, k, n, x
+    dtype) of every K2-K4 case."""
     from deer_vla_tpu_torch.ops.kernels.flash_attention import (
         flash_attention, flash_attention_reference)
-    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
-        indexed_matmul, indexed_matmul_reference)
     rows = []
     summary = {}
 
@@ -710,25 +760,64 @@ def phase_kernels(torch, vit: dict) -> dict:
 
     idxs = [torch.tensor(i, dtype=torch.int32, device="cuda")
             for i in range(12)]
-    k2_rows = []
-    for streams, dts in INDEXED_CASES:
-        for name, x, w in k2_cases(torch, streams, getattr(torch, dts)):
+    checked = summary["k2_checked"] = set()
+    k2_rows = k2_layer_cases(torch, idxs, "deer_3b", checked)
+    summary["indexed_matmul"] = layer_summary(k2_rows)
+    summary["indexed_matmul_b8"] = layer_summary(k2_rows, m=256)
+    emit({"phase": "kernels", "cases": rows + k2_rows})
+    summary.update(phase_kernels_quantized(torch, idxs, checked))
+    for kernel in DECODER_KERNEL.values():
+        phase_determinism_and_graph(torch, idxs, kernel, checked)
+        phase_configs(torch, idxs, kernel, checked)
+    return summary
+
+
+def k2_layer_cases(torch, idxs, model: str, checked: set) -> list:
+    """K2 at ``model``'s four products in each of its ``INDEXED_CASES``,
+    every layer held against the plain version, then timed."""
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+        indexed_matmul, indexed_matmul_reference)
+    rows = []
+    for streams, dts in INDEXED_CASES[model]:
+        for name, x, w in k2_cases(torch, streams, getattr(torch, dts),
+                                   model):
             m, kk = x.shape
             n = w.shape[2]
-            k2_rows.append(indexed_case(
+            rows.append(indexed_case(
                 torch, "indexed_matmul", name, x, n,
                 (kk * n + m * kk + m * n) * x.element_size(),
                 lambda i: indexed_matmul(x, w, i),
                 lambda i: indexed_matmul_reference(x, w, i),
-                lambda i: x @ w[i], idxs))
-    summary["indexed_matmul"] = layer_summary(k2_rows)
-    summary["indexed_matmul_b8"] = layer_summary(k2_rows, m=256)
-    emit({"phase": "kernels", "cases": rows + k2_rows})
-    summary.update(phase_kernels_quantized(torch, idxs))
+                lambda i: x @ w[i], idxs, checked))
+    return rows
+
+
+def phase_kernels_9b(torch, checked: set) -> dict:
+    """K2, K3 and K4 at deer_9b's four products (K = 4096 / 16384, N up to
+    16384): each ``INDEXED_CASES["deer_9b"]`` case in all 12 layers against
+    its plain version, timed against its bound and cuBLAS on ``W[i]``; two
+    launches and CUDA-graph replays bit-identical at B=1 and B=8; each
+    block config at ``K2_CONFIG_ROWS``; the cases join ``checked``.
+    Returns the layer summaries, keys suffixed ``_9b``."""
+    idxs = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(12)]
+    k2_rows = k2_layer_cases(torch, idxs, "deer_9b", checked)
+    out = {"indexed_matmul_9b": layer_summary(k2_rows),
+           "indexed_matmul_9b_b8": layer_summary(k2_rows, m=256)}
+    emit({"phase": "kernels_9b", "model": "deer_9b", "cases": k2_rows})
+    del k2_rows
+    torch.cuda.empty_cache()
+    out.update({k.replace("_b8", "_9b_b8") if k.endswith("_b8")
+                else k + "_9b": v
+                for k, v in phase_kernels_quantized(torch, idxs, checked,
+                                                    "deer_9b").items()})
     for kernel in DECODER_KERNEL.values():
-        phase_determinism_and_graph(torch, idxs, kernel)
-        phase_configs(torch, idxs, kernel)
-    return summary
+        phase_determinism_and_graph(torch, idxs, kernel, checked, "deer_9b",
+                                    (1, 8))
+        out[kernel + "_9b_configs"] = phase_configs(torch, idxs, kernel,
+                                                    checked, "deer_9b")
+        torch.cuda.empty_cache()
+    return out
 
 
 def indexed_kernel(kernel: str):
@@ -758,7 +847,9 @@ def stacked_weights(torch, gen, kernel: str, k: int, n: int) -> tuple:
             else quantize_weight)(w)
 
 
-def phase_determinism_and_graph(torch, idxs, kernel: str) -> None:
+def phase_determinism_and_graph(torch, idxs, kernel: str, checked: set,
+                                model: str = "deer_3b",
+                                streams_list=(1, 2, 3, 4, 8)) -> None:
     """The split-K sums are combined in a fixed order: two launches give
     bit-identical outputs.  The four products of a layer captured once in a
     CUDA graph, replayed after ``idx.fill_(j)`` for each of the 12 layers,
@@ -767,11 +858,11 @@ def phase_determinism_and_graph(torch, idxs, kernel: str) -> None:
     fn, plain, plan_of, _ = indexed_kernel(kernel)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     stacks = [(prod, stacked_weights(torch, gen, kernel, k, n))
-              for prod, k, n in DECODER_PRODUCTS]
+              for prod, k, n in DECODER_PRODUCTS[model]]
     phase = ("k2" if kernel == "indexed_matmul" else "k3_k4") \
-        + "_determinism_and_graph"
-    out = {"phase": phase, "kernel": kernel, "cases": []}
-    for streams in (1, 2, 3, 4, 8):
+        + "_determinism_and_graph" + ("_9b" if model == "deer_9b" else "")
+    out = {"phase": phase, "kernel": kernel, "model": model, "cases": []}
+    for streams in streams_list:
         prods = [(f"{prod}_b{streams}",
                   torch.randn(32 * streams, w[0].shape[1] * (
                       2 if kernel == "indexed_matmul_q4" else 1),
@@ -809,6 +900,8 @@ def phase_determinism_and_graph(torch, idxs, kernel: str) -> None:
                 check(err <= tol, f"{kernel} {name}: graph replay at layer "
                                   f"{j}: {err} > {tol}")
                 worst = max(worst, err / tol)
+                checked.add((kernel, x.shape[0], x.shape[1], y.shape[1],
+                             "bfloat16"))
         out["cases"].append({"streams": streams,
                              "products": [p[0] for p in prods],
                              "splits": splits, "repeat_bit_identical": True,
@@ -819,7 +912,8 @@ def phase_determinism_and_graph(torch, idxs, kernel: str) -> None:
     emit(out)
 
 
-def phase_configs(torch, idxs, kernel: str) -> dict:
+def phase_configs(torch, idxs, kernel: str, checked: set,
+                  model: str = "deer_3b") -> dict:
     """Each block config of ``kernel`` (its plan function's ``config=c``) on
     the decoder's four products at ``K2_CONFIG_ROWS`` rows: checked against
     the plain version at the first and last layer, then timed cycling
@@ -830,7 +924,7 @@ def phase_configs(torch, idxs, kernel: str) -> dict:
     rows = []
     layer = {m: [0.0] * len(configs) for m in K2_CONFIG_ROWS}
     planned = {}
-    for prod, k, n in DECODER_PRODUCTS:
+    for prod, k, n in DECODER_PRODUCTS[model]:
         w = stacked_weights(torch, gen, kernel, k, n)
         xs = torch.randn(max(K2_CONFIG_ROWS), k, generator=gen,
                          device="cuda").to(torch.bfloat16)
@@ -848,6 +942,7 @@ def phase_configs(torch, idxs, kernel: str) -> dict:
                               * ref.abs().max().item())
                 check(err <= tol, f"{kernel} {prod} m={m} config {c}: max "
                                   f"abs err {err} > {tol}")
+                checked.add((kernel, m, k, n, "bfloat16"))
                 it = iter(range(10 ** 9))
                 ms = graph_ms(torch, lambda: fn(
                     x, *w, idxs[next(it) % 12], plan=plan), 48)
@@ -861,15 +956,18 @@ def phase_configs(torch, idxs, kernel: str) -> dict:
     by_rows = {m: {"planned": planned[m], "by_config": ms,
                    "fastest": min(range(len(ms)), key=ms.__getitem__)}
                for m, ms in layer.items()}
-    emit({"phase": "k2_configs" if kernel == "indexed_matmul"
-          else "k3_k4_configs", "kernel": kernel,
+    emit({"phase": ("k2_configs" if kernel == "indexed_matmul"
+                    else "k3_k4_configs")
+          + ("_9b" if model == "deer_9b" else ""), "kernel": kernel,
+          "model": model,
           "configs": [c._asdict() for c in configs],
           "layer_ms": by_rows, "rows": rows})
     return by_rows
 
 
-def phase_kernels_quantized(torch, idxs) -> dict:
-    """K3 and K4 at the four decoder products.  The library call is
+def phase_kernels_quantized(torch, idxs, checked: set,
+                            model: str = "deer_3b") -> dict:
+    """K3 and K4 at ``model``'s four decoder products.  The library call is
     cuBLAS's ``x @ Wd[idx]`` over the same stack dequantized to x's dtype
     beforehand: the product that quantized serving exists to beat."""
     from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
@@ -881,7 +979,7 @@ def phase_kernels_quantized(torch, idxs) -> dict:
                                               quantize_weight4)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
     rows = {"indexed_matmul_q8": [], "indexed_matmul_q4": []}
-    for prod, k, n in DECODER_PRODUCTS:
+    for prod, k, n in DECODER_PRODUCTS[model]:
         w = torch.randn(12, k, n, generator=gen, device="cuda") * k ** -0.5
         q8, s8 = quantize_weight(w)
         q4, s4 = quantize_weight4(w)
@@ -889,7 +987,7 @@ def phase_kernels_quantized(torch, idxs) -> dict:
         xs = {(streams, dts): torch.randn(32 * streams, k, generator=gen,
                                           device="cuda").to(getattr(torch,
                                                                     dts))
-              for streams, dts in INDEXED_CASES}
+              for streams, dts in INDEXED_CASES[model]}
         for kernel, fn, plain, wq, s, deq, wbytes in (
                 ("indexed_matmul_q8", indexed_matmul_q8,
                  indexed_matmul_q8_reference, q8, s8,
@@ -908,9 +1006,10 @@ def phase_kernels_quantized(torch, idxs) -> dict:
                     wbytes + 4 * n + (m * k + m * n) * es,
                     lambda i: fn(x, wq, s, i),
                     lambda i: plain(x, wq, s, i),
-                    lambda i: x @ wd[dts][i], idxs))
+                    lambda i: x @ wd[dts][i], idxs, checked))
             del wd
-    emit({"phase": "kernels_quantized",
+    emit({"phase": "kernels_quantized"
+          + ("_9b" if model == "deer_9b" else ""), "model": model,
           "library": "x @ Wd[idx], Wd dequantized to x.dtype beforehand "
                      "(cuBLAS)",
           "cases": rows["indexed_matmul_q8"] + rows["indexed_matmul_q4"]})
@@ -934,13 +1033,15 @@ def make_policy_inputs(np, cfg, b: int, seed: int):
 
 
 def build_weights(torch, cfg):
-    """Seeded random deer_3b weights on the card.  The init leaves the
+    """Seeded random weights of ``cfg`` on the card.  The init leaves the
     cross-attention gates at zero, as the reference does; they are drawn
     here so that the vision path reaches the actions."""
     from deer_vla_tpu_torch.models.flamingo import init_deer
     params = init_deer(cfg, seed=SEED, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for x in params["decoder"]["xattn"]:
+        if x is None:
+            continue
         x["attn_gate"].uniform_(-0.5, 0.5, generator=gen)
         x["ff_gate"].uniform_(-0.5, 0.5, generator=gen)
     return params
@@ -961,13 +1062,15 @@ DECODER_KERNEL = {None: "indexed_matmul", "int8": "indexed_matmul_q8",
 
 
 def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
-                b8_steps=4, name=None) -> dict:
+                b8_steps=4, name=None, config="deer_3b",
+                sweep=SWEEP) -> dict:
     """Serve ``b1_steps`` single-stream steps, then ``b8_steps`` eight-stream
     steps, with every kernel's launch count set to 0 just before and read
-    just after; the thresholds are SWEEP's."""
+    just after; the thresholds are ``sweep``'s, one a step (a stream at
+    B=8).  An MPT decoder must launch its mode's decoder kernel; a llama
+    decoder none of K2-K4, and K1 once a ViT layer a step."""
     from deer_vla_tpu_torch.ops.quant import tree_bytes
     n_exits = len(pol.exits)
-    sweep = SWEEP
     counters = kernel_counters()
     for f in counters.values():
         f.launches = 0
@@ -999,16 +1102,24 @@ def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
     if b1_steps:
         check(len(set(b1_exits)) > 1, f"{quantize} B=1 exits all at "
                                       f"{b1_exits}")
-    decoder = DECODER_KERNEL.get(quantize)
-    check(launches["flash_attention"] > 0
-          and (decoder is None or launches[decoder] > 0),
-          f"{quantize}: kernels not launched on the main path: {launches}")
-    if quantize:
-        check(launches["indexed_matmul"] == 0,
-              f"{quantize}: the bf16 kernel K2 ran: {launches}")
+    steps = b1_steps + b8_steps
+    if cfg.mpt.arch == "llama":
+        check(launches["flash_attention"] == cfg.vit.layers * steps
+              and all(launches[k] == 0 for k in DECODER_KERNEL.values()),
+              f"{config} {quantize}: K1 must run {cfg.vit.layers} times a "
+              f"step and K2-K4 not: {launches}")
+    else:
+        decoder = DECODER_KERNEL.get(quantize)
+        check(launches["flash_attention"] > 0
+              and (decoder is None or launches[decoder] > 0),
+              f"{quantize}: kernels not launched on the main path: "
+              f"{launches}")
+        if quantize:
+            check(launches["indexed_matmul"] == 0,
+                  f"{quantize}: the bf16 kernel K2 ran: {launches}")
     out = {"phase": name or ("serve" if quantize is None
                              else f"serve_{quantize}"),
-           "config": "deer_3b", "quantize": quantize,
+           "config": config, "quantize": quantize,
            "tome_r": cfg.vit.tome_r,
            "vit": [cfg.vit.layers, cfg.vit.width], "mpt": [cfg.n_layers,
                                                            cfg.mpt.d_model],
@@ -1019,27 +1130,37 @@ def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
            "b1_median_ms": statistics.median(b1_ms) if b1_ms else None,
            "b8_stream_thresholds": sweep, "b8_exit_layers": b8_exits,
            "b8_step_ms": b8_ms, "b8_median_ms": statistics.median(b8_ms),
-           "launches": launches, "stacked_bytes": tree_bytes(pol.stacked),
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "stacked_bytes": tree_bytes(pol.stacked),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     return out
 
 
-def phase_serve_quantized(torch, np, cfg, params, bf16_bytes: int) -> dict:
-    """int8 and int4 at B=1 and B=8 through K3 / K4, then the w8a8 modes at
-    B=8; each policy is freed before the next is built."""
+SERVE_MODES = (("int8", 8), ("int4", 8), ("int8_w8a8", 0), ("int4_w8a8", 0))
+
+
+def phase_serve_quantized(torch, np, cfg, params, bf16_bytes: int,
+                          modes=SERVE_MODES, config="deer_3b",
+                          sweep=SWEEP, prefix="serve") -> dict:
+    """Each (mode, B=1 steps) of ``modes`` at B=1 and B=8: int8 and int4
+    through K3 / K4 on an MPT decoder, the w8a8 modes at B=8 only; each
+    policy is freed before the next is built."""
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     out = {}
-    for mode, b1_steps in (("int8", 8), ("int4", 8), ("int8_w8a8", 0),
-                           ("int4_w8a8", 0)):
-        pol = ScanDeerPolicy(params, cfg, indexed_mm=True, quantize=mode)
+    for mode, b1_steps in modes:
+        pol = ScanDeerPolicy(params, cfg, indexed_mm=cfg.mpt.arch == "mpt",
+                             quantize=mode)
         torch.cuda.reset_peak_memory_stats()
-        res = phase_serve(torch, np, cfg, pol, mode, b1_steps=b1_steps)
+        res = phase_serve(torch, np, cfg, pol, mode, b1_steps=b1_steps,
+                          name=f"{prefix}_{mode}", config=config,
+                          sweep=sweep)
         res["stacked_bytes_vs_bf16"] = res["stacked_bytes"] / bf16_bytes
         out[mode] = res
         del pol
         torch.cuda.empty_cache()
-    emit({"phase": "serve_quantized_summary",
+    emit({"phase": f"{prefix}_quantized_summary", "config": config,
           "stacked_bytes_bf16": bf16_bytes,
           "modes": {m: {"b1_median_ms": r["b1_median_ms"],
                         "b8_median_ms": r["b8_median_ms"],
@@ -1065,7 +1186,11 @@ def compare(np, torch, act, hid, act_ref, hid_ref) -> dict:
                                    / torch.linalg.vector_norm(hid_ref))}
 
 
-def phase_cross_check(torch, np, cfg, params, cpu_params, pol) -> None:
+def phase_cross_check(torch, np, cfg, params, cpu_params, pol,
+                      name="cross_check") -> dict:
+    """One full-depth step of ``pol`` (bf16, the kernels) and of the same
+    weights in fp32 on the card, each against fp32 on the CPU through the
+    plain versions (``CROSS_TOL_BF16`` / ``CROSS_TOL_FP32``)."""
     from deer_vla_tpu_torch.core.config import FP32
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     inputs = make_policy_inputs(np, cfg, 1, seed=300)
@@ -1080,15 +1205,19 @@ def phase_cross_check(torch, np, cfg, params, cpu_params, pol) -> None:
     cpu_s = time.perf_counter() - t0
     bf16 = compare(np, torch, act_bf16, hid_bf16, act_ref, hid_ref)
     f32 = compare(np, torch, act_f32, hid_f32, act_ref, hid_ref)
-    emit({"phase": "cross_check", "exit_layer": cfg.n_layers - 1,
-          "card_bf16_vs_cpu_fp32": bf16, "tol_bf16": CROSS_TOL_BF16,
-          "card_fp32_vs_cpu_fp32": f32, "tol_fp32": CROSS_TOL_FP32,
-          "arm_card_bf16": act_bf16.tolist(), "arm_cpu_fp32": act_ref.tolist(),
-          "cpu_seconds": cpu_s})
+    del cpu
+    out = {"phase": name, "exit_layer": cfg.n_layers - 1,
+           "card_bf16_vs_cpu_fp32": bf16, "tol_bf16": CROSS_TOL_BF16,
+           "card_fp32_vs_cpu_fp32": f32, "tol_fp32": CROSS_TOL_FP32,
+           "arm_card_bf16": act_bf16.tolist(),
+           "arm_cpu_fp32": act_ref.tolist(), "cpu_seconds": cpu_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
     for got, tol, what in ((bf16, CROSS_TOL_BF16, "bf16"),
                            (f32, CROSS_TOL_FP32, "fp32")):
         for key, limit in tol.items():
-            check(got[key] <= limit, f"cross_check {what} {key} {got[key]}")
+            check(got[key] <= limit, f"{name} {what} {key} {got[key]}")
+    return out
 
 
 def phase_cross_check_quantized(torch, np, cfg, params, cpu_params) -> None:
@@ -1141,12 +1270,14 @@ def calib_debug_batches(cfg, batch_size: int, num_batches: int):
                                   grip_hw=hw, seed=SEED))
 
 
-def phase_calibrate(torch, np, cfg, params) -> dict:
-    """Calibration of deer_3b (W=12) on 2 DebugBatcher batches of 2
+def phase_calibrate(torch, np, cfg, params, name="calibrate",
+                    model="deer_3b") -> dict:
+    """Calibration of ``cfg`` (W=12) on 2 DebugBatcher batches of 2
     trajectories, folded and streamed: each batch is one training forward
     (48 ViT images through K1, every decoder layer kept) and the exit
     deltas, with every kernel's count set to 0 before the batch and read
-    after it."""
+    after it; ``model`` names its target exit schedule (cli/eval's
+    ``--model``)."""
     from deer_vla_tpu_torch.eval.calibrate import (
         generate_calibration_values, streamed_sample_probs)
     from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE as bs
@@ -1154,13 +1285,13 @@ def phase_calibrate(torch, np, cfg, params) -> dict:
     cfg, batches = calib_debug_batches(cfg, bs, 2)
     exits = list(cfg.all_exit_ids())
     counters = kernel_counters()
-    out = {"phase": "calibrate", "config": "deer_3b",
+    out = {"phase": name, "config": model,
            "window": cfg.window_size, "batch_size": bs,
            "compute": str(cfg.dtypes.cdt)[6:], "regimes": {}}
     for regime in ("folded", "streamed"):
         streamed = regime == "streamed"
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        esp = (streamed_sample_probs(cfg, 1.0, None, "exp", "deer_3b")
+        esp = (streamed_sample_probs(cfg, 1.0, None, "exp", model)
                if streamed else None)
         vals, secs, launches = [], [], []
         for batch in batches:
@@ -1180,7 +1311,8 @@ def phase_calibrate(torch, np, cfg, params) -> dict:
               f"calibrate {regime}: values {v.shape}")
         check(all(n["flash_attention"] > 0 for n in launches),
               f"calibrate {regime}: K1 not launched: {launches}")
-        th = {str(r): solve_thresholds(v, r, exits, cfg.n_layers - 1)[0]
+        th = {str(r): solve_thresholds(v, r, exits, cfg.n_layers - 1,
+                                       model_name=model)[0]
               for r in (1.0, 0.5)}
         out["regimes"][regime] = {
             "values_shape": list(v.shape),
@@ -1280,7 +1412,11 @@ ROLLOUT_ARGV = ["--debug", "--model", "deer_3b", "--calib_batches", "2",
 def decoder_kernel(args):
     """The decoder kernel a cli/eval run launches: none on the host-bucketed
     engine (DeerPolicy runs ``linear`` on per-layer weights, as the JAX
-    package's segment programs do), else K2 or, quantized, K3 / K4."""
+    package's segment programs do) or for a llama decoder (K2-K4 compute the
+    MPT block's products), else K2 or, quantized, K3 / K4."""
+    from deer_vla_tpu_torch.cli import eval as cli
+    if cli.model_config(args).mpt.arch != "mpt":
+        return None
     bucketed = (args.engine == "bucketed" or args.exit_id is not None
                 or args.use_action_ensemble or args.multi_execution > 1
                 or args.layerwise_exit_eval)
@@ -1354,8 +1490,10 @@ def serve_launches(counters, before: dict) -> dict:
     return {n: f.launches - before.get(n, 0) for n, f in counters.items()}
 
 
-def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve) -> dict:
-    """The host-bucketed ``DeerPolicy`` (bf16, a controller with SWEEP's
+def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve,
+                         name="serve_bucketed", config="deer_3b",
+                         sweep=SWEEP) -> dict:
+    """The host-bucketed ``DeerPolicy`` (bf16, a controller with ``sweep``'s
     threshold a step): 8 single-stream steps with the kernel counts set to
     0 before and read after (K1 in the encode prefix; K2-K4 must not run:
     the decoder runs ``linear`` on per-layer weights).  Each step is then
@@ -1371,7 +1509,7 @@ def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve) -> dict:
     steps = []
     deer.reset()
     for s in range(8):
-        ctrl.set_threshold_values([SWEEP[s]] * n)
+        ctrl.set_threshold_values([sweep[s]] * n)
         inputs = make_policy_inputs(np, cfg, 1, seed=100 + s)
         carry_in = (None if deer.carry is None
                     else tuple(c.clone() for c in deer.carry))
@@ -1382,16 +1520,16 @@ def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve) -> dict:
                       "exit": deer.last_exit_layer, "act": act,
                       "inputs": inputs, "carry_in": carry_in})
         check(act.shape == (7,) and bool(np.isfinite(act).all()),
-              f"serve_bucketed step {s}: action {act}")
+              f"{name} step {s}: action {act}")
     launches = {n_: f.launches for n_, f in counters.items()}
     check(launches["flash_attention"] > 0
           and all(launches[k] == 0 for k in DECODER_KERNEL.values()),
-          f"serve_bucketed: K1 must run and K2-K4 not: {launches}")
+          f"{name}: K1 must run and K2-K4 not: {launches}")
     exits = [st["exit"] for st in steps]
-    check(len(set(exits)) > 1, f"serve_bucketed: exits all at {exits}")
+    check(len(set(exits)) > 1, f"{name}: exits all at {exits}")
     scan_ms, scan_exits, err = [], [], 0.0
     for s, st in enumerate(steps):
-        scan_plain.set_thresholds([SWEEP[s]] * n)
+        scan_plain.set_thresholds([sweep[s]] * n)
         scan_plain.reset()
         if st["carry_in"] is not None:
             scan_plain.carry, scan_plain._carry_rows = st["carry_in"], 1
@@ -1401,11 +1539,11 @@ def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve) -> dict:
         scan_exits.append(scan_plain.last_exit_layer)
         err = max(err, float(np.abs(act - st["act"]).max()))
     check(scan_exits == exits,
-          f"serve_bucketed: exits {exits}, ScanDeerPolicy {scan_exits}")
+          f"{name}: exits {exits}, ScanDeerPolicy {scan_exits}")
     check(err <= BUCKETED_TOL["arm_max_abs"],
-          f"serve_bucketed: actions differ by {err}")
-    out = {"phase": "serve_bucketed", "config": "deer_3b",
-           "engine": "DeerPolicy", "thresholds": SWEEP, "exit_layers": exits,
+          f"{name}: actions differ by {err}")
+    out = {"phase": name, "config": config,
+           "engine": "DeerPolicy", "thresholds": sweep, "exit_layers": exits,
            "b1_step_ms": [st["ms"] for st in steps],
            "b1_median_ms": statistics.median(st["ms"] for st in steps),
            "scan_cublas_exit_layers": scan_exits,
@@ -2330,6 +2468,166 @@ def phase_calib_calvin(torch, np) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# deer_9b (MPT-7B, x-attn every 4 layers) and bc_llama, after deer_3b's
+# phases have freed their weights
+# ---------------------------------------------------------------------------
+
+# the 9B and llama serve phases sweep from -1 (no early exit: full depth)
+# to 1e8 (the first exit fires), so both early and full-depth exits occur
+# whatever these weights' deltas are
+SWEEP_9B = [-1.0, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1e8]
+ROLLOUT_9B_ARGV = ["--debug", "--model", "mpt_9b"] + ROLLOUT_ARGV[3:]
+# bc_llama's preset depth (cli/eval cuts every model to 12 layers unless
+# --max_layer says otherwise)
+LLAMA_DEPTH = 32
+ROLLOUT_LLAMA_ARGV = (["--debug", "--model", "llama_9b", "--max_layer",
+                       str(LLAMA_DEPTH)] + ROLLOUT_ARGV[3:])
+
+
+def phase_weights(torch, cfg, name: str):
+    """Seeded weights of ``cfg`` on the card, their size and the seconds
+    the draw took."""
+    from deer_vla_tpu_torch.ops.layers import tree_leaves_with_path
+    from deer_vla_tpu_torch.ops.quant import tree_bytes
+    gb = released_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_weights(torch, cfg)
+    torch.cuda.synchronize()
+    emit({"phase": name, "seconds": time.perf_counter() - t0, "seed": SEED,
+          "held_before_gb": gb, "mpt": [cfg.n_layers, cfg.mpt.d_model,
+                                        cfg.mpt.n_heads, cfg.mpt.arch],
+          "xattn_layers": [i for i in range(cfg.n_layers)
+                           if cfg.has_xattn(i)],
+          "exits": list(cfg.all_exit_ids()),
+          "params": sum(t.numel() for _, t in tree_leaves_with_path(params)),
+          "params_bytes": tree_bytes(params),
+          "decoder_blocks_bytes": tree_bytes(params["decoder"]["blocks"]),
+          "xattn_bytes": tree_bytes(params["decoder"]["xattn"])})
+    return params
+
+
+def phase_cross_check_plain_quantized(torch, np, cfg, params,
+                                      name: str) -> None:
+    """int8 and int4 in fp32 on the card: one full-depth step through K3 /
+    K4 against the same codes through their plain products (``linear`` on
+    each layer's slice), within CROSS_TOL_FP32."""
+    from deer_vla_tpu_torch.core.config import FP32
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    cfg32 = dataclasses.replace(cfg, dtypes=FP32)
+    inputs = make_policy_inputs(np, cfg, 1, seed=300)
+    for mode in ("int8", "int4"):
+        steps = []
+        for imm in (True, False):
+            pol = ScanDeerPolicy(params, cfg32, indexed_mm=imm,
+                                 quantize=mode)
+            steps.append(full_depth_step(np, pol, cfg32, inputs))
+            del pol
+            torch.cuda.empty_cache()
+        got = compare(np, torch, *steps[0], *steps[1])
+        emit({"phase": f"{name}_{mode}", "exit_layer": cfg.n_layers - 1,
+              "kernel_fp32_vs_plain_fp32": got, "tol_fp32": CROSS_TOL_FP32})
+        for key, limit in CROSS_TOL_FP32.items():
+            check(got[key] <= limit, f"{name} {mode} {key} {got[key]}")
+
+
+def calibrate_launches(calib: dict) -> dict:
+    return {name: sum(b[name] for r in calib["regimes"].values()
+                      for b in r["launches_per_batch"])
+            for name in kernel_counters()}
+
+
+def drive_9b(torch, np) -> tuple:
+    """deer_9b at full width and its preset depth (12 layers, d_model
+    4096, exits [3, 7, 11]) from seeded weights: ``ScanDeerPolicy`` with K2
+    in every serving mode, ``DeerPolicy`` against the scan engine's plain
+    products, a full-depth step against fp32 on the CPU (the weights are
+    14.4 GB in fp32; the host has the room), K3 / K4 against their plain
+    products, calibration, then ``cli/eval --debug --model mpt_9b``."""
+    from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.core.config import deer_9b
+    from deer_vla_tpu_torch.eval.policy import DeerPolicy
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.models.value_net import ExitController
+    cfg = deer_9b()
+    params = phase_weights(torch, cfg, "weights_9b")
+    pol = ScanDeerPolicy(params, cfg, indexed_mm=True)
+    serve = phase_serve(torch, np, cfg, pol, name="serve_9b",
+                        config="deer_9b", sweep=SWEEP_9B)
+    quantized = phase_serve_quantized(torch, np, cfg, params,
+                                      serve["stacked_bytes"],
+                                      config="deer_9b", sweep=SWEEP_9B,
+                                      prefix="serve_9b")
+    deer = DeerPolicy(params, cfg, controller=ExitController(
+        exit_id_list=list(cfg.all_exit_ids()), max_layer=cfg.n_layers))
+    scan_plain = ScanDeerPolicy(params, cfg)
+    bucketed = phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve,
+                                    name="serve_9b_bucketed",
+                                    config="deer_9b", sweep=SWEEP_9B)
+    del deer, scan_plain
+    torch.cuda.empty_cache()
+    cpu_params = to_torch(params, "cpu")
+    phase_cross_check(torch, np, cfg, params, cpu_params, pol,
+                      name="cross_check_9b")
+    del cpu_params, pol
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cross_check_plain_quantized(torch, np, cfg, params,
+                                      "cross_check_9b")
+    calib = phase_calibrate(torch, np, cfg, params, name="calibrate_9b",
+                            model="mpt_9b")
+    del params
+    released_gb(torch)
+    rollout = phase_rollout(torch, np, "rollout_9b", ROLLOUT_9B_ARGV)
+    return ([serve, bucketed, rollout] + list(quantized.values()),
+            {"calibrate_9b": calibrate_launches(calib)})
+
+
+def drive_llama(torch, np) -> list:
+    """bc_llama at full width (d_model 4096, 32 heads, SwiGLU 11008) and
+    its preset depth of 32 layers: ``ScanDeerPolicy`` (``linear`` on each
+    layer's slice: none of K2-K4, K1 24 times a step) in bf16 and int8 at
+    B=1 / B=8, a full-depth bf16 step against fp32 on the card, then
+    ``cli/eval --debug --model llama_9b`` at the same depth."""
+    from deer_vla_tpu_torch.core.config import FP32, bc_llama
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    cfg = bc_llama(n_layers=LLAMA_DEPTH)
+    # the preset keeps MPT's media token id (50277), outside llama's 32000
+    # ids: take the debug tokenizer's, as cli/eval does
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
+    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+    params = phase_weights(torch, cfg, "weights_llama")
+    pol = ScanDeerPolicy(params, cfg)
+    serve = phase_serve(torch, np, cfg, pol, name="serve_llama",
+                        config="bc_llama", sweep=SWEEP_9B)
+    inputs = make_policy_inputs(np, cfg, 1, seed=300)
+    act_bf16, hid_bf16 = full_depth_step(np, pol, cfg, inputs)
+    del pol
+    torch.cuda.empty_cache()
+    quantized = phase_serve_quantized(torch, np, cfg, params,
+                                      serve["stacked_bytes"],
+                                      modes=(("int8", 8),),
+                                      config="bc_llama", sweep=SWEEP_9B,
+                                      prefix="serve_llama")
+    cfg32 = dataclasses.replace(cfg, dtypes=FP32)
+    card32 = ScanDeerPolicy(params, cfg32)
+    act32, hid32 = full_depth_step(np, card32, cfg32, inputs)
+    del card32, params
+    got = compare(np, torch, act_bf16, hid_bf16, act32, hid32)
+    emit({"phase": "cross_check_llama", "exit_layer": cfg.n_layers - 1,
+          "card_bf16_vs_card_fp32": got, "tol_bf16": CROSS_TOL_BF16,
+          "fp32": "the plain fp32 path on the card (cuBLAS products, K1's "
+                  "fp32 path in the ViT)",
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for key, limit in CROSS_TOL_BF16.items():
+        check(got[key] <= limit, f"cross_check_llama {key} {got[key]}")
+    released_gb(torch)
+    rollout = phase_rollout(torch, np, "rollout_llama", ROLLOUT_LLAMA_ARGV)
+    return [serve, rollout] + list(quantized.values())
+
+
 def tome_rows(rows: list) -> list:
     """K1 at the ToMe shapes, one entry a query length."""
     return [{"sq": r["shape"][2], "ms": r["kernel_ms"],
@@ -2341,9 +2639,10 @@ def tome_rows(rows: list) -> list:
 def kernels_line(summary: dict, launches: dict, tc: dict,
                  path_launches: dict) -> dict:
     """``launches`` maps each kernel to its count on the serve path that
-    runs it: K1 and K2 on the bf16 serve, K3 on int8's, K4 on int4's;
-    ``path_launches`` holds every kernel's count on the calibration,
-    rollout and training paths, by path."""
+    runs it: K1 and K2 on the bf16 serve, K3 on int8's, K4 on int4's (and
+    ``<name>_9b`` on deer_9b's); ``path_launches`` holds every kernel's
+    count on the calibration, rollout, training, 9B and llama paths, by
+    path."""
     k1 = summary["flash_attention"]
     out = [{"name": "flash_attention", "route": "cuda",
             "source": "deer_vla_tpu_torch/csrc/flash_attention.cu",
@@ -2414,6 +2713,16 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
         row["b8_bound_ms"] = b8["bound_ms"]
         row["tensor_core_sass"] = tc[row["name"]]["hmma_hgmma"]
         row["conversion_sass"] = tc[row["name"]]["conversions"]
+        for tag in ("9b", "9b_b8"):
+            k = summary[row["name"] + "_" + tag]
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "max_abs_err"):
+                row[f"{key}_{tag}"] = k[key]
+        row["launches_9b"] = launches[row["name"] + "_9b"]
+        row["shape_9b"] = ("one deer_9b decoder layer's four products, x "
+                           "(32 | 256, K) bf16, K x N in (4096, 12288), "
+                           "(4096, 4096), (4096, 16384), (16384, 4096), "
+                           "L = 12, B=1 | B=8")
     for row in out:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in path_launches.items()}
@@ -2492,22 +2801,29 @@ def main() -> int:
     tc = phase_build()
     cfg = deer_3b()
     summary = phase_kernels(torch, vit_batches(cfg))
+    summary.update(phase_kernels_9b(torch, summary["k2_checked"]))
 
-    k1_seen = set()
-    with k1_calls(k1_seen):
+    k1_seen, k2_seen = set(), set()
+    with k1_calls(k1_seen), k2_calls(k2_seen):
         serve, quantized, calib, paths = drive_paths(torch, np, cfg)
+        paths_9b, path_launches = drive_9b(torch, np)
+        paths += paths_9b + drive_llama(torch, np)
     unchecked = k1_seen - summary["k1_checked"]
     emit({"phase": "k1_shapes", "driven": sorted(map(str, k1_seen)),
           "unchecked": sorted(map(str, unchecked))})
     check(k1_seen and not unchecked,
           f"K1 ran at shapes no phase held against its plain version: "
           f"{unchecked}")
+    unchecked = k2_seen - summary["k2_checked"]
+    emit({"phase": "k2_shapes", "driven": sorted(map(str, k2_seen)),
+          "unchecked": sorted(map(str, unchecked))})
+    check(k2_seen and not unchecked,
+          f"K2-K4 ran at shapes no phase held against its plain version: "
+          f"{unchecked}")
 
-    path_launches = {"calibrate": {
-        name: sum(b[name] for r in calib["regimes"].values()
-                  for b in r["launches_per_batch"])
-        for name in kernel_counters()}}
-    for r in paths:  # the rollouts, the training and CALVIN phases
+    path_launches["calibrate"] = calibrate_launches(calib)
+    for r in paths:  # the rollouts, the training and CALVIN phases, and
+        # the 9B and llama serve and rollout phases
         if "launches" in r:
             path_launches[r["phase"]] = r["launches"]
         for name, run in r.get("runs", {}).items():
@@ -2519,6 +2835,10 @@ def main() -> int:
         quantized["int8"]["launches"]["indexed_matmul_q8"]
     launches["indexed_matmul_q4"] = \
         quantized["int4"]["launches"]["indexed_matmul_q4"]
+    for name, phase in (("indexed_matmul", "serve_9b"),
+                        ("indexed_matmul_q8", "serve_9b_int8"),
+                        ("indexed_matmul_q4", "serve_9b_int4")):
+        launches[name + "_9b"] = path_launches[phase][name]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(summary, launches, tc, path_launches))
     print(smi, flush=True)

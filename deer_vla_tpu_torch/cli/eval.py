@@ -21,10 +21,12 @@ serving (``build_policy``).
     python -m deer_vla_tpu_torch.cli.eval --calvin_dataset DIR \
         --evaluate_from_checkpoint runs/deer/deer_8.ckpt --value_cache v
 
-``main(argv, device=None)`` runs on the card; ``device="cpu"`` runs the
-plain versions on the CPU.  The weights are ``init_deer`` draws from
-``--seed``, or a checkpoint (``--evaluate_from_checkpoint``, its config
-from the ``.json`` sidecar) overlaid on the backbone it was trained over.
+``--model`` takes the JAX registry's names (mpt_dolly_3b, mpt_9b,
+llama_9b, tiny) and deer_3b.  ``main(argv, device=None)`` runs on the card;
+``device="cpu"`` runs the plain versions on the CPU.  The weights are
+``init_deer`` draws from ``--seed``, or a checkpoint
+(``--evaluate_from_checkpoint``, its config from the ``.json`` sidecar)
+overlaid on the backbone it was trained over.
 The flags keep the JAX names; a JAX flag this CLI does not serve raises
 SystemExit naming the ROADMAP.md item that will serve it.
 
@@ -45,10 +47,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deer_vla_tpu_torch.core.config import BF16, FP32, deer_3b, deer_tiny
+from deer_vla_tpu_torch.core.config import (BF16, FP32, MODEL_REGISTRY,
+                                            bc_llama, deer_3b)
 from deer_vla_tpu_torch.core.device import resolve_device
 
-MODELS = {"tiny": deer_tiny, "deer_3b": deer_3b, "mpt_dolly_3b": deer_3b}
+# the JAX registry's keys, and deer_3b under its own name too
+MODELS = dict(MODEL_REGISTRY, deer_3b=deer_3b)
 # trajectories per DebugBatcher calibration batch
 CALIB_BATCH_SIZE = 2
 # what a run on --calvin_dataset without --debug ends with, once its values
@@ -254,11 +258,18 @@ def calibration_batches(args, cfg, tok):
 
 
 def model_config(args):
+    """The preset ``--model`` names, its decoder cut to ``--max_layer``
+    layers (12 unless given, as in the JAX CLI; tiny keeps its own).
+    bc_llama takes the depth as its n_layers: the JAX CLI's
+    ``max_layer=`` call raises TypeError there."""
     dtypes = BF16 if args.precision == "bf16" else FP32
+    factory = MODELS[args.model]
     if args.model == "tiny":
-        return deer_tiny(dtypes=dtypes)
-    return MODELS[args.model](
-        max_layer=args.max_layer if args.max_layer > 0 else 12, dtypes=dtypes)
+        return factory(dtypes=dtypes)
+    depth = args.max_layer if args.max_layer > 0 else 12
+    if factory is bc_llama:
+        return bc_llama(n_layers=depth, dtypes=dtypes)
+    return factory(max_layer=depth, dtypes=dtypes)
 
 
 def load_model(args, dev: torch.device):
@@ -405,7 +416,7 @@ def build_policy(args, cfg, params, controller, max_layer, dev):
         policy = ScanDeerPolicy(
             params, cfg, threshold_type=args.threshold_type,
             max_layer=max_layer, steps_per_stage=args.steps_per_stage,
-            indexed_mm=True, quantize=quantize, device=dev)
+            indexed_mm=cfg.mpt.arch == "mpt", quantize=quantize, device=dev)
         policy.set_thresholds(controller.thresholds)
         if args.vision_cache_tau > 0:
             policy = VisionCacheScanPolicy(policy, tau=args.vision_cache_tau)
@@ -486,7 +497,7 @@ def main(argv=None, device: Optional[str] = None) -> dict:
             bpolicy = ScanDeerPolicy(
                 params, cfg, threshold_type=args.threshold_type,
                 max_layer=max_layer, steps_per_stage=args.steps_per_stage,
-                indexed_mm=True,
+                indexed_mm=cfg.mpt.arch == "mpt",
                 quantize=None if args.quantize == "none" else args.quantize,
                 device=dev)
             bpolicy.set_thresholds(thresholds)

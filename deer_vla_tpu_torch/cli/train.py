@@ -24,9 +24,10 @@ import json
 import os
 from typing import Optional
 
-from deer_vla_tpu_torch.core.config import BF16, FP32, deer_3b, deer_tiny
+from deer_vla_tpu_torch.core.config import (BF16, FP32, MODEL_REGISTRY,
+                                            bc_llama)
 
-MODELS = {"mpt_dolly_3b": deer_3b, "tiny": deer_tiny}
+MODELS = MODEL_REGISTRY
 
 # JAX flags not served yet: (flag, JAX default, argparse keywords, the
 # ROADMAP.md item that serves it).  A value other than the default raises.
@@ -165,9 +166,6 @@ def check_served(args) -> None:
         if getattr(args, flag[2:]) != default:
             raise SystemExit(f"{flag} is not served by the PyTorch port yet "
                              f"(ROADMAP.md {item})")
-    if args.model not in MODELS:
-        raise SystemExit(f"--model {args.model} is not served by the "
-                         f"PyTorch port yet (ROADMAP.md {_VARIANTS})")
     if not args.debug and not args.calvin_dataset:
         raise SystemExit("training needs --calvin_dataset DIR (a "
                          "CALVIN-format directory) or --debug")
@@ -177,7 +175,13 @@ def make_model_config(args):
     """The model config the flags ask for (JAX ``make_model_config``)."""
     dtypes = BF16 if args.precision == "bf16" else FP32
     if args.model == "tiny":
-        cfg = deer_tiny(window_size=min(args.window_size, 4), dtypes=dtypes)
+        cfg = MODELS["tiny"](window_size=min(args.window_size, 4),
+                             dtypes=dtypes)
+    elif MODELS[args.model] is bc_llama:
+        # bc_llama's depth is its n_layers (it takes no max_layer or
+        # exit_interval; the JAX CLI's call with them raises TypeError)
+        cfg = bc_llama(n_layers=args.max_layer,
+                       window_size=args.window_size, dtypes=dtypes)
     else:
         cfg = MODELS[args.model](max_layer=args.max_layer,
                                  exit_interval=args.exit_interval,

@@ -250,6 +250,40 @@ def deer_3b(max_layer: int = 12, exit_interval: int = 2, window_size: int = 12,
     )
 
 
+def deer_9b(max_layer: int = 12, exit_interval: int = 4, window_size: int = 12,
+            dtypes: DTypePolicy = BF16) -> DeerConfig:
+    """OpenFlamingo-9B: ViT-L/14 + MPT-7B, x-attn every 4 layers."""
+    return DeerConfig(
+        vit=ViTConfig(),
+        perceiver=PerceiverConfig(dim=1024),
+        mpt=MPTConfig(d_model=4096, n_heads=32, n_layers=max_layer,
+                      vocab_size=50432),
+        head=HeadConfig(in_features=4096, window_size=window_size),
+        cross_attn_every_n_layers=4,
+        exit_interval=exit_interval,
+        window_size=window_size,
+        dtypes=dtypes,
+    )
+
+
+def bc_llama(n_layers: int = 32, d_model: int = 4096, window_size: int = 12,
+             dtypes: DTypePolicy = BF16) -> DeerConfig:
+    """BCFlamingo legacy config (llama LM, no early exits,
+    robot_flamingo/models/flamingo_bc.py:10)."""
+    return DeerConfig(
+        vit=ViTConfig(),
+        perceiver=PerceiverConfig(dim=1024),
+        mpt=MPTConfig(d_model=d_model, n_heads=d_model // 128,
+                      n_layers=n_layers, vocab_size=32000, arch="llama",
+                      alibi=False),
+        head=HeadConfig(in_features=d_model, window_size=window_size),
+        cross_attn_every_n_layers=4,
+        multi_exit=False,
+        window_size=window_size,
+        dtypes=dtypes,
+    )
+
+
 def deer_tiny(n_layers: int = 4, exit_interval: int = 2, window_size: int = 4,
               dtypes: DTypePolicy = FP32) -> DeerConfig:
     """Small config for CPU tests: same topology, tiny dims."""
@@ -269,3 +303,12 @@ def deer_tiny(n_layers: int = 4, exit_interval: int = 2, window_size: int = 4,
         window_size=window_size,
         dtypes=dtypes,
     )
+
+
+# the JAX package's registry keys (mirrors the reference's factory mpt_dict)
+MODEL_REGISTRY = {
+    "mpt_dolly_3b": deer_3b,
+    "mpt_9b": deer_9b,
+    "llama_9b": bc_llama,
+    "tiny": deer_tiny,
+}

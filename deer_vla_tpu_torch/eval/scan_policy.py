@@ -5,7 +5,10 @@ a host loop over SEGMENTS (``stride`` layers, then one exit check).  Each
 check ends in one host read of "have all streams exited?", so a step syncs
 at most once per exit (6 times for deer_3b).  The layer index reaches the
 indexed-matmul kernel as a device tensor, so nothing else in the loop
-depends on the host.
+depends on the host.  The kernels (K2, or K3 / K4 quantized) implement the
+MPT block's four products; a llama decoder (bc_llama) runs each layer's
+slice through ``linear``, as the JAX engine computes it outside any Pallas
+kernel, and refuses ``indexed_mm``.
 
 Semantics kept exactly:
   * the first exit of every timestep compares against the pseudo action
@@ -36,6 +39,7 @@ from deer_vla_tpu_torch.models.flamingo import (check_vision_supported,
 from deer_vla_tpu_torch.models.gated_xattn import gated_xattn_forward
 from deer_vla_tpu_torch.models.heads import (any_head_step, any_zero_carry,
                                              head_action_width)
+from deer_vla_tpu_torch.models.llama import llama_block_forward, rope_tables
 from deer_vla_tpu_torch.models.mpt import (embed_tokens, make_attn_bias,
                                            mpt_block_forward,
                                            mpt_block_forward_stacked)
@@ -85,7 +89,7 @@ def stack_decoder_layers(params: dict, cfg: DeerConfig,
     blocks = stack_layer_tree(params["decoder"]["blocks"], cdt)
     xattn = stack_layer_tree(
         [x for x in params["decoder"]["xattn"] if x is not None], cdt)
-    dev = blocks["wqkv"]["w"].device
+    dev = params["decoder"]["wte"]["w"].device
     out = {"blocks": blocks, "xattn": xattn,
            "layer_idx": torch.arange(cfg.n_layers, dtype=torch.int32,
                                      device=dev)}
@@ -106,9 +110,6 @@ def check_serving_supported(cfg: DeerConfig) -> None:
     if cfg.head_type != "deterministic":
         raise NotImplementedError(
             f"head_type {cfg.head_type!r} is not ported")
-    if cfg.mpt.arch != "mpt":
-        raise NotImplementedError(f"decoder arch {cfg.mpt.arch!r} is not "
-                                  "ported")
 
 
 def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
@@ -122,7 +123,15 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
     thresholds)`` -> (arm (B, 6k), grip (B, k), carry, exit_layer (B,)
     int32, x) where ``thresholds`` is (n_layers,) or (B, n_layers) with
     +1e30 at the forced last exit and -1e30 at non-exit layers, and ``x``
-    is the hidden state after the last decoder layer that ran."""
+    is the hidden state after the last decoder layer that ran.
+    ``indexed_mm`` raises on a llama decoder: the layer-indexed kernels
+    compute the MPT block's products (fused wqkv, out_proj, mlp_up,
+    mlp_down), which a llama block does not have."""
+    llama = cfg.mpt.arch == "llama"
+    if indexed_mm and llama:
+        raise ValueError("indexed_mm covers the MPT block's products "
+                         "(K2-K4); a 'llama' decoder serves with "
+                         "indexed_mm=False")
     ml = (max_layer if max_layer is not None else cfg.n_layers) - 1
     exits = [e for e in exit_ids if e <= ml]
     if not exits:
@@ -151,6 +160,8 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
 
     def decode(params, stacked, media, x, mloc, mask, carry, thresholds):
         attn_bias = make_attn_bias(mask, cfg.mpt, x.dtype)
+        rope = (rope_tables(x.shape[1], cfg.mpt.head_dim, device=x.device)
+                if llama else None)
         head = params[head_key]
         b = x.shape[0]
         dev = x.device
@@ -168,6 +179,10 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     layer_slice(stacked["xattn"], int(xidx[i])), x, media,
                     mloc, heads=cfg.xattn_heads, dim_head=cfg.xattn_dim_head,
                     only_attend_immediate_media=cfg.only_attend_immediate_media)
+            if llama:
+                return x_in, llama_block_forward(
+                    layer_slice(stacked["blocks"], i), x, attn_bias, cfg.mpt,
+                    rope)
             if indexed_mm:
                 return x_in, mpt_block_forward_stacked(
                     stacked["blocks"], i, x, attn_bias, cfg.mpt,
@@ -262,7 +277,8 @@ class ScanDeerPolicy(nn.Module, HostInputs):
     device is explicit and defaults to the card.  ``quantize`` is None or
     one of ``ops.quant.QUANT_MODES``: "int8" and "int4" serve the decoder
     through K3 / K4 when ``indexed_mm`` is on, the w8a8 modes through
-    int8 x int8 -> int32 products."""
+    int8 x int8 -> int32 products.  ``indexed_mm`` needs an MPT decoder:
+    on a llama one it raises (``build_scan_step``)."""
 
     def __init__(self, params: dict, cfg: DeerConfig,
                  exit_ids: Optional[List[int]] = None,
@@ -272,6 +288,9 @@ class ScanDeerPolicy(nn.Module, HostInputs):
                  device=None):
         super().__init__()
         check_serving_supported(cfg)
+        exit_ids = list(exit_ids or cfg.all_exit_ids())
+        self.exits, self._encode, self._decode = build_scan_step(
+            cfg, exit_ids, threshold_type, max_layer, indexed_mm=indexed_mm)
         self.cfg = cfg
         self.device = resolve_device(device)
         params = to_torch(params, self.device)
@@ -284,9 +303,6 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         self._stacked_def = self._register_tree("stacked", stacked)
         self._params_def = self._register_tree(
             "params", prune_serving_params(params, cfg))
-        exit_ids = list(exit_ids or cfg.all_exit_ids())
-        self.exits, self._encode, self._decode = build_scan_step(
-            cfg, exit_ids, threshold_type, max_layer, indexed_mm=indexed_mm)
         self.steps_per_stage = steps_per_stage
         self.set_thresholds(thresholds if thresholds is not None
                             else [1e8] * len(self.exits))

@@ -287,9 +287,10 @@ def trainable_mask(params: dict, cfg: DeerConfig, phase: str = "joint"
                    ) -> dict:
     """Boolean tree of the trainable leaves, keyed off the tree's path names
     as in the JAX package (for the trees the port builds: no second
-    resampler, state token, frame embeddings or llama head; ROADMAP.md
-    M10).  The reference freezes everything, then unfreezes
-    the gated x-attn, perceiver, token embeddings and every head;
+    resampler, state token or frame embeddings; ROADMAP.md M10).  The
+    reference freezes everything, then unfreezes the gated x-attn,
+    perceiver, token embeddings and every head (llama's untied LM head
+    ``norm_f`` / ``lm_head_w`` too, like the embeddings);
     phase='exit_only' freezes the backbone too (the second post-strategy
     phase).  Knobs: ``freeze_sampler`` keeps the perceiver frozen,
     ``freeze_embed`` the embeddings, ``unfreeze_vit`` trains the ViT, and
@@ -318,7 +319,9 @@ def trainable_mask(params: dict, cfg: DeerConfig, phase: str = "joint"
                 return joint
             if "wte" in keys:
                 return joint and not cfg.freeze_embed
-            return False  # MPT blocks and ln_f stay frozen
+            if "norm_f" in keys or "lm_head_w" in keys:
+                return joint  # llama's untied LM head (JAX :505-509)
+            return False  # the decoder blocks and ln_f stay frozen
         return top in ("lm_head", "extra_exit", "lm_exits")
 
     return tree_map_with_path(label, params)

@@ -1,12 +1,14 @@
-"""Truncated MPT decoder blocks with interleaved gated cross-attention.
+"""Truncated decoder blocks with interleaved gated cross-attention.
 
-MPT block = pre-LN attention (fused Wqkv, ALiBi bias, no biases when
-``no_bias``) + pre-LN exact-GELU MLP, residual both times.  The stacked
-variant selects layer ``i`` of (L, ...) weights: its four big products go
-through the layer-indexed kernels (K2, or K3 / K4 for int8 / int4 weights)
-with a device-side index, the small LayerNorm leaves are sliced on the
-host.  ``decoder_forward`` runs every layer over the unstacked weights and
-returns all layer outputs (training and calibration); with
+The decoder is an MPT stack or, for ``arch="llama"`` (BCFlamingo), a llama
+stack (``models/llama.py``; RMSNorm, RoPE, SwiGLU, and an untied LM head
+beside ``wte``). MPT block = pre-LN attention (fused Wqkv, ALiBi bias, no
+biases when ``no_bias``) + pre-LN exact-GELU MLP, residual both times. The
+stacked variant selects layer ``i`` of (L, ...) weights: its four big
+products go through the layer-indexed kernels (K2, or K3 / K4 for int8 /
+int4 weights) with a device-side index, the small LayerNorm leaves are
+sliced on the host. ``decoder_forward`` runs every layer over the unstacked
+weights and returns all layer outputs (training and calibration); with
 ``cfg.remat_layers`` each layer's activations are recomputed in the
 backward pass (``remat_layers_fn``).
 """
@@ -22,6 +24,8 @@ from torch.utils import checkpoint as ckpt
 from deer_vla_tpu_torch.core.config import DeerConfig, MPTConfig
 from deer_vla_tpu_torch.models.gated_xattn import (gated_xattn_forward,
                                                    init_gated_xattn)
+from deer_vla_tpu_torch.models.llama import (init_llama_block, init_rmsnorm,
+                                             llama_block_forward)
 from deer_vla_tpu_torch.ops.alibi import causal_padding_bias, full_attn_bias
 from deer_vla_tpu_torch.ops.attention import (dot_attention, merge_heads,
                                               split_heads)
@@ -54,10 +58,12 @@ def init_mpt_block(gen, cfg: MPTConfig, device="cpu",
 
 def init_decoder(gen, cfg: DeerConfig, device="cpu",
                  dtype=torch.float32) -> dict:
-    """wte + [xattn?, block] * n_layers + ln_f (MPT arch only)."""
+    """wte + [xattn?, block] * n_layers + ln_f; llama adds its final
+    RMSNorm ``norm_f`` and the untied ``lm_head_w`` (JAX mpt.py:73-84)."""
     mpt = cfg.mpt
-    if mpt.arch != "mpt":
-        raise NotImplementedError(f"decoder arch {mpt.arch!r} is not ported")
+    if mpt.arch not in ("mpt", "llama"):
+        raise ValueError(f"unknown decoder arch {mpt.arch!r}")
+    llama = mpt.arch == "llama"
     params = {
         "wte": {"w": trunc_normal((mpt.vocab_size, mpt.d_model), 0.02, gen,
                                   device, dtype)},
@@ -65,8 +71,14 @@ def init_decoder(gen, cfg: DeerConfig, device="cpu",
         "blocks": [],
         "xattn": [],
     }
+    if llama:
+        params["norm_f"] = init_rmsnorm(mpt.d_model, device, dtype)
+        params["lm_head_w"] = init_linear(gen, mpt.d_model, mpt.vocab_size,
+                                          False, device, dtype)
     for i in range(mpt.n_layers):
-        params["blocks"].append(init_mpt_block(gen, mpt, device, dtype))
+        params["blocks"].append(
+            init_llama_block(gen, mpt, device, dtype) if llama
+            else init_mpt_block(gen, mpt, device, dtype))
         params["xattn"].append(
             init_gated_xattn(gen, mpt.d_model, cfg.vis_dim,
                              cfg.xattn_dim_head, cfg.xattn_heads,
@@ -151,13 +163,16 @@ def _layer(params: dict, i: int, x: torch.Tensor, media: torch.Tensor,
            media_locations: Optional[torch.Tensor], attn_bias: torch.Tensor,
            cfg: DeerConfig) -> torch.Tensor:
     """Decoder layer i over the unstacked tree: gated cross-attention (where
-    the layer has one), then the MPT block."""
+    the layer has one), then the MPT or llama block."""
     xp = params["xattn"][i]
     if xp is not None:
         x = gated_xattn_forward(
             xp, x, media, media_locations, heads=cfg.xattn_heads,
             dim_head=cfg.xattn_dim_head,
             only_attend_immediate_media=cfg.only_attend_immediate_media)
+    if cfg.mpt.arch == "llama":
+        return llama_block_forward(params["blocks"][i], x, attn_bias,
+                                   cfg.mpt)
     return mpt_block_forward(params["blocks"][i], x, attn_bias, cfg.mpt)
 
 
@@ -207,9 +222,6 @@ def decoder_forward(params: dict, input_ids: torch.Tensor,
     raw outputs, so ``ln_f`` is not applied (flamingo_mpt.py:459,465).  The
     products run through ``linear`` on the unstacked weights, as the JAX
     package computes them outside any Pallas kernel."""
-    if cfg.mpt.arch != "mpt":
-        raise NotImplementedError(f"decoder arch {cfg.mpt.arch!r} is not "
-                                  "ported")
     cdt = cfg.dtypes.cdt
     x = embed_tokens(params, input_ids, cdt)
     if media_locations is None:

@@ -19,6 +19,7 @@ eval_calvin.py:543-577).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -71,13 +72,29 @@ def to_tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def init_record(seed: int, device) -> Dict:
+def backbone_record(cfg: DeerConfig) -> Dict:
+    """The parts of ``cfg`` that decide which backbone ``init_deer`` draws:
+    the ViT, perceiver and decoder configs (arch, widths, depth) and the
+    cross-attention layout.  ToMe (``vit.tome_r``) merges tokens and draws
+    no weights, so it is left out."""
+    vit = dataclasses.asdict(cfg.vit)
+    vit.pop("tome_r")
+    return {"vit": vit, "perceiver": dataclasses.asdict(cfg.perceiver),
+            "decoder": dataclasses.asdict(cfg.mpt),
+            "xattn": [cfg.cross_attn_every_n_layers, cfg.xattn_dim_head,
+                      cfg.xattn_heads, cfg.xattn_ff_mult]}
+
+
+def init_record(seed: int, device, cfg: DeerConfig) -> Dict:
     """The sidecar's ``meta["init"]`` for a backbone that
     ``init_deer(cfg, seed=seed, device=device)`` drew.  A seed draws other
     numbers on the CPU, on the card and in the JAX package, so the
-    generator's device is part of the record."""
+    generator's device is part of the record, and so is the model
+    (``backbone_record``): a deer_3b, deer_9b and bc_llama backbone differ
+    at one seed."""
     return {"package": INIT_PACKAGE, "seed": int(seed),
-            "generator_device": torch.device(device).type}
+            "generator_device": torch.device(device).type,
+            "backbone": backbone_record(cfg)}
 
 
 def rebuild_backbone(init: Optional[Dict], cfg: DeerConfig,
@@ -103,8 +120,8 @@ def check_init(recorded: Optional[Dict], own: Optional[Dict],
     if (recorded or None) != own:
         raise ValueError(
             f"checkpoint {path} was trained over the backbone {recorded}, "
-            f"this run's is {own}: resume with the seed and on the device "
-            "the run started with")
+            f"this run's is {own}: resume with the model, the seed and on "
+            "the device the run started with")
 
 
 def save_checkpoint(path: str, params: dict, cfg: DeerConfig,

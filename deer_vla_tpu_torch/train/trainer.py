@@ -145,7 +145,7 @@ class Trainer:
         self.init_meta = None
         if params is None:
             params = init_deer(cfg, seed=tcfg.seed, device=self.device)
-            self.init_meta = init_record(tcfg.seed, self.device)
+            self.init_meta = init_record(tcfg.seed, self.device, cfg)
         if cfg.dtypes.compute_dtype == "bfloat16":
             params = cast_frozen_to_bf16(
                 params, trainable_mask(params, cfg, "joint"))

@@ -58,7 +58,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     for kernel in args.kernels.split(","):
         fn, plain, plan_of, configs = smoke.indexed_kernel(kernel)
-        for prod, k, n in smoke.DECODER_PRODUCTS:
+        for prod, k, n in smoke.DECODER_PRODUCTS["deer_3b"]:
             w = smoke.stacked_weights(torch, gen, kernel, k, n)
             for m in map(int, args.rows.split(",")):
                 x = torch.randn(m, k, generator=gen,

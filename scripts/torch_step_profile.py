@@ -2,18 +2,20 @@
 
     python3 scripts/torch_step_profile.py [--quantize none,int8,...]
 
-Serves deer_3b (the same seeded random weights as chip_smoke.py) in three
-settings: B=1 exiting at the first exit, B=1 at full depth, and B=8 at full
-depth, once for each serving mode given (``none`` is bf16; the others are
-``ScanDeerPolicy``'s ``quantize`` modes; default ``none``) and each ToMe
-setting given (``--tome_r 0,8``: 0 is the exact tower; default 0).  For each it
-prints one JSON line with the host-clock step time (median and spread of 10
-steps after 2 warm-up steps) and, from torch.profiler over 3 more steps,
-the device time that kernels took, the device's idle share of the wall
-time, the kernel launches per step, and the kernels that took the most
-device time.  The last line names the card and its power limit.  The JSON
+Serves ``--model`` (a registry name: mpt_dolly_3b, the default, mpt_9b or
+llama_9b at its preset depth; the same seeded random weights as chip_smoke.py;
+K2-K4 serve an MPT decoder's products, a llama decoder's run through
+``linear``) in three settings: B=1 exiting at the first exit, B=1 at full
+depth, and B=8 at full depth, once for each serving mode given (``none`` is
+bf16; the others are ``ScanDeerPolicy``'s ``quantize`` modes; default
+``none``) and each ToMe setting given (``--tome_r 0,8``: 0 is the exact tower;
+default 0). For each it prints one JSON line with the host-clock step time
+(median and spread of 10 steps after 2 warm-up steps) and, from torch.profiler
+over 3 more steps, the device time that kernels took, the device's idle share
+of the wall time, the kernel launches per step, and the kernels that took the
+most device time. The last line names the card and its power limit. The JSON
 lines are also written to ``--out`` (default
-``chiprun_out/torch_step_profile.jsonl``).  Needs a CUDA device.
+``chiprun_out/torch_step_profile.jsonl``). Needs a CUDA device.
 
 ``--kernels`` first times K1 (``flash_attention`` on the ViT's
 (2B, 16, 257, 64) bf16 layer), K2 (``indexed_matmul``), K3
@@ -44,6 +46,7 @@ compared in one run on one card:
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import itertools
 import json
@@ -105,6 +108,9 @@ def main() -> int:
                     help="also profile a calibration batch, both regimes")
     ap.add_argument("--train", action="store_true",
                     help="also profile the deer_3b train step, both phases")
+    ap.add_argument("--model", default="mpt_dolly_3b",
+                    choices=["mpt_dolly_3b", "mpt_9b", "llama_9b"],
+                    help="the model the serving modes and --calibrate run")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose port to profile; default this one")
     ap.add_argument("--out", default=str(OUT), help="JSON lines file")
@@ -116,15 +122,22 @@ def main() -> int:
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     smoke = load_chip_smoke()
-    from deer_vla_tpu_torch.core.config import deer_3b
+    from deer_vla_tpu_torch.core.config import MODEL_REGISTRY
+    from deer_vla_tpu_torch.data.text import HashTokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = deer_3b()
+    cfg = MODEL_REGISTRY[args.model]()
+    if cfg.media_token_id >= cfg.mpt.vocab_size:
+        # bc_llama's preset keeps MPT's media token, outside its vocabulary:
+        # the debug tokenizer's, as cli/eval takes it
+        tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size,
+                            max_length=cfg.text_len)
+        cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
     params = smoke.build_weights(torch, cfg)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text("")
-    emit({"root": str(root)})
+    emit({"root": str(root), "model": args.model})
     if args.kernels:
         kernel_times(torch, smoke)
     if args.calibrate:
@@ -199,7 +212,7 @@ def quantized_kernel_times(torch, smoke, idxs) -> None:
         fn, plain = getattr(imm, kernel), getattr(imm, kernel + "_reference")
         gen = torch.Generator(device="cuda").manual_seed(100)
         stacks = []
-        for prod, k, n in smoke.DECODER_PRODUCTS:
+        for prod, k, n in smoke.DECODER_PRODUCTS["deer_3b"]:
             w = smoke.stacked_weights(torch, gen, kernel, k, n)
             stacks.append((prod, k, w, deq(*w, torch.bfloat16)))
         for b in (1, 8):
@@ -293,12 +306,11 @@ def profile_training(torch, smoke) -> None:
 
 
 def profile_mode(torch, np, smoke, cfg, params, quantize, tome_r=0):
-    import dataclasses
-
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit,
                                                            tome_r=tome_r))
-    pol = ScanDeerPolicy(params, cfg, indexed_mm=True, quantize=quantize)
+    pol = ScanDeerPolicy(params, cfg, indexed_mm=cfg.mpt.arch == "mpt",
+                         quantize=quantize)
     for name, b, th in SETTINGS:
         pol.set_thresholds_batch([[th] * len(pol.exits)] * b)
         pol.reset()

@@ -99,7 +99,7 @@ def main() -> int:
             for i in range(12)]
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     layer = {}
-    for prod, k, n in smoke.DECODER_PRODUCTS:
+    for prod, k, n in smoke.DECODER_PRODUCTS["deer_3b"]:
         wq, s = smoke.stacked_weights(torch, gen, "indexed_matmul_q8", k, n)
         for m in (32, 256):
             x = torch.randn(m, k, generator=gen,

@@ -63,7 +63,8 @@ from deer_vla_tpu_torch.ops.layers import flat_key, keystr, \
 from deer_vla_tpu_torch.train import losses as tlosses
 from deer_vla_tpu_torch.train import optimizer as toptim
 from deer_vla_tpu_torch.train import train_step as tstep
-from deer_vla_tpu_torch.train.checkpoint import load_checkpoint
+from deer_vla_tpu_torch.train.checkpoint import (backbone_record,
+                                                 load_checkpoint)
 from deer_vla_tpu_torch.train.trainer import (TrainConfig, Trainer,
                                               prepare_batch)
 
@@ -828,7 +829,8 @@ def test_two_phases_freeze_and_checkpoint(tmp_path):
         head = k.split("/")[0] in ("lm_head", "extra_exit", "lm_exits")
         assert torch.equal(v, p1[k]) != head, k
     assert side["meta"]["init"] == {"package": "deer_vla_tpu_torch",
-                                    "seed": 42, "generator_device": "cpu"}
+                                    "seed": 42, "generator_device": "cpu",
+                                    "backbone": backbone_record(cfg)}
     # resume: both epochs done
     tr2 = Trainer(cfg, tcfg, loader, device="cpu")
     assert tr2.maybe_resume() == 2
@@ -969,7 +971,7 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
     (["--clip_state"], "M10"), (["--n_timesteps", "10"], "M10"),
     (["--tcp_rel"], "M9b"), (["--tokenizer_path", "x"], "M9"),
     (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
-    (["--model", "mpt_9b"], "M10")])
+    (["--hidden_size", "64"], "M10")])
 def test_train_cli_unserved_flags_raise(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         train_cli.main(["--debug", "--model", "tiny"] + flag, device="cpu")
