@@ -54,7 +54,19 @@ equal ``--lanes 4``'s) and ``--layerwise_exit_eval`` on the trained
 checkpoint.  K1 is checked at the ViT batch of every driven path
 (``vit_batches``), at the ToMe lengths with their bias too, and every shape
 the models hand K1 while the paths run is recorded and must be one of those
-checked.  Then deer_9b (MPT-7B, d_model 4096, x-attn every 4 layers) at its
+checked.  The vision, state and window variants run on the same deer_3b draw
+with their own leaves (``variant_weights``): ``serve_variants`` (use_state,
+pre, two_way, sep_resampler, gripper_res 84 and multi_step_action 3 at B=1 /
+B=8 beside the post medians; use_state also in int8 through K3 and through
+``DeerPolicy`` against the scan engine), ``cross_check_variants``
+(vit_concat + use_state and gripper_res 84, a full-depth bf16 step against
+fp32 on the CPU), ``serve_folded`` (vit_concat and use_hist at W=12: the
+frame cache against the uncached step, equal exits and arm actions within
+2e-4, then B=8), ``calibrate_variants`` (state in both regimes, vit_concat
+with ``--calib_warm 2``) and ``train_variants`` (``cli/train --use_state
+--fusion_mode vit_concat``, one joint epoch of 4 batches, then ``cli/eval
+--frame_cache`` on its checkpoint, in ``build/chip_smoke_variants/``,
+deleted after).  Then deer_9b (MPT-7B, d_model 4096, x-attn every 4 layers) at its
 preset depth of 12 layers: K2 / K3 / K4 at its four products (K = 4096 /
 16384, N up to 16384) first, each layer against the plain version, timed
 against the bound and cuBLAS, bit-identical across launches and graph
@@ -459,8 +471,10 @@ def vit_batches(cfg) -> dict:
     the paths this script drives hand K1, by compute dtype: the serve
     phases' B=1 and B=8, each rollout's dispatch, a calibration batch's B*W
     frames (phase calibrate and ``cli/eval``), a training batch's B*W
-    frames; in fp32 the serve cross-checks' B=1 and the calibration and
-    training cross-checks' W frames.  ``tome`` holds the batches the ToMe
+    frames, the window-folded variants' W frames at B=1 and B=8; in fp32
+    the serve cross-checks' B=1, the calibration and training
+    cross-checks' W frames and the folded cross-check's W frames.
+    ``images`` holds the one-camera passes, in images.  ``tome`` holds the batches the ToMe
     tower runs at: phase serve_tome's B=1 and B=8 and its fp32 cross-check,
     and the ToMe rollout's calibration and serving."""
     from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE
@@ -468,10 +482,16 @@ def vit_batches(cfg) -> dict:
     train = TRAIN_BATCH * cfg.window_size  # also a CALVIN calibration batch
     difws = TRAIN_BATCH * int(DIFWS_ARGV[DIFWS_ARGV.index("--window_size")
                                          + 1])
-    return {"bfloat16": sorted({1, 8, calib, train, difws,
-                                *rollout_streams()}),
-            "float32": sorted({1, CALIB_CROSS_WINDOW}), "calib": calib,
-            "train": train, "difws": difws,
+    # the window-folded variants' uncached steps: W frames a stream
+    folded = cfg.window_size
+    return {"bfloat16": sorted({1, 8, calib, train, difws, folded,
+                                8 * folded, *rollout_streams()}),
+            "float32": sorted({1, CALIB_CROSS_WINDOW, folded}),
+            "calib": calib, "train": train, "difws": difws,
+            "folded": folded,
+            # one-camera passes (two_way, sep_resampler, the static camera
+            # beside a native-size gripper) at B=1 and B=8, in images
+            "images": {"bfloat16": [1, 8], "float32": [1]},
             "tome": {"bfloat16": [1, 8, calib], "float32": [1]}}
 
 
@@ -527,12 +547,13 @@ def k2_calls(seen: set):
             setattr(mpt, name, fn)
 
 
-def vit_strided_qkv(torch, streams: int, dt):
+def vit_strided_qkv(torch, streams: int, dt, images: int = None):
     """q, k, v as the ViT hands them to K1: ``split_heads`` views of one
-    fused (2B, 257, 3 * 1024) qkv projection, no copy."""
+    fused (2B, 257, 3 * 1024) qkv projection, no copy; ``images`` instead
+    of 2B for a one-camera pass."""
     from deer_vla_tpu_torch.ops.attention import split_heads
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * streams)
-    qkv = torch.randn(2 * streams, 257, 3 * 1024, generator=gen,
+    qkv = torch.randn(images or 2 * streams, 257, 3 * 1024, generator=gen,
                       device="cuda").to(dt)
     q, k, v = (split_heads(t, 16) for t in qkv.chunk(3, dim=-1))
     check(not q.is_contiguous() and q.data_ptr() == qkv.data_ptr(),
@@ -597,11 +618,13 @@ DECODER_PRODUCTS = {
     "deer_9b": (("wqkv", 4096, 12288), ("out_proj", 4096, 4096),
                 ("mlp_up", 4096, 16384), ("mlp_down", 16384, 4096))}
 # (streams, x dtype) of the indexed-matmul cases, by model: M = 32 text rows
-# a stream.  deer_9b: the serve phase's B=1 and B=8, and B=1 in fp32 (the
+# a stream (a text row a frame under use_hist).  deer_9b: the serve phase's B=1 and B=8, and B=1 in fp32 (the
 # cross-checks' fp32 steps)
 INDEXED_CASES = {
     "deer_3b": ((1, "bfloat16"), (2, "bfloat16"), (4, "bfloat16"),
-                (8, "bfloat16"), (32, "bfloat16"), (1, "float32")),
+                (8, "bfloat16"), (32, "bfloat16"), (1, "float32"),
+                # use_hist's W=12 text rows a stream at B=1 and B=8
+                (12, "bfloat16"), (96, "bfloat16")),
     "deer_9b": ((1, "bfloat16"), (8, "bfloat16"), (1, "float32"))}
 
 # row counts at which each of K2's block configs is checked and timed: 1-4
@@ -698,6 +721,10 @@ def phase_kernels(torch, vit: dict) -> dict:
             q, k, v = vit_strided_qkv(torch, streams, getattr(torch, dts))
             cases.append((f"vit_strided_b{streams}_{dts}", q, k, v, None,
                           0.125))
+        for images in vit["images"][dts]:
+            q, k, v = vit_strided_qkv(torch, 0, getattr(torch, dts), images)
+            cases.append((f"vit_strided_i{images}_{dts}", q, k, v, None,
+                          0.125))
     for dts, batches in vit["tome"].items():
         for streams in batches:
             cases += tome_k1_cases(torch, streams, getattr(torch, dts))
@@ -738,6 +765,10 @@ def phase_kernels(torch, vit: dict) -> dict:
                 summary["flash_attention_train"] = row
             elif name == f"vit_strided_b{vit['difws']}_bfloat16":
                 summary["flash_attention_difws"] = row
+            elif name == f"vit_strided_b{vit['folded']}_bfloat16":
+                summary["flash_attention_folded"] = row
+            elif name == f"vit_strided_b{8 * vit['folded']}_bfloat16":
+                summary["flash_attention_folded_b8"] = row
         elif name.startswith("tome") and name.endswith("bfloat16"):
             b, h, sq, dd = q.shape
             streams = b // 2
@@ -764,6 +795,9 @@ def phase_kernels(torch, vit: dict) -> dict:
     k2_rows = k2_layer_cases(torch, idxs, "deer_3b", checked)
     summary["indexed_matmul"] = layer_summary(k2_rows)
     summary["indexed_matmul_b8"] = layer_summary(k2_rows, m=256)
+    # use_hist: a text row a frame, W x 32 rows a stream
+    summary["indexed_matmul_hist"] = layer_summary(k2_rows, m=384)
+    summary["indexed_matmul_hist_b8"] = layer_summary(k2_rows, m=3072)
     emit({"phase": "kernels", "cases": rows + k2_rows})
     summary.update(phase_kernels_quantized(torch, idxs, checked))
     for kernel in DECODER_KERNEL.values():
@@ -1063,13 +1097,21 @@ DECODER_KERNEL = {None: "indexed_matmul", "int8": "indexed_matmul_q8",
 
 def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
                 b8_steps=4, name=None, config="deer_3b",
-                sweep=SWEEP) -> dict:
+                sweep=SWEEP, inputs=None) -> dict:
     """Serve ``b1_steps`` single-stream steps, then ``b8_steps`` eight-stream
     steps, with every kernel's launch count set to 0 just before and read
     just after; the thresholds are ``sweep``'s, one a step (a stream at
-    B=8).  An MPT decoder must launch its mode's decoder kernel; a llama
-    decoder none of K2-K4, and K1 once a ViT layer a step."""
+    B=8).  ``inputs(b, seed)`` gives a step's (args, keyword args)
+    (``make_policy_inputs`` unless given).  The actions are (7,) or a
+    (k, 7) plan a stream.  An MPT decoder must launch its mode's decoder
+    kernel; a llama decoder none of K2-K4, and K1 once a ViT layer a
+    step."""
     from deer_vla_tpu_torch.ops.quant import tree_bytes
+    if inputs is None:
+        def inputs(b, seed):
+            return make_policy_inputs(np, cfg, b, seed), {}
+    k = cfg.head.multi_step_action
+    plan = (k, 7) if k > 1 else (7,)
     n_exits = len(pol.exits)
     counters = kernel_counters()
     for f in counters.values():
@@ -1078,22 +1120,22 @@ def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
     pol.reset()
     for s in range(b1_steps):
         pol.set_thresholds([sweep[s]] * n_exits)
-        inputs = make_policy_inputs(np, cfg, 1, seed=100 + s)
+        args, kw = inputs(1, 100 + s)
         t0 = time.perf_counter()
-        act = pol.step(*inputs)
+        act = pol.step(*args, **kw)
         b1_ms.append((time.perf_counter() - t0) * 1e3)
-        check(act.shape == (7,) and bool(np.isfinite(act).all()),
+        check(act.shape == plan and bool(np.isfinite(act).all()),
               f"{quantize} B=1 step {s}: action {act}")
         b1_exits.append(pol.last_exit_layer)
     b8_ms, b8_exits = [], []
     pol.set_thresholds_batch([[t] * n_exits for t in sweep])
     pol.reset()
     for s in range(b8_steps):
-        inputs = make_policy_inputs(np, cfg, 8, seed=200 + s)
+        args, kw = inputs(8, 200 + s)
         t0 = time.perf_counter()
-        acts, exits = pol.step_batch(*inputs)
+        acts, exits = pol.step_batch(*args, **kw)
         b8_ms.append((time.perf_counter() - t0) * 1e3)
-        check(acts.shape == (8, 7) and bool(np.isfinite(acts).all()),
+        check(acts.shape == (8,) + plan and bool(np.isfinite(acts).all()),
               f"{quantize} B=8 step {s}: non-finite actions")
         b8_exits.append(exits.tolist())
     launches = {name: f.launches for name, f in counters.items()}
@@ -1171,10 +1213,10 @@ def phase_serve_quantized(torch, np, cfg, params, bf16_bytes: int,
     return out
 
 
-def full_depth_step(np, pol, cfg, inputs):
+def full_depth_step(np, pol, cfg, inputs, kw=None):
     pol.set_thresholds([-1.0] * (len(pol.exits) - 1) + [1e8])
     pol.reset()
-    act = pol.step(*inputs)
+    act = pol.step(*inputs, **(kw or {}))
     check(pol.last_exit_layer == cfg.n_layers - 1,
           f"full-depth step exited at {pol.last_exit_layer}")
     return act[:6], pol.last_hidden.float().cpu()
@@ -1187,21 +1229,23 @@ def compare(np, torch, act, hid, act_ref, hid_ref) -> dict:
 
 
 def phase_cross_check(torch, np, cfg, params, cpu_params, pol,
-                      name="cross_check") -> dict:
+                      name="cross_check", inputs=None) -> dict:
     """One full-depth step of ``pol`` (bf16, the kernels) and of the same
     weights in fp32 on the card, each against fp32 on the CPU through the
-    plain versions (``CROSS_TOL_BF16`` / ``CROSS_TOL_FP32``)."""
+    plain versions (``CROSS_TOL_BF16`` / ``CROSS_TOL_FP32``); ``inputs``
+    (args, keyword args) of the step, ``make_policy_inputs``' unless
+    given."""
     from deer_vla_tpu_torch.core.config import FP32
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
-    inputs = make_policy_inputs(np, cfg, 1, seed=300)
-    act_bf16, hid_bf16 = full_depth_step(np, pol, cfg, inputs)
+    inputs, kw = inputs or (make_policy_inputs(np, cfg, 1, seed=300), {})
+    act_bf16, hid_bf16 = full_depth_step(np, pol, cfg, inputs, kw)
     cfg32 = dataclasses.replace(cfg, dtypes=FP32)
     card32 = ScanDeerPolicy(params, cfg32, indexed_mm=True)
-    act_f32, hid_f32 = full_depth_step(np, card32, cfg32, inputs)
+    act_f32, hid_f32 = full_depth_step(np, card32, cfg32, inputs, kw)
     del card32
     t0 = time.perf_counter()
     cpu = ScanDeerPolicy(cpu_params, cfg32, indexed_mm=True, device="cpu")
-    act_ref, hid_ref = full_depth_step(np, cpu, cfg32, inputs)
+    act_ref, hid_ref = full_depth_step(np, cpu, cfg32, inputs, kw)
     cpu_s = time.perf_counter() - t0
     bf16 = compare(np, torch, act_bf16, hid_bf16, act_ref, hid_ref)
     f32 = compare(np, torch, act_f32, hid_f32, act_ref, hid_ref)
@@ -1492,7 +1536,7 @@ def serve_launches(counters, before: dict) -> dict:
 
 def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve,
                          name="serve_bucketed", config="deer_3b",
-                         sweep=SWEEP) -> dict:
+                         sweep=SWEEP, inputs=None) -> dict:
     """The host-bucketed ``DeerPolicy`` (bf16, a controller with ``sweep``'s
     threshold a step): 8 single-stream steps with the kernel counts set to
     0 before and read after (K1 in the encode prefix; K2-K4 must not run:
@@ -1500,7 +1544,12 @@ def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve,
     held against ``scan_plain``, a ``ScanDeerPolicy`` with the same
     products (cuBLAS, indexed_mm off), on the same weights, inputs,
     thresholds and carry: the same exit (BUCKETED_TOL on the actions).
-    ``serve`` is phase serve's result, for its B=1 median (K2) beside."""
+    ``serve`` is phase serve's result, for its B=1 median (K2) beside;
+    ``inputs`` as in ``phase_serve``."""
+    if inputs is None:
+        def inputs(b, seed):
+            return make_policy_inputs(np, cfg, b, seed), {}
+    k = cfg.head.multi_step_action
     ctrl = deer.controller
     n = len(deer.bucket_exits)
     counters = kernel_counters()
@@ -1510,16 +1559,17 @@ def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve,
     deer.reset()
     for s in range(8):
         ctrl.set_threshold_values([sweep[s]] * n)
-        inputs = make_policy_inputs(np, cfg, 1, seed=100 + s)
+        step_in = inputs(1, 100 + s)
         carry_in = (None if deer.carry is None
                     else tuple(c.clone() for c in deer.carry))
         deer.set_timestep(s)
         t0 = time.perf_counter()
-        act = deer.step(*inputs)
+        act = deer.step(*step_in[0], **step_in[1])
         steps.append({"ms": (time.perf_counter() - t0) * 1e3,
                       "exit": deer.last_exit_layer, "act": act,
-                      "inputs": inputs, "carry_in": carry_in})
-        check(act.shape == (7,) and bool(np.isfinite(act).all()),
+                      "inputs": step_in, "carry_in": carry_in})
+        check(act.shape == ((k, 7) if k > 1 else (7,))
+              and bool(np.isfinite(act).all()),
               f"{name} step {s}: action {act}")
     launches = {n_: f.launches for n_, f in counters.items()}
     check(launches["flash_attention"] > 0
@@ -1534,7 +1584,7 @@ def phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve,
         if st["carry_in"] is not None:
             scan_plain.carry, scan_plain._carry_rows = st["carry_in"], 1
         t0 = time.perf_counter()
-        act = scan_plain.step(*st["inputs"])
+        act = scan_plain.step(*st["inputs"][0], **st["inputs"][1])
         scan_ms.append((time.perf_counter() - t0) * 1e3)
         scan_exits.append(scan_plain.last_exit_layer)
         err = max(err, float(np.abs(act - st["act"]).max()))
@@ -2677,6 +2727,22 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
                 summary["flash_attention_difws"]["max_abs_err"],
             "difws_shape": "q,k,v (288,16,257,64) bf16 strided views of a "
                            "fused qkv (ViT layer of a --dif_ws W=24 batch)",
+            "folded_ms": summary["flash_attention_folded"]["kernel_ms"],
+            "folded_plain_ms":
+                summary["flash_attention_folded"]["reference_ms"],
+            "folded_library_ms":
+                summary["flash_attention_folded"]["library_ms"],
+            "folded_bound_ms": summary["flash_attention_folded"]["bound_ms"],
+            "folded_b8_ms": summary["flash_attention_folded_b8"]["kernel_ms"],
+            "folded_b8_plain_ms":
+                summary["flash_attention_folded_b8"]["reference_ms"],
+            "folded_b8_library_ms":
+                summary["flash_attention_folded_b8"]["library_ms"],
+            "folded_b8_bound_ms":
+                summary["flash_attention_folded_b8"]["bound_ms"],
+            "folded_shape": "q,k,v (24 | 192,16,257,64) bf16 strided views "
+                            "(ViT layer of a W=12 window-folded step, B=1 "
+                            "| B=8, uncached)",
             "tensor_core_sass": tc["flash_attention"]["hmma_hgmma"],
             "shape": "q,k,v (2,16,257,64) bf16, no bias (ViT layer, B=1)",
             "tome_shape": f"ToMe r={TOME_R}: q,k,v (2B,16,Sq,64) bf16 "
@@ -2706,6 +2772,14 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
             "bytes": k["bytes"], "flops": k["flops"],
             "shape": f"one decoder layer's four products, x (32, K) bf16, "
                      f"{weights}, B=1"})
+    for tag in ("hist", "hist_b8"):
+        k = summary["indexed_matmul_" + tag]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err"):
+            out[1][f"{key}_{tag}"] = k[key]
+    out[1]["shape_hist"] = ("one decoder layer's four products, x (384 | "
+                            "3072, K) bf16: use_hist's W=12 text rows a "
+                            "stream, B=1 | B=8")
     for row in out[1:]:
         b8 = summary[row["name"] + "_b8"]
         row["b8_ms"] = b8["ms"]
@@ -2729,12 +2803,355 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
     return {"kernels": out}
 
 
+# ---------------------------------------------------------------------------
+# the vision, state and window variants (deer_3b at full width)
+# ---------------------------------------------------------------------------
+
+# name -> DeerConfig changes ("k": head.multi_step_action; use_state sets
+# the head's too, as cli/train's one flag does)
+SERVE_VARIANTS = (("use_state", {"use_state": True}),
+                  ("pre", {"fusion_mode": "pre"}),
+                  ("two_way", {"fusion_mode": "two_way"}),
+                  ("sep_resampler", {"sep_resampler": True}),
+                  ("gripper_res84", {"gripper_res": 84}),
+                  ("multi_step3", {"k": 3}))
+FOLDED_VARIANTS = (("vit_concat", {"fusion_mode": "vit_concat"}),
+                   ("use_hist", {"use_hist": True}))
+CROSS_VARIANTS = (("vit_concat_use_state", {"fusion_mode": "vit_concat",
+                                            "use_state": True}),
+                  ("gripper_res84", {"gripper_res": 84}))
+# the frame cache against the uncached step: the same per-frame tokens go
+# into the same fuse and decode, so the exits must be equal and the arm
+# actions within 2e-4 relative L2 (both in bf16 on the card)
+FOLDED_STEPS = 15
+FOLDED_REL_L2 = 2e-4
+VARIANT_TRAIN_DIR = REPO / "build" / "chip_smoke_variants"
+VARIANT_TRAIN_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--use_state",
+                      "--fusion_mode", "vit_concat", "--batch_size_calvin",
+                      str(TRAIN_BATCH), "--num_joint_epochs", "1",
+                      "--num_exit_epochs", "0", "--joint_warmup_steps", "1",
+                      "--logging_steps", "1", "--from_scratch",
+                      "--run_name", str(VARIANT_TRAIN_DIR)]
+
+
+def variant_config(cfg, changes: dict):
+    """``cfg`` with a variant's changes."""
+    changes = dict(changes)
+    head = {}
+    if changes.get("use_state"):
+        head["use_state"] = True
+    if "k" in changes:
+        head["multi_step_action"] = changes.pop("k")
+    return dataclasses.replace(
+        cfg, head=dataclasses.replace(cfg.head, **head), **changes)
+
+
+def variant_weights(torch, base: dict, cfg) -> dict:
+    """The variant's tree on the base draw: its second resampler, state
+    projection or frame embeddings (``init_variant_leaves``), and heads of
+    its own when their widths or state embedding differ, drawn on the card
+    from SEED + 2; every other leaf is the base's."""
+    from deer_vla_tpu_torch.models.action_head import init_head
+    from deer_vla_tpu_torch.models.flamingo import init_variant_leaves
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    pdt = cfg.dtypes.pdt
+    p = dict(base)
+    if cfg.head.use_state or cfg.head.multi_step_action != 1:
+        for key in ("lm_head", "extra_exit"):
+            p[key] = init_head(gen, cfg.head, "cuda", pdt)
+        p["lm_exits"] = {k: init_head(gen, cfg.head, "cuda", pdt)
+                         for k in base["lm_exits"]}
+    p.update(init_variant_leaves(gen, cfg, "cuda", pdt))
+    return p
+
+
+def variant_inputs(np, cfg):
+    """``inputs(b, seed)`` for ``phase_serve``: b streams' frames (W a
+    stream, stream-major, for the window-folded variants; the gripper at
+    ``gripper_res``), text (a row a frame under use_hist) and, for a state
+    model, proprio rows a frame (the gripper entry at +-1)."""
+    from deer_vla_tpu_torch.eval.scan_policy import folded_window
+    w = folded_window(cfg)
+
+    def inputs(b, seed):
+        r = np.random.RandomState(seed)
+        hw = cfg.vit.image_size
+        ghw = cfg.gripper_res or hw
+        img = r.randn(b * w, 1, 1, 3, hw, hw).astype(np.float32)
+        grip = r.randn(b * w, 1, 1, 3, ghw, ghw).astype(np.float32)
+        _, _, ids, mask = make_policy_inputs(np, cfg, b, seed)
+        if cfg.use_hist:
+            ids, mask = (np.repeat(a, w, axis=0) for a in (ids, mask))
+        kw = {}
+        if cfg.use_state:
+            st = r.randn(b * w, 1, 1, cfg.state_dim).astype(np.float32)
+            st[..., -1] = np.where(st[..., -1] > 0, 1.0, -1.0)
+            kw["state"] = st
+        return (img, grip, ids, mask), kw
+
+    return inputs
+
+
+def phase_serve_variants(torch, np, cfg, base: dict, serve: dict) -> list:
+    """Each of SERVE_VARIANTS through ``ScanDeerPolicy`` with K1 and K2: 8
+    B=1 and 4 B=8 steps (``phase_serve``: exits among the exit set, finite
+    actions, (B, 3, 7) plans for multi_step3), medians beside the post
+    model's from phase serve; use_state also in int8 (K3 must replace K2)
+    and through ``DeerPolicy``, held against the scan engine with the same
+    products (``phase_serve_bucketed``: equal exits)."""
+    from deer_vla_tpu_torch.eval.policy import DeerPolicy
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.models.value_net import ExitController
+    results, summary = [], {}
+    for name, changes in SERVE_VARIANTS:
+        vcfg = variant_config(cfg, changes)
+        p = variant_weights(torch, base, vcfg)
+        inputs = variant_inputs(np, vcfg)
+        modes = [None] + (["int8"] if name == "use_state" else [])
+        for mode in modes:
+            pol = ScanDeerPolicy(p, vcfg, indexed_mm=True, quantize=mode)
+            res = phase_serve(torch, np, vcfg, pol, mode,
+                              name=f"serve_{name}" + (f"_{mode}" if mode
+                                                      else ""),
+                              inputs=inputs)
+            results.append(res)
+            summary[res["phase"]] = {k: res[k] for k in (
+                "b1_median_ms", "b8_median_ms", "b1_exit_layers",
+                "launches_per_step")}
+            del pol
+        if name == "use_state":
+            deer = DeerPolicy(p, vcfg, controller=ExitController(
+                exit_id_list=list(vcfg.all_exit_ids()),
+                max_layer=vcfg.n_layers))
+            scan_plain = ScanDeerPolicy(p, vcfg)
+            results.append(phase_serve_bucketed(
+                torch, np, vcfg, deer, scan_plain, serve,
+                name="serve_use_state_bucketed", inputs=inputs))
+            del deer, scan_plain
+        del p
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_variants",
+          "post": {"b1_median_ms": serve["b1_median_ms"],
+                   "b8_median_ms": serve["b8_median_ms"]},
+          "variants": summary})
+    return results
+
+
+def phase_cross_check_variants(torch, np, cfg, base: dict,
+                               cpu_base: dict) -> None:
+    """A full-depth bf16 step of each CROSS_VARIANTS model (and the same
+    weights in fp32 on the card) against fp32 on the CPU
+    (``phase_cross_check``'s tolerances): vit_concat with state on a
+    W-frame window, and the native-size gripper."""
+    from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    for name, changes in CROSS_VARIANTS:
+        vcfg = variant_config(cfg, changes)
+        p = variant_weights(torch, base, vcfg)
+        cpu_p = dict(cpu_base, **{k: to_torch(v, "cpu") for k, v in p.items()
+                                  if v is not base.get(k)})
+        pol = ScanDeerPolicy(p, vcfg, indexed_mm=True)
+        phase_cross_check(torch, np, vcfg, p, cpu_p, pol,
+                          name=f"cross_check_{name}",
+                          inputs=variant_inputs(np, vcfg)(1, 300))
+        del pol, p, cpu_p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def rel_l2(np, a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def phase_serve_folded(torch, np, cfg, base: dict) -> list:
+    """vit_concat and use_hist at W=12: B=1 steps over FOLDED_STEPS new
+    frames, uncached (the engine re-encodes the rolling window, left padded
+    with the first frame) and through ``FrameCachePolicy`` (the newest
+    frame only), with equal exits and arm actions within FOLDED_REL_L2 at
+    every step; K1 launches and step times of both; then 4 uncached B=8
+    steps (``phase_serve``)."""
+    import copy
+    from deer_vla_tpu_torch.eval.caching import FrameCachePolicy
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    counters = kernel_counters()
+    results = []
+    for name, changes in FOLDED_VARIANTS:
+        vcfg = variant_config(cfg, changes)
+        w = vcfg.window_size
+        p = variant_weights(torch, base, vcfg)
+        pol = ScanDeerPolicy(p, vcfg, indexed_mm=True)
+        cached = FrameCachePolicy(copy.copy(pol))
+        (img, grip, ids, mask), _ = variant_inputs(np, vcfg)(1, 400)
+        r = np.random.RandomState(401)
+        hw = vcfg.vit.image_size
+        frames_i = r.randn(FOLDED_STEPS, 1, 1, 3, hw, hw).astype(np.float32)
+        frames_g = r.randn(FOLDED_STEPS, 1, 1, 3, hw, hw).astype(np.float32)
+        runs = {}
+        for kind, policy in (("uncached", pol), ("cached", cached)):
+            policy.reset()
+            for f in counters.values():
+                f.launches = 0
+            ms, exits, arms = [], [], []
+            for t in range(FOLDED_STEPS):
+                policy.set_thresholds([SWEEP[t % len(SWEEP)]]
+                                      * len(pol.exits))
+                rows = [max(0, i) for i in range(t - w + 1, t + 1)]
+                fi, fg = ((frames_i[rows], frames_g[rows])
+                          if kind == "uncached"
+                          else (frames_i[t:t + 1], frames_g[t:t + 1]))
+                t0 = time.perf_counter()
+                act = policy.step(fi, fg, ids, mask)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(act.shape == (7,) and bool(np.isfinite(act).all()),
+                      f"serve_folded {name} {kind} step {t}: {act}")
+                exits.append(policy.last_exit_layer)
+                arms.append(act[:6])
+            runs[kind] = {
+                "step_ms": ms, "median_ms": statistics.median(ms[w:]),
+                "exit_layers": exits, "arms": arms,
+                "launches": {n: f.launches for n, f in counters.items()},
+                "k1_per_step": counters["flash_attention"].launches
+                / FOLDED_STEPS}
+        u, c = runs["uncached"], runs["cached"]
+        errs = [rel_l2(np, a, b) for a, b in zip(c.pop("arms"),
+                                                 u.pop("arms"))]
+        check(c["exit_layers"] == u["exit_layers"],
+              f"serve_folded {name}: exits {c['exit_layers']} cached, "
+              f"{u['exit_layers']} uncached")
+        check(max(errs) <= FOLDED_REL_L2,
+              f"serve_folded {name}: arm rel L2 {max(errs)}")
+        check(u["launches"]["indexed_matmul"] > 0
+              and c["launches"]["indexed_matmul"] > 0
+              and c["k1_per_step"] > 0,
+              f"serve_folded {name}: kernels not launched: {runs}")
+        out = {"phase": f"serve_folded_{name}", "window": w,
+               "steps": FOLDED_STEPS, "k1_images_per_step":
+                   {"uncached": 2 * w, "cached": 2},
+               "cached_vs_uncached_arm_rel_l2": errs,
+               "tolerance": FOLDED_REL_L2, "runs": runs,
+               "launches": u["launches"]}
+        emit(out)
+        results.append(out)
+        results.append(phase_serve(
+            torch, np, vcfg, pol, b1_steps=0, name=f"serve_folded_{name}_b8",
+            inputs=variant_inputs(np, vcfg)))
+        del pol, cached, p
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_calibrate_variants(torch, np, cfg, base: dict) -> dict:
+    """Calibration (B=2, W=12, 2 debug batches with robot_obs) of the
+    use_state model in both regimes, and of vit_concat with the warm
+    prefix of ``--calib_warm 2``: values finite, of the regime's shape,
+    K1 launched a batch."""
+    from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE as bs
+    from deer_vla_tpu_torch.eval.calibrate import (
+        generate_calibration_values, streamed_sample_probs)
+    counters = kernel_counters()
+    out = {"phase": "calibrate_variants", "batch_size": bs, "runs": {}}
+    for name, changes, regime, warm in (
+            ("use_state", {"use_state": True}, "folded", 0),
+            ("use_state", {"use_state": True}, "streamed", 0),
+            ("vit_concat", {"fusion_mode": "vit_concat"}, "folded", 2)):
+        vcfg, batches = calib_debug_batches(variant_config(cfg, changes),
+                                            bs, 2)
+        p = variant_weights(torch, base, vcfg)
+        streamed = regime == "streamed"
+        esp = (streamed_sample_probs(vcfg, 1.0, None, "exp", "deer_3b")
+               if streamed else None)
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = generate_calibration_values(
+            p, vcfg, batches, gen=torch.Generator(device="cuda").manual_seed(
+                SEED), warm_prefix=warm, streamed=streamed,
+            exit_sample_probs=esp)
+        secs = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in counters.items()}
+        folded = vcfg.fusion_mode == "vit_concat"
+        per_traj = (1 if folded else vcfg.window_size // 2
+                    + (1 if streamed else 0))
+        check(v.shape == (vcfg.num_exits, bs * len(batches) * per_traj)
+              and bool(np.isfinite(v).all()),
+              f"calibrate_variants {name} {regime}: values {v.shape}")
+        check(launches["flash_attention"] > 0,
+              f"calibrate_variants {name}: K1 not launched: {launches}")
+        out["runs"][f"{name}_{regime}"] = {
+            "warm_prefix": warm, "values_shape": list(v.shape),
+            "min": float(v.min()), "median": float(np.median(v)),
+            "max": float(v.max()), "seconds_per_batch": secs / len(batches),
+            "launches": launches}
+        del p
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_train_variants(torch, np) -> list:
+    """``cli/train --debug --use_state --fusion_mode vit_concat`` in-process
+    at JAX's defaults (B=6, W=12), one joint epoch of 4 batches: finite
+    losses, K1 24 times a step, K2-K4 never; step seconds and peak memory.
+    Then ``cli/eval --evaluate_from_checkpoint --frame_cache`` on its
+    checkpoint (``phase_rollout``'s checks): the sidecar config carries the
+    variant into calibration and the cached scan engine."""
+    import io
+    from deer_vla_tpu_torch.cli import train as cli
+    shutil.rmtree(VARIANT_TRAIN_DIR, ignore_errors=True)
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    held_gb = released_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    steps, buf = [], io.StringIO()
+    t0 = time.perf_counter()
+    with train_updates(steps), contextlib.redirect_stdout(buf):
+        trainer = cli.main(VARIANT_TRAIN_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "cli_train_variants.log").write_text(buf.getvalue())
+    cfg = trainer.cfg
+    check(cfg.fusion_mode == "vit_concat" and cfg.use_state
+          and cfg.head.use_state, f"train_variants: config {cfg}")
+    check(len(steps) == TRAIN_STEPS // 2 and all(
+        np.isfinite(s["loss"]) for s in steps),
+        f"train_variants: losses {[s['loss'] for s in steps]}")
+    check(launches["flash_attention"] == VIT_LAYERS * len(steps)
+          and all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+          f"train_variants: launches {launches}")
+    secs = step_intervals(steps)
+    out = {"phase": "train_variants", "argv": VARIANT_TRAIN_ARGV,
+           "seconds": seconds, "losses": [s["loss"] for s in steps],
+           "step_s": secs, "step_s_median": statistics.median(secs),
+           "peak_memory_gb": peak_gb, "allocated_before_gb": held_gb,
+           "trainable": len(steps[0]["keys"]), "launches": launches}
+    emit(out)
+    del trainer
+    released_gb(torch)
+    argv = ["--debug", "--model", "deer_3b", "--evaluate_from_checkpoint",
+            str(VARIANT_TRAIN_DIR / "deer_0.ckpt"), "--calib_batches", "2",
+            "--num_sequences_override", "2", "--ep_len", "40",
+            "--exit_ratio", "0.5", "--frame_cache", "--calib_warm", "2"]
+    out["runs"] = {"eval_frame_cache": phase_rollout(
+        torch, np, "train_variants_eval", argv)}
+    shutil.rmtree(VARIANT_TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return [out]
+
+
 def drive_paths(torch, np, cfg) -> tuple:
     """The main paths on seeded deer_3b weights: serving in every mode with
     its cross-checks, the serving variants (DeerPolicy, the caches,
-    BatchedDeerPolicy, ToMe), calibration with its cross-check, the train
+    BatchedDeerPolicy, ToMe), the vision, state and window variants on the
+    same draw (serve_variants, cross_check_variants, serve_folded,
+    calibrate_variants), calibration with its cross-check, the train
     step's cross-check and guard, the cli/eval rollouts, then cli/train and
-    cli/eval on its checkpoint."""
+    cli/eval on its checkpoint, and the same for a vit_concat state model
+    (train_variants)."""
     from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.eval.policy import DeerPolicy
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
@@ -2760,6 +3177,10 @@ def drive_paths(torch, np, cfg) -> tuple:
     variants.append(phase_serve_tome(torch, np, cfg, params, cpu_params))
     torch.cuda.empty_cache()
     phase_cross_check_quantized(torch, np, cfg, params, cpu_params)
+    variants += phase_serve_variants(torch, np, cfg, params, serve)
+    phase_cross_check_variants(torch, np, cfg, params, cpu_params)
+    variants += phase_serve_folded(torch, np, cfg, params)
+    variants.append(phase_calibrate_variants(torch, np, cfg, params))
     calib = phase_calibrate(torch, np, cfg, params)
     phase_calibrate_cross_check(torch, np, cfg, params, cpu_params)
     phase_train_cross_check(torch, np, params, cpu_params)
@@ -2775,6 +3196,7 @@ def drive_paths(torch, np, cfg) -> tuple:
                           f"report: {piped} against {plain}")
     paths = variants + list(rollouts.values()) + [
         phase_train(torch, np), phase_train_eval(torch, np)]
+    paths += phase_train_variants(torch, np)
     phase_calvin_data(np)
     paths += [phase_train_calvin(torch, np),
               phase_train_calvin_difws(torch, np),

@@ -14,7 +14,13 @@ host-bucketed ``DeerPolicy`` (``--engine``, ``--exit_id``,
 ``--layerwise_exit_eval``), optionally behind the vision and action caches;
 ``--lanes`` through ``ScanDeerPolicy.step_batch`` (``--pipeline``,
 ``--env_workers``); ``--vit_tome_r`` merges ViT tokens in calibration and
-serving (``build_policy``).
+serving (``build_policy``).  The model variant comes from the checkpoint's
+sidecar config ('pre' / 'two_way' / 'vit_concat' fusion, a second
+resampler, proprio state, ``use_hist``, a native-size gripper,
+``multi_step_action``); ``--gripper_res`` sets the gripper's size,
+``--frame_cache`` caches a window-folded model's per-frame ViT tokens, and
+``--calib_warm`` warms its calibration head with other trajectories'
+frames.
 
     python -m deer_vla_tpu_torch.cli.eval --debug --model deer_3b \
         --calib_batches 2 --num_sequences_override 2 --exit_ratio 0.5
@@ -75,14 +81,10 @@ UNSERVED = (
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
     ("--tcp_rel", False, _FLAG, "M9 (tcp-frame actions)"),
     ("--visualize", "", {}, "M9 (rollout GIFs)"),
-    ("--head_type", "deterministic", {}, "M10 (other head families)"),
-    ("--diff_steps", 0, {"type": int}, "M10 (the diffusion head)"),
-    ("--ddim_eta", 0.0, {"type": float}, "M10 (the diffusion head)"),
-    ("--future_act_len", -1, {"type": int}, "M10 (the diffusion head)"),
-    ("--gripper_res", -1, {"type": int}, "M10 (gripper_res)"),
-    ("--calib_warm", 0, {"type": int}, "M10 (window-folded models)"),
-    ("--frame_cache", False, _FLAG,
-     "M10 (window-folded models: the rolling frame cache)"),
+    ("--head_type", "deterministic", {}, "M10b (other head families)"),
+    ("--diff_steps", 0, {"type": int}, "M10b (the diffusion head)"),
+    ("--ddim_eta", 0.0, {"type": float}, "M10b (the diffusion head)"),
+    ("--future_act_len", -1, {"type": int}, "M10b (the diffusion head)"),
 )
 
 
@@ -160,6 +162,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="calibrate with one LSTM carry threaded across each "
                         "window and exits committed from the target "
                         "distribution (the serving carry regime)")
+    p.add_argument("--calib_warm", type=int, default=0,
+                   help="window-folded (w=1) models: warm the calibration "
+                        "head carry with N frames of other trajectories "
+                        "(models/value_net.py warm_prefix)")
+    p.add_argument("--gripper_res", type=int, default=-1,
+                   help="the gripper camera's input size for the shared ViT "
+                        "(84 = CALVIN's native); -1 = the checkpoint "
+                        "config's, 0 = the tower's")
+    p.add_argument("--frame_cache", action="store_true",
+                   help="window-folded models (vit_concat / use_hist): "
+                        "cache per-frame ViT tokens in a rolling window and "
+                        "encode only the newest frame a step (exact)")
     p.add_argument("--validation_set", action="store_true", default=True)
     p.add_argument("--amp", type=int, default=0)  # accepted, no effect
     p.add_argument("--report_json", default="",
@@ -194,6 +208,10 @@ def check_served(args) -> None:
         for bad, why in (
                 (args.exit_id is not None, "--exit_id (it needs dynamic "
                                            "exit)"),
+                (args.frame_cache, "--frame_cache (per-lane device token "
+                                   "queues are not implemented); "
+                                   "window-folded models run --lanes with "
+                                   "the uncached window re-encode"),
                 (args.vision_cache_tau > 0, "--vision_cache_tau (per-lane "
                                             "frame caching is not "
                                             "implemented)"),
@@ -225,9 +243,9 @@ def check_layerwise(args, cfg):
         raise SystemExit("--layerwise_exit_eval serves through the "
                          "host-bucketed engine (per-exit-head carries); drop "
                          "--engine fused")
-    if args.lanes > 1:
+    if args.lanes > 1 or args.frame_cache:
         raise SystemExit("--layerwise_exit_eval does not compose with "
-                         "--lanes")
+                         "--lanes / --frame_cache")
     if args.use_action_ensemble:
         raise SystemExit("--layerwise_exit_eval does not compose with "
                          "--use_action_ensemble: the ensemble averages the "
@@ -363,14 +381,33 @@ def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
         controller.set_threshold_values(args.thresholds[:n])
         return
     cache = args.value_cache
+    folded = cfg.fusion_mode == "vit_concat" or cfg.window_size == 1
+    if args.calib_warm > 0 and not folded:
+        print(f"WARNING: --calib_warm={args.calib_warm} only applies to "
+              "window-folded (w=1) calibration; this model calibrates with "
+              "full training windows and the flag is a no-op "
+              "(models/value_net.py warm_prefix)")
+    if args.calib_streamed and folded:
+        raise SystemExit("--calib_streamed needs a real time window; this "
+                         "model is window-folded: use --calib_warm instead")
+    if not args.calib_streamed and not folded and not cfg.use_hist:
+        # streaming serving with a real time window: --calib_streamed;
+        # window-folded: --calib_warm; use_hist: the default folded regime
+        print("RECOMMENDED: this model serves streaming (one LSTM carry "
+              "threaded across the episode) but calibrates in the folded "
+              "random-prefix regime; pass --calib_streamed for carry-matched "
+              "calibration")
+    warm = args.calib_warm if folded else 0
     values = None
     if cache and not args.recompute_values:
         values = load_calibration_values(cache)
-        cached = bool(load_calibration_info(cache).get("calib_streamed",
-                                                       False))
-        if values is not None and cached != args.calib_streamed:
-            print(f"values sidecar was calibrated with streamed={cached}; "
-                  f"recomputing with streamed={args.calib_streamed}")
+        info = load_calibration_info(cache)
+        cached = (int(info.get("calib_warm", 0)),
+                  bool(info.get("calib_streamed", False)))
+        if values is not None and cached != (warm, args.calib_streamed):
+            print(f"values sidecar was calibrated with calib_warm="
+                  f"{cached[0]} streamed={cached[1]}; recomputing with "
+                  f"calib_warm={warm} streamed={args.calib_streamed}")
             values = None
         elif values is not None:
             print(f"reusing calibration values from {cache}")
@@ -382,14 +419,15 @@ def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
         params, cfg, batches or [], args.exit_ratio, max_layer=max_layer,
         exit_dist=args.exit_dist, model_name=args.model,
         threshold_type=args.threshold_type, values=values,
-        max_batches=args.calib_batches, streamed=args.calib_streamed,
+        max_batches=args.calib_batches, warm_prefix=args.calib_warm,
+        streamed=args.calib_streamed,
         gen=torch.Generator(device=dev).manual_seed(args.seed))
     if batches is not None:
         print(f"calibrated {values.shape[1]} samples in "
               f"{time.perf_counter() - t0:.3f} s")
     if cache:
         save_calibration_values(
-            cache, values, {"exit_ratio": args.exit_ratio, "calib_warm": 0,
+            cache, values, {"exit_ratio": args.exit_ratio, "calib_warm": warm,
                             "calib_streamed": args.calib_streamed})
     controller.set_thresholds(thresholds)
 
@@ -402,6 +440,7 @@ def build_policy(args, cfg, params, controller, max_layer, dev):
     cache with --vision_cache_tau, then in the action cache with
     --action_cache_tau."""
     from deer_vla_tpu_torch.eval.caching import (ActionCachePolicy,
+                                                 FrameCachePolicy,
                                                  VisionCacheDeerPolicy,
                                                  VisionCacheScanPolicy)
     from deer_vla_tpu_torch.eval.policy import DeerPolicy
@@ -418,9 +457,28 @@ def build_policy(args, cfg, params, controller, max_layer, dev):
             max_layer=max_layer, steps_per_stage=args.steps_per_stage,
             indexed_mm=cfg.mpt.arch == "mpt", quantize=quantize, device=dev)
         policy.set_thresholds(controller.thresholds)
+        if args.frame_cache:
+            if not (cfg.fusion_mode == "vit_concat" or cfg.use_hist):
+                raise SystemExit("--frame_cache only applies to "
+                                 "window-folded models (vit_concat / "
+                                 "use_hist); other modes encode one frame "
+                                 "a step already")
+            if args.vision_cache_tau > 0:
+                raise SystemExit("--frame_cache and --vision_cache_tau are "
+                                 "mutually exclusive caching modes")
+            policy = FrameCachePolicy(policy)
         if args.vision_cache_tau > 0:
+            if cfg.use_state or cfg.head.use_state:
+                raise SystemExit(
+                    "--vision_cache_tau cannot serve state models: the "
+                    "proprio token is part of the cached media latents and "
+                    "changes every step")
             policy = VisionCacheScanPolicy(policy, tau=args.vision_cache_tau)
     else:
+        if args.frame_cache:
+            raise SystemExit("--frame_cache needs the scan engine (no "
+                             "--multi_execution, no fixed --exit_id, "
+                             "thresholds set)")
         policy = DeerPolicy(params, cfg, controller=controller,
                             exit_id=args.exit_id,
                             threshold_type=args.threshold_type,
@@ -463,6 +521,11 @@ def main(argv=None, device: Optional[str] = None) -> dict:
         # match the deltas served
         cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
             cfg.vit, tome_r=args.vit_tome_r))
+    if args.gripper_res >= 0:  # -1 keeps the (sidecar) config's
+        if args.gripper_res % cfg.vit.patch_size:
+            raise SystemExit(f"--gripper_res must be a multiple of the "
+                             f"ViT patch size {cfg.vit.patch_size}")
+        cfg = dataclasses.replace(cfg, gripper_res=args.gripper_res)
     if args.layerwise_exit_eval:
         cfg = check_layerwise(args, cfg)
     max_layer = args.max_layer if args.max_layer > 0 else cfg.n_layers

@@ -12,8 +12,12 @@ reference's train_calvin_post_strategy.py), on a CALVIN-format directory
 plain versions on the CPU.  The weights are ``init_deer`` draws from
 ``--seed``; checkpoints go to ``--run_name`` as ``deer_{epoch}.ckpt`` with
 their ``.json`` sidecars, and ``cli/eval --evaluate_from_checkpoint``
-serves them.  The flags keep the JAX names; a JAX flag this CLI does not
-serve raises SystemExit naming the ROADMAP.md item that will serve it.
+serves them.  The vision, state and window variants are flags
+(``--fusion_mode``, ``--sep_resampler``, ``--use_state`` [``--clip_state``],
+``--use_hist``, ``--gripper_res``, ``--multi_step_action``) and ride the
+sidecar config into evaluation.  The flags keep the JAX names; a JAX flag
+this CLI does not serve raises SystemExit naming the ROADMAP.md item that
+will serve it.
 """
 
 from __future__ import annotations
@@ -32,20 +36,13 @@ MODELS = MODEL_REGISTRY
 # JAX flags not served yet: (flag, JAX default, argparse keywords, the
 # ROADMAP.md item that serves it).  A value other than the default raises.
 _FLAG = {"action": "store_true"}
-_VARIANTS = "M10 (model variants)"
+_HEADS = "M10b (the fc, gpt and diffusion heads)"
 UNSERVED = (
-    ("--multi_step_action", 1, {"type": int}, _VARIANTS),
-    ("--use_state", False, _FLAG, _VARIANTS),
-    ("--clip_state", False, _FLAG, _VARIANTS),
-    ("--sep_resampler", False, _FLAG, _VARIANTS),
-    ("--fusion_mode", "post", {}, _VARIANTS),
-    ("--use_hist", False, _FLAG, _VARIANTS),
-    ("--head_type", "deterministic", {}, _VARIANTS),
-    ("--hidden_size", None, {"type": int}, _VARIANTS),
-    ("--n_timesteps", 150, {"type": int}, _VARIANTS),
-    ("--n_obs_steps", 6, {"type": int}, _VARIANTS),
-    ("--diff_horizon", 32, {"type": int}, _VARIANTS),
-    ("--gripper_res", 0, {"type": int}, _VARIANTS),
+    ("--head_type", "deterministic", {}, _HEADS),
+    ("--hidden_size", None, {"type": int}, _HEADS),
+    ("--n_timesteps", 150, {"type": int}, _HEADS),
+    ("--n_obs_steps", 6, {"type": int}, _HEADS),
+    ("--diff_horizon", 32, {"type": int}, _HEADS),
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
     ("--tcp_rel", False, _FLAG, "M9b (tcp-frame actions)"),
     ("--cotrain", False, _FLAG, "M16 (vision-language co-training)"),
@@ -81,7 +78,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "--max_window_size)")
     p.add_argument("--min_window_size", type=int, default=12)
     p.add_argument("--max_window_size", type=int, default=24)
+    p.add_argument("--multi_step_action", type=int, default=1)
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--use_state", action="store_true")
+    p.add_argument("--clip_state", action="store_true",
+                   help="keep only arm pose + gripper of the proprio state "
+                        "(train_utils.py:253-255)")
+    p.add_argument("--sep_resampler", action="store_true")
     p.add_argument("--share_exit", action="store_true")
     p.add_argument("--freeze_embed", action="store_true",
                    help="keep token embeddings frozen in the joint phase")
@@ -93,6 +96,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train_params", type=int, default=-1,
                    help=">=0: train only the last round(n/140) gated "
                         "x-attn layers (factory.py:214-222)")
+    p.add_argument("--fusion_mode", default="post",
+                   choices=["post", "pre", "two_way", "vit_concat"],
+                   help="camera fusion (flamingo_mpt.py:585-777); "
+                        "vit_concat folds the window into the media tokens "
+                        "(per-window text, last-step action labels)")
+    p.add_argument("--use_hist", action="store_true",
+                   help="history variant: learned frame embeddings on ViT "
+                        "tokens, last-step-only loss (flamingo_mpt.py:700)")
+    p.add_argument("--gripper_res", type=int, default=0,
+                   help="run the gripper camera through the shared ViT at "
+                        "this input size (84 = CALVIN's native; position "
+                        "embeddings interpolated); saved in the checkpoint "
+                        "config, so evaluation inherits it; 0 = off")
     p.add_argument("--exit_dropout", type=float, default=None)
     p.add_argument("--lstm_dropout", type=float, default=None)
     p.add_argument("--dropout_mode", default=None,
@@ -186,7 +202,10 @@ def make_model_config(args):
         cfg = MODELS[args.model](max_layer=args.max_layer,
                                  exit_interval=args.exit_interval,
                                  window_size=args.window_size, dtypes=dtypes)
-    updates = {"share_exit": args.share_exit,
+    updates = {"use_state": args.use_state,
+               "sep_resampler": args.sep_resampler,
+               "fusion_mode": args.fusion_mode, "use_hist": args.use_hist,
+               "share_exit": args.share_exit,
                "freeze_embed": args.freeze_embed,
                "freeze_sampler": args.freeze_sampler,
                "unfreeze_vit": args.unfreeze_vit,
@@ -210,12 +229,27 @@ def make_model_config(args):
         head_updates["mlp_layernorm"] = True
     if args.lstm_layernorm:
         head_updates["lstm_layernorm"] = True
+    if args.multi_step_action != 1:
+        head_updates["multi_step_action"] = args.multi_step_action
+    if args.use_state:
+        # one flag for both state paths, as in the reference: the vision
+        # token (DeerConfig.use_state) and the head's embedding
+        # (HeadConfig.use_state)
+        head_updates["use_state"] = True
+        if args.clip_state:
+            updates["clip_state"] = True
+            updates["state_dim"] = 7
     if head_updates:
         updates["head"] = dataclasses.replace(cfg.head, **head_updates)
     if args.vit_tome_r > 0:
         # the merged tower in training too; weight-free, so a checkpoint
         # serves with any tome_r
         updates["vit"] = dataclasses.replace(cfg.vit, tome_r=args.vit_tome_r)
+    if args.gripper_res > 0:
+        if args.gripper_res % cfg.vit.patch_size:
+            raise SystemExit(f"--gripper_res must be a multiple of the "
+                             f"ViT patch size {cfg.vit.patch_size}")
+        updates["gripper_res"] = args.gripper_res
     return dataclasses.replace(cfg, **updates)
 
 

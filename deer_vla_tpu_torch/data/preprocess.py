@@ -120,3 +120,17 @@ def preprocess_train_frames(gen: Optional[torch.Generator],
     stat = shift(stat, rgb_pad)
     grip = shift(grip, gripper_pad)
     return stat[:, None, None], grip[:, None, None]
+
+
+def state_rows(batch: dict, cfg, device) -> Optional[torch.Tensor]:
+    """A state model's (B*W, 1, 1, dim) fp32 proprio rows from the batch's
+    ``robot_obs`` (arm pose + gripper only with ``clip_state``,
+    train_utils.py:253-255); None for other models or without robot_obs."""
+    if not ((cfg.use_state or cfg.head.use_state) and "robot_obs" in batch):
+        return None
+    st = np.asarray(batch["robot_obs"])[:, :cfg.window_size]
+    st = st.reshape(-1, st.shape[-1])
+    if cfg.clip_state:
+        st = np.concatenate([st[:, :6], st[:, -1:]], -1)
+    return torch.as_tensor(st[:, None, None, :], dtype=torch.float32,
+                           device=device)

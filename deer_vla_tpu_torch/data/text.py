@@ -75,3 +75,16 @@ def fixed_length(ids: np.ndarray, mask: np.ndarray, length: int,
     out_ids[:, :s] = ids
     out_mask[:, :s] = mask
     return out_ids, out_mask
+
+
+def window_text(input_ids: np.ndarray, attention_mask: np.ndarray, cfg):
+    """(B, S) instructions -> the training forward's text rows at
+    ``cfg.text_len``: one a frame, or one a window under 'vit_concat'
+    (train_utils.py:240-251); padding ids are masked out."""
+    ids, mask = np.asarray(input_ids), np.asarray(attention_mask)
+    if cfg.fusion_mode != "vit_concat":
+        w = cfg.window_size
+        b, s = ids.shape
+        ids = np.repeat(ids[:, None], w, axis=1).reshape(b * w, s)
+        mask = np.repeat(mask[:, None], w, axis=1).reshape(b * w, s)
+    return fixed_length(ids, mask, cfg.text_len, 0)

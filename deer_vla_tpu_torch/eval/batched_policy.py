@@ -11,6 +11,10 @@ exit; ``DeerPolicy`` at B=1 keeps each stream's own depth.
 
 ``steps_per_stage`` holds each stream's exit for that many of its steps:
 mid-stage its threshold is +inf at the held exit and -inf before it.
+
+As in the JAX package, the window-folded variants ('vit_concat',
+``use_hist``) are refused and no proprio state is taken: a state model runs
+without its state token and head embedding here.
 """
 
 from __future__ import annotations

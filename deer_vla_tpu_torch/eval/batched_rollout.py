@@ -20,9 +20,11 @@ the results are those of serial stepping.
 Per stream the semantics are the sequential harness's: a policy reset per
 subtask (``reset_streams``), the chain ends at its first failure, at most
 ``ep_len`` steps a subtask.  A parked stream (queue drained) exits at the
-first exit layer, so it never lengthens the batch's layer loop.  Parallel
-threshold candidates (``candidates``) belong to ``cli/bayes_opt``
-(ROADMAP.md M17).
+first exit layer, so it never lengthens the batch's layer loop.  A
+window-folded model ('vit_concat' / ``use_hist``) gets each lane's rolling
+W-frame window as W stream-major rows (``use_hist`` also the goal tiled a
+frame), a state model each lane's ``robot_obs`` rows.  Parallel threshold
+candidates (``candidates``) belong to ``cli/bayes_opt`` (ROADMAP.md M17).
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from deer_vla_tpu_torch.data.text import fixed_length
 from deer_vla_tpu_torch.eval.metrics import summarize
 from deer_vla_tpu_torch.eval.rollout import (EP_LEN,
                                              reset_env_to_initial_state,
-                                             resolve_annotation)
+                                             resolve_annotation, roll_window,
+                                             state_row)
+from deer_vla_tpu_torch.eval.scan_policy import folded_window
 
 
 class _Stream:
@@ -59,6 +63,10 @@ class _Stream:
         self.start_info: Optional[Dict] = None
         self.initial_state = None
         self.active = False
+        # a window-folded model's rolling frame and state windows
+        self.img_q: List[np.ndarray] = []
+        self.grip_q: List[np.ndarray] = []
+        self.state_q: List[np.ndarray] = []
 
 
 def evaluate_policy_batched(policy, envs: List, sequences: List,
@@ -76,6 +84,9 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
     dev = policy.device
     size = cfg.vit.image_size
     grip_size = cfg.gripper_res or size
+    rep = folded_window(cfg)  # frame rows a lane
+    folded_w = rep if rep > 1 else 0
+    use_state = cfg.use_state or cfg.head.use_state
     n_groups = max(1, min(pipeline, b))
     while b % n_groups:
         n_groups -= 1
@@ -103,6 +114,7 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
         st.step = 0
         st.exit_layers = []
         st.last_exit = -1
+        st.img_q, st.grip_q, st.state_q = [], [], []  # a fresh window
         st.start_info = envs[st.idx].get_info()
         gb = len(lanes[st.group])
         gpol[st.group].reset_streams(np.arange(gb) == st.local)
@@ -176,25 +188,49 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
         if rows is not None:
             gpol[g].set_threshold_array(rows)
             rows_dirty[g] = not np.array_equal(rows, base_rows[g])
-        group = [streams[i] for i in lanes[g]]
-        obs = [envs[st.idx].get_obs()["rgb_obs"] for st in group]
+        imgs, grips, states, toks = [], [], [], []
+        for i in lanes[g]:
+            st = streams[i]
+            obs = envs[st.idx].get_obs()
+            f, gr = obs["rgb_obs"]["rgb_static"], obs["rgb_obs"]["rgb_gripper"]
+            sr = state_row(obs, cfg) if use_state else None
+            if not st.active:  # a parked lane: zeros
+                imgs += [np.zeros_like(f)] * rep
+                grips += [np.zeros_like(gr)] * rep
+                states += [np.zeros_like(sr)] * rep if use_state else []
+                toks.append((np.zeros(text_len, np.int32),
+                             np.zeros(text_len, np.int32)))
+                continue
+            if folded_w:
+                st.img_q = roll_window(st.img_q, f, folded_w)
+                st.grip_q = roll_window(st.grip_q, gr, folded_w)
+                imgs += st.img_q
+                grips += st.grip_q
+                if use_state:
+                    st.state_q = roll_window(st.state_q, sr, folded_w)
+                    states += st.state_q
+            else:
+                imgs.append(f)
+                grips.append(gr)
+                states += [sr] if use_state else []
+            toks.append(tokens_for(st))
 
-        def frames(key: str, size: int) -> torch.Tensor:
-            """The group's frames, zeros for parked lanes, preprocessed on
-            the card: (Bg, 1, 1, 3, size, size)."""
-            u8 = np.stack([o[key] if st.active else np.zeros_like(o[key])
-                           for st, o in zip(group, obs)])
-            return clip_preprocess(torch.as_tensor(u8, device=dev),
+        def frames(u8: list, size: int) -> torch.Tensor:
+            """uint8 frames preprocessed on the card: (rows, 1, 1, 3, size,
+            size)."""
+            return clip_preprocess(torch.as_tensor(np.stack(u8), device=dev),
                                    size)[:, None, None]
 
-        toks = [tokens_for(st) if st.active
-                else (np.zeros(text_len, np.int32),
-                      np.zeros(text_len, np.int32)) for st in group]
-        args = (frames("rgb_static", size), frames("rgb_gripper", grip_size),
-                np.stack([t[0] for t in toks]), np.stack([t[1] for t in toks]))
+        # use_hist: a text row a frame
+        text_rep = rep if cfg.use_hist else 1
+        args = (frames(imgs, size), frames(grips, grip_size),
+                np.repeat(np.stack([t[0] for t in toks]), text_rep, axis=0),
+                np.repeat(np.stack([t[1] for t in toks]), text_rep, axis=0))
+        kw = ({"state": np.stack(states)[:, None, None, :]} if use_state
+              else {})
         if n_groups > 1:
-            return gpol[g].dispatch_batch(*args)
-        return gpol[g].step_batch(*args)
+            return gpol[g].dispatch_batch(*args, **kw)
+        return gpol[g].step_batch(*args, **kw)
 
     def finish(g: int, handle):
         return gpol[g].finish_batch(handle) if n_groups > 1 else handle

@@ -11,9 +11,9 @@ the target exit distribution.  The deltas can be cached in a sidecar
 Random draws (the sampling-1 layer ids, the streamed regime's committed
 exits) come from one ``torch.Generator`` that advances batch by batch, or
 per batch from the caller (``draws``: one dict per batch with any of
-``rand_layer_ids``, ``switch_layer_ids``, ``commit_exits``).  The port runs
-one process and the window-folded warm prefix is not served (``cli/eval``
-refuses ``--calib_warm``), so neither an all-gather nor a warm prefix is
+``rand_layer_ids``, ``switch_layer_ids``, ``commit_exits``, ``warm_perms``).
+Models with proprio state calibrate on the batch's ``robot_obs`` rows, as
+they train and serve.  The port runs one process, so no all-gather is
 taken here.
 """
 
@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
-from deer_vla_tpu_torch.data.preprocess import preprocess_train_frames
-from deer_vla_tpu_torch.data.text import fixed_length
+from deer_vla_tpu_torch.data.preprocess import (preprocess_train_frames,
+                                                state_rows)
+from deer_vla_tpu_torch.data.text import window_text
 from deer_vla_tpu_torch.models.flamingo import forward_train
 from deer_vla_tpu_torch.models.value_net import (exit_probs,
                                                  generate_exit_deltas,
@@ -35,20 +36,22 @@ from deer_vla_tpu_torch.models.value_net import (exit_probs,
 
 
 def make_delta_fn(cfg: DeerConfig, threshold_type: str = "L2",
-                  streamed: bool = False, exit_sample_probs=None):
+                  warm_prefix: int = 0, streamed: bool = False,
+                  exit_sample_probs=None):
     """The backbone (every layer) + calibration deltas of one batch.
     ``streamed=True`` threads one LSTM carry across each window and commits
     exits sampled from ``exit_sample_probs``
-    (``generate_streamed_exit_deltas``)."""
+    (``generate_streamed_exit_deltas``); ``warm_prefix`` warms a
+    window-folded model's head with other trajectories' frames."""
     exit_list = list(cfg.all_exit_ids())
 
     @torch.inference_mode()
     def delta_fn(params, image, gripper, input_ids, attention_mask,
                  gen: Optional[torch.Generator] = None,
-                 draws: Optional[Dict] = None) -> torch.Tensor:
+                 draws: Optional[Dict] = None, state=None) -> torch.Tensor:
         draws = draws or {}
         out = forward_train(params, image, input_ids, attention_mask, cfg,
-                            gen, vision_gripper=gripper,
+                            gen, vision_gripper=gripper, state_tensor=state,
                             only_extra_exit=True, train=False,
                             rand_layer_ids=draws.get("rand_layer_ids"),
                             switch_layer_ids=draws.get("switch_layer_ids"))
@@ -56,10 +59,11 @@ def make_delta_fn(cfg: DeerConfig, threshold_type: str = "L2",
             return generate_streamed_exit_deltas(
                 params["extra_exit"], out.hidden_states, cfg, exit_list,
                 threshold_type, gen=gen, exit_sample_probs=exit_sample_probs,
-                commit_exits=draws.get("commit_exits"))
+                state=state, commit_exits=draws.get("commit_exits"))
         return generate_exit_deltas(
             params["extra_exit"], out.hidden_states, out.rand_layer_feat, cfg,
-            exit_list, threshold_type)
+            exit_list, threshold_type, warm_prefix=warm_prefix, gen=gen,
+            state=state, warm_perms=draws.get("warm_perms"))
 
     return delta_fn
 
@@ -69,7 +73,8 @@ def batch_inputs(batch: Dict[str, np.ndarray], cfg: DeerConfig,
     """One raw batch -> (image, gripper, input_ids, attention_mask) on
     ``device`` in the training forward's (B*W, ...) layout: frames resized
     and normalized there (no random shift), the instruction repeated per
-    frame and padded to ``cfg.text_len``."""
+    frame (once a window under 'vit_concat') and padded to
+    ``cfg.text_len``.  A state model's rows come from ``state_rows``."""
     w = cfg.window_size
     stat = torch.as_tensor(batch["rgb_static"], device=device)
     grip = torch.as_tensor(batch["rgb_gripper"], device=device)
@@ -78,13 +83,7 @@ def batch_inputs(batch: Dict[str, np.ndarray], cfg: DeerConfig,
         grip.reshape(-1, *grip.shape[2:]), rgb_pad=0, gripper_pad=0,
         window=w, size=cfg.vit.image_size,
         gripper_size=cfg.gripper_res or None)
-    bsw = img.shape[0]
-    s = batch["input_ids"].shape[-1]
-    ids = np.repeat(batch["input_ids"][:, None], w, axis=1).reshape(bsw, s)
-    mask = np.repeat(batch["attention_mask"][:, None], w,
-                     axis=1).reshape(bsw, s)
-    # the static text_len; padding ids are masked out by attention_mask
-    ids, mask = fixed_length(ids, mask, cfg.text_len, 0)
+    ids, mask = window_text(batch["input_ids"], batch["attention_mask"], cfg)
     return (img, gri, torch.as_tensor(ids.astype(np.int64), device=device),
             torch.as_tensor(mask.astype(np.int64), device=device))
 
@@ -94,6 +93,7 @@ def generate_calibration_values(params: dict, cfg: DeerConfig,
                                 gen: Optional[torch.Generator] = None,
                                 threshold_type: str = "L2",
                                 max_batches: Optional[int] = None,
+                                warm_prefix: int = 0,
                                 streamed: bool = False,
                                 exit_sample_probs=None,
                                 draws: Optional[List[Dict]] = None
@@ -103,14 +103,16 @@ def generate_calibration_values(params: dict, cfg: DeerConfig,
     dev = params["decoder"]["wte"]["w"].device
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
-    delta_fn = make_delta_fn(cfg, threshold_type, streamed=streamed,
+    delta_fn = make_delta_fn(cfg, threshold_type, warm_prefix,
+                             streamed=streamed,
                              exit_sample_probs=exit_sample_probs)
     outs = []
     for bi, batch in enumerate(batches):
         if max_batches is not None and bi >= max_batches:
             break
         d = delta_fn(params, *batch_inputs(batch, cfg, dev), gen,
-                     draws[bi] if draws is not None else None)
+                     draws[bi] if draws is not None else None,
+                     state_rows(batch, cfg, dev))
         outs.append(d.float().cpu().numpy())
     return np.concatenate(outs, axis=1)
 
@@ -133,7 +135,7 @@ def calibrate(params: dict, cfg: DeerConfig,
               max_layer: Optional[int] = None, exit_dist: str = "exp",
               model_name: str = "mpt_dolly_3b", threshold_type: str = "L2",
               values: Optional[np.ndarray] = None,
-              max_batches: Optional[int] = None,
+              max_batches: Optional[int] = None, warm_prefix: int = 0,
               streamed: bool = False, gen: Optional[torch.Generator] = None,
               draws: Optional[List[Dict]] = None
               ) -> Tuple[Dict[int, float], np.ndarray]:
@@ -144,8 +146,8 @@ def calibrate(params: dict, cfg: DeerConfig,
                                      model_name) if streamed else None)
         values = generate_calibration_values(
             params, cfg, batches, gen=gen, threshold_type=threshold_type,
-            max_batches=max_batches, streamed=streamed,
-            exit_sample_probs=esp, draws=draws)
+            max_batches=max_batches, warm_prefix=warm_prefix,
+            streamed=streamed, exit_sample_probs=esp, draws=draws)
     ml = max_layer if max_layer is not None else cfg.n_layers
     thresholds, _ = solve_thresholds(
         values, exit_ratio, list(cfg.all_exit_ids()), ml - 1,

@@ -44,10 +44,12 @@ from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
 from deer_vla_tpu_torch.eval.scan_policy import (HostInputs,
                                                  check_serving_supported,
+                                                 folded_window,
                                                  prune_encoder_params,
                                                  stack_encoder_layers)
 from deer_vla_tpu_torch.models.flamingo import encode_vision
-from deer_vla_tpu_torch.models.heads import (any_head_step, any_zero_carry,
+from deer_vla_tpu_torch.models.heads import (any_head_forward, any_head_step,
+                                             any_zero_carry,
                                              head_action_width)
 from deer_vla_tpu_torch.models.mpt import decoder_segment_forward, embed_tokens
 from deer_vla_tpu_torch.models.value_net import ExitController, get_delta
@@ -71,7 +73,7 @@ class DeerPolicy(HostInputs):
                  use_action_ensemble: bool = False,
                  multi_execution: int = 1,
                  quantize: Optional[str] = None, device=None):
-        check_serving_supported(cfg)
+        check_serving_supported(cfg, allow_window_folded=True)
         self.device = resolve_device(device)
         params = to_torch(params, self.device)
         self.quantize = None if quantize in (None, "none") else quantize
@@ -114,9 +116,13 @@ class DeerPolicy(HostInputs):
         self.enc_params = prune_encoder_params(params)
         self.enc_stacked = quantize_serving_stacked(
             stack_encoder_layers(params, cfg.dtypes.cdt), self.quantize)
+        # window-folded models: the adapter feeds the rolling W-frame window
+        # a step, as to the scan engine
+        enc_w = self._enc_w = folded_window(cfg)
 
-        def encode_prefix(params, stacked, img, grip, ids):
-            media = encode_vision(params, img, grip, cfg, stacked)
+        def encode_prefix(params, stacked, img, grip, ids, state=None):
+            media = encode_vision(params, img, grip, cfg, state, stacked,
+                                  window_size=enc_w)
             x = embed_tokens(params["decoder"], ids, cfg.dtypes.cdt)
             return media, x, ids == cfg.media_token_id
 
@@ -134,18 +140,16 @@ class DeerPolicy(HostInputs):
                 head_key: params[head_key]}
 
         def segment(start, stop, first_exit, sp, x, mask, media, mloc, carry,
-                    prev_action):
+                    prev_action, state):
             """Layers [start, stop), the speculative head and the delta."""
             x_prev, x_out = decoder_segment_forward(
                 sp["decoder"], x, mask, media, cfg, start, stop, mloc)
-            out, cand_carry = any_head_step(sp[head_key], x_out.float(),
-                                            carry, cfg)
+            out, cand_carry = self._head(sp[head_key], x_out, carry, state)
             action = out.actions[:, 0]
             if first_exit:
                 # the pseudo previous action from the layer below the first
                 # exit (value_net.py:122-126), same uncommitted carry
-                pseudo, _ = any_head_step(sp[head_key], x_prev.float(),
-                                          carry, cfg)
+                pseudo, _ = self._head(sp[head_key], x_prev, carry, state)
                 ref_action = pseudo.actions[:, 0]
             else:
                 ref_action = prev_action
@@ -178,6 +182,16 @@ class DeerPolicy(HostInputs):
                         f"layerwise_exit_eval: no lm_exits[{e}] head in the "
                         "checkpoint (model not trained multi_exit?)")
 
+    def _head(self, head, x, carry, state):
+        """A head on a segment's output: one streamed step, or under
+        ``use_hist`` the whole window (it is the memory, the carry stays)
+        giving the last step's action (flamingo_mpt.py:700-740)."""
+        if self.cfg.use_hist:
+            return any_head_forward(head, x.float(), self.cfg, state,
+                                    window=self._enc_w,
+                                    last_action=True), carry
+        return any_head_step(head, x.float(), carry, self.cfg, state)
+
     # -- state ---------------------------------------------------------------
 
     def reset(self):
@@ -196,29 +210,38 @@ class DeerPolicy(HostInputs):
     # -- stepping ------------------------------------------------------------
 
     @torch.inference_mode()
-    def encode(self, image, gripper, input_ids):
+    def encode(self, image, gripper, input_ids, state=None):
         """The encode prefix from host inputs: (media, x, media_locations)
         on the device."""
         return self._encode_prefix(self.enc_params, self.enc_stacked,
                                    self._image(image), self._image(gripper),
-                                   self._ids(input_ids))
+                                   self._ids(input_ids), self._state(state))
 
-    def step(self, image, gripper, input_ids, attention_mask) -> np.ndarray:
-        """One env step: image / gripper (1, 1, 1, 3, H, W) preprocessed;
-        the 7-dof action with the gripper at +-1 (eval_utils.py:458-475),
-        or an (m, 7) plan."""
-        media, x, mloc = self.encode(image, gripper, input_ids)
-        return self.step_from_encoded(media, x, mloc, attention_mask)
+    def step(self, image, gripper, input_ids, attention_mask,
+             state=None) -> np.ndarray:
+        """One env step: image / gripper (1, 1, 1, 3, H, W) preprocessed (a
+        window-folded model's W frames as rows); the 7-dof action with the
+        gripper at +-1 (eval_utils.py:458-475), or a (k, 7) / (m, 7) plan.
+        ``state``: a state model's proprio rows, one an image row."""
+        media, x, mloc = self.encode(image, gripper, input_ids, state)
+        return self.step_from_encoded(media, x, mloc, attention_mask, state)
 
     @torch.inference_mode()
-    def step_from_encoded(self, media, x, mloc,
-                          attention_mask) -> np.ndarray:
+    def step_from_encoded(self, media, x, mloc, attention_mask,
+                          state=None) -> np.ndarray:
         """The segment loop from a (possibly cached) encoded prefix."""
         cfg = self.cfg
         mask = self._upload(attention_mask)
-        streams = x.shape[0]
+        # streams: the text rows, a window of them each under use_hist
+        streams = x.shape[0] // (self._enc_w if cfg.use_hist else 1)
         if self.carry is None:
             self.carry = any_zero_carry(cfg, streams, device=self.device)
+        # the head's state rows: under vit_concat the last frame's
+        hstate = self._state(state)
+        if (hstate is not None and self._enc_w > 1
+                and cfg.fusion_mode == "vit_concat"):
+            hstate = hstate.reshape((streams, self._enc_w)
+                                    + hstate.shape[1:])[:, -1]
         ctrl = self.controller
         prev_action = torch.zeros(streams, head_action_width(cfg),
                                   device=self.device)
@@ -228,7 +251,7 @@ class DeerPolicy(HostInputs):
             run_fn = fn_first if (k == 0 and ctrl is not None) else fn
             x, out, cand_carry, delta = run_fn(
                 self._seg_params[k], x, mask, media, mloc, self.carry,
-                prev_action)
+                prev_action, hstate)
             prev_action = out.actions[:, 0]
             if ctrl is None:
                 chosen = (e, out, cand_carry)
@@ -255,8 +278,8 @@ class DeerPolicy(HostInputs):
             lc = self.layer_carries.get(exit_layer)
             if lc is None:
                 lc = any_zero_carry(cfg, streams, device=self.device)
-            out, self.layer_carries[exit_layer] = any_head_step(
-                self._final_heads[exit_layer], x.float(), lc, cfg)
+            out, self.layer_carries[exit_layer] = self._head(
+                self._final_heads[exit_layer], x, lc, hstate)
         if ctrl is not None and reuse:
             ctrl.cur_exit_id = exit_layer
             ctrl.record_action(_host_read(None, crit_out)[1:])

@@ -20,6 +20,7 @@ from deer_vla_tpu_torch.data.debug_data import TASKS
 from deer_vla_tpu_torch.data.preprocess import clip_preprocess
 from deer_vla_tpu_torch.data.text import fixed_length
 from deer_vla_tpu_torch.eval.metrics import summarize
+from deer_vla_tpu_torch.eval.scan_policy import folded_window
 
 EP_LEN = 360
 
@@ -93,10 +94,18 @@ class DebugTaskOracle:
 
 
 class CalvinPolicyAdapter:
-    """ModelWrapper equivalent (eval_utils.py:187-490) around a
-    ``ScanDeerPolicy``: each step's two camera frames are uploaded as uint8
-    and preprocessed on the policy's device; the goal's tokens are cached
-    per instruction."""
+    """ModelWrapper equivalent (eval_utils.py:187-490) around a serving
+    policy: each step's two camera frames are uploaded as uint8 and
+    preprocessed on the policy's device (the gripper at ``gripper_res``
+    when set); the goal's tokens are cached per instruction.
+
+    Window-folded models ('vit_concat' / ``use_hist``) get a rolling
+    W-frame window a step, left-padded with the episode's first frame (the
+    reference's img_queue, eval_utils.py:344-386); ``use_hist`` also gets
+    the goal tiled a frame.  A policy that caches the frame window itself
+    (``feeds_single_frame``, ``eval/caching.FrameCachePolicy``) gets the
+    newest frame only.  State models get ``robot_obs`` (arm pose and
+    gripper only with ``clip_state``), a row a frame of the window."""
 
     def __init__(self, policy, text_fn: Callable, text_len: int = 32):
         self.policy = policy
@@ -107,9 +116,19 @@ class CalvinPolicyAdapter:
         cfg = policy.cfg
         self._size = cfg.vit.image_size
         self._grip_size = cfg.gripper_res or self._size
+        w = folded_window(cfg)
+        self._window = w if w > 1 else 0
+        self._tile_text = cfg.use_hist
+        self._img_window = (0 if getattr(policy, "feeds_single_frame", False)
+                            else self._window)
+        self._use_state = cfg.use_state or cfg.head.use_state
+        self._img_q: List[torch.Tensor] = []
+        self._grip_q: List[torch.Tensor] = []
+        self._state_q: List[np.ndarray] = []
 
     def reset(self):
         self.policy.reset()
+        self._img_q, self._grip_q, self._state_q = [], [], []
 
     @property
     def current_exit_layer(self) -> int:
@@ -121,7 +140,12 @@ class CalvinPolicyAdapter:
             return cached
         ids, mask = self.text_fn([goal])
         pad_id = getattr(self.text_fn, "pad_token_id", 0)
-        out = fixed_length(ids, mask, self.text_len, pad_id)
+        ids, mask = fixed_length(ids, mask, self.text_len, pad_id)
+        if self._tile_text:
+            # use_hist: one text row a frame of the window
+            ids = np.tile(np.asarray(ids), (self._window, 1))
+            mask = np.tile(np.asarray(mask), (self._window, 1))
+        out = (ids, mask)
         self._goal_cache = (goal, out)
         return out
 
@@ -133,11 +157,41 @@ class CalvinPolicyAdapter:
     def step(self, obs: Dict, goal: str) -> np.ndarray:
         img = self._frame(obs["rgb_obs"]["rgb_static"], self._size)
         grip = self._frame(obs["rgb_obs"]["rgb_gripper"], self._grip_size)
+        if self._img_window:
+            self._img_q = roll_window(self._img_q, img, self._img_window)
+            self._grip_q = roll_window(self._grip_q, grip, self._img_window)
+            img, grip = torch.cat(self._img_q), torch.cat(self._grip_q)
         ids, mask = self._tokenize(goal)
+        state = None
+        if self._use_state and "robot_obs" in obs:
+            row = state_row(obs, self.policy.cfg)[None, None, None]
+            if self._window:
+                self._state_q = roll_window(self._state_q, row, self._window)
+                state = np.concatenate(self._state_q)
+            else:
+                state = row
         t0 = time.perf_counter()
-        action = self.policy.step(img, grip, ids, mask)
+        if state is None:
+            action = self.policy.step(img, grip, ids, mask)
+        else:
+            action = self.policy.step(img, grip, ids, mask, state=state)
         self.llm_time = time.perf_counter() - t0
         return action
+
+
+def roll_window(queue: list, item, window: int) -> list:
+    """The last ``window`` items after ``item``; an empty queue (episode
+    start) is filled with ``item`` (eval_utils.py:344-349)."""
+    return [item] * window if not queue else (queue + [item])[-window:]
+
+
+def state_row(obs: Dict, cfg) -> np.ndarray:
+    """``robot_obs`` in the training state layout: fp32, the arm pose and
+    the gripper only with ``clip_state`` (train_utils.py:253-255)."""
+    ro = np.asarray(obs["robot_obs"], np.float32)
+    if cfg.clip_state:
+        ro = np.concatenate([ro[:6], ro[-1:]], -1)
+    return ro
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,13 @@ Semantics kept exactly:
   * exactly one carry is committed per stream, from its chosen exit.
 
 ``encode`` / ``step_from_encoded`` split the step at the encoded prefix (the
-vision cache reuses a prefix); ``dispatch_batch`` / ``finish_batch`` split
-``step_batch`` for the pipelined batched rollout.
+vision cache reuses a prefix); ``encode_frame`` / ``step_from_tokens`` split
+it at the per-frame ViT tokens (the rolling frame cache of the
+window-folded variants); ``dispatch_batch`` / ``finish_batch`` split
+``step_batch`` for the pipelined batched rollout.  Every vision, state and
+window variant of the JAX package is served: state models take a proprio
+row an image row (``state=``), 'vit_concat' and ``use_hist`` take each
+stream's rolling W-frame window as W image rows (``folded_window``).
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ from torch import nn
 from deer_vla_tpu_torch.bridge import to_torch
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
-from deer_vla_tpu_torch.models.flamingo import (check_vision_supported,
-                                                encode_vision)
+from deer_vla_tpu_torch.models.flamingo import (dual_camera_tokens,
+                                                encode_vision,
+                                                fuse_vision_tokens)
 from deer_vla_tpu_torch.models.gated_xattn import gated_xattn_forward
-from deer_vla_tpu_torch.models.heads import (any_head_step, any_zero_carry,
+from deer_vla_tpu_torch.models.heads import (any_head_forward, any_head_step,
+                                             any_zero_carry,
                                              head_action_width)
 from deer_vla_tpu_torch.models.llama import llama_block_forward, rope_tables
 from deer_vla_tpu_torch.models.mpt import (embed_tokens, make_attn_bias,
@@ -63,20 +70,30 @@ def xattn_index(cfg: DeerConfig) -> np.ndarray:
 
 
 def prune_encoder_params(params: dict) -> dict:
-    """The unstacked leaves the encode prefix reads: the ViT / perceiver
-    non-layer leaves and the token embedding (their layers ride the stacked
-    encoder tree)."""
+    """The unstacked leaves the encode prefix reads: the ViT / perceiver(s)
+    non-layer leaves, the token embedding, and the state projection and
+    frame embeddings of the variants that have them (the layers ride the
+    stacked encoder tree)."""
     vit = {k: v for k, v in params["vit"].items() if k != "blocks"}
     vit["blocks"] = []
-    per = {k: v for k, v in params["perceiver"].items() if k != "layers"}
-    per["layers"] = []
-    return {"vit": vit, "perceiver": per,
-            "decoder": {"wte": params["decoder"]["wte"]}}
+    out = {"vit": vit, "decoder": {"wte": params["decoder"]["wte"]}}
+    for pk in ("perceiver", "perceiver_gripper"):
+        if pk in params:
+            per = {k: v for k, v in params[pk].items() if k != "layers"}
+            per["layers"] = []
+            out[pk] = per
+    for key in ("state_fc", "frame_embs"):
+        if key in params:
+            out[key] = params[key]
+    return out
 
 
 def stack_encoder_layers(params: dict, cdt) -> dict:
-    return {"vit": stack_vit_blocks(params["vit"], cdt),
-            "perceiver": stack_perceiver_layers(params["perceiver"], cdt)}
+    out = {"vit": stack_vit_blocks(params["vit"], cdt)}
+    for pk in ("perceiver", "perceiver_gripper"):
+        if pk in params:
+            out[pk] = stack_perceiver_layers(params[pk], cdt)
+    return out
 
 
 def stack_decoder_layers(params: dict, cfg: DeerConfig,
@@ -105,25 +122,61 @@ def prune_serving_params(params: dict, cfg: DeerConfig) -> dict:
     return dict(prune_encoder_params(params), **{head_key: params[head_key]})
 
 
-def check_serving_supported(cfg: DeerConfig) -> None:
-    check_vision_supported(cfg)
+def check_serving_supported(cfg: DeerConfig,
+                            allow_window_folded: bool = False) -> None:
+    """The engines serve per-frame media; 'vit_concat' and ``use_hist`` fold
+    the frame window into the media or the head, which only the engines
+    that feed a rolling window serve (``allow_window_folded``: the scan
+    engine and ``DeerPolicy``).  Both at once is refused, as in the JAX
+    package, and so is a head family the port does not have."""
+    if cfg.fusion_mode == "vit_concat" and not allow_window_folded:
+        raise NotImplementedError(
+            "this engine does not serve --fusion_mode vit_concat; use the "
+            "scan engine (ScanDeerPolicy) with the windowed adapter")
+    if cfg.use_hist and not allow_window_folded:
+        raise NotImplementedError(
+            "this engine does not serve --use_hist; use the scan engine "
+            "(ScanDeerPolicy) with the windowed adapter (per-frame text + "
+            "full-window head, flamingo_mpt.py:700-740)")
+    if cfg.use_hist and cfg.fusion_mode == "vit_concat":
+        raise NotImplementedError(
+            "use_hist + vit_concat combined serving is undefined (per-frame "
+            "text vs per-trajectory media); train/serve one or the other")
     if cfg.head_type != "deterministic":
         raise NotImplementedError(
-            f"head_type {cfg.head_type!r} is not ported")
+            f"head_type {cfg.head_type!r} is not ported (ROADMAP.md M10b)")
+
+
+def folded_window(cfg: DeerConfig) -> int:
+    """Frames a step's image rows hold a stream: the window for the
+    window-folded variants ('vit_concat', ``use_hist``), else 1."""
+    return (cfg.window_size
+            if cfg.fusion_mode == "vit_concat" or cfg.use_hist else 1)
 
 
 def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     threshold_type: str = "L2",
                     max_layer: Optional[int] = None,
                     indexed_mm: bool = False):
-    """Returns (exits, encode, decode).
+    """Returns (exits, encode, decode, encode_frame, decode_tokens).
 
-    ``encode(params, stacked, img, grip, ids)`` -> (media, x, media
-    locations); ``decode(params, stacked, media, x, mloc, mask, carry,
-    thresholds)`` -> (arm (B, 6k), grip (B, k), carry, exit_layer (B,)
-    int32, x) where ``thresholds`` is (n_layers,) or (B, n_layers) with
-    +1e30 at the forced last exit and -1e30 at non-exit layers, and ``x``
-    is the hidden state after the last decoder layer that ran.
+    ``encode(params, stacked, img, grip, ids, state=None)`` -> (media, x,
+    media locations); ``decode(params, stacked, media, x, mloc, mask,
+    carry, thresholds, state=None)`` -> (arm (B, 6k), grip (B, k), carry,
+    exit_layer (B,) int32, x) where ``thresholds`` is (n_layers,) or
+    (B, n_layers) with +1e30 at the forced last exit and -1e30 at non-exit
+    layers, and ``x`` is the hidden state after the last decoder layer that
+    ran.  ``encode_frame(params, stacked, img, grip)`` -> both cameras' ViT
+    tokens of the frames given, and ``decode_tokens(params, stacked,
+    tok_rgb, tok_grip, ids, mask, carry, thresholds, state=None)`` fuses a
+    window of such tokens and decodes (the rolling frame cache).
+
+    Window-folded models (``folded_window`` W > 1) take B*W stream-major
+    frame rows: 'vit_concat' with B text rows (the window folded into the
+    media, the head on the last frame's state), ``use_hist`` with B*W
+    text rows (the head runs the whole window each step, the window being
+    its memory, and emits the last step's action; its carry stays).
+    ``state`` rows match the image rows.
     ``indexed_mm`` raises on a llama decoder: the layer-indexed kernels
     compute the MPT block's products (fused wqkv, out_proj, mlp_up,
     mlp_down), which a llama block does not have."""
@@ -152,22 +205,46 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
     head_key = "lm_head" if cfg.share_exit else "extra_exit"
     adim = head_action_width(cfg)
     gdim = cfg.head.multi_step_action
+    enc_w = folded_window(cfg)
 
-    def encode(params, stacked, img, grip, ids):
-        media = encode_vision(params, img, grip, cfg, stacked)
+    def encode(params, stacked, img, grip, ids, state=None):
+        media = encode_vision(params, img, grip, cfg, state, stacked,
+                              window_size=enc_w)
         x = embed_tokens(params["decoder"], ids, cfg.dtypes.cdt)
         return media, x, ids == cfg.media_token_id
 
-    def decode(params, stacked, media, x, mloc, mask, carry, thresholds):
+    def encode_frame(params, stacked, img, grip):
+        return dual_camera_tokens(params, img, grip, cfg, stacked)
+
+    def decode_tokens(params, stacked, tok_rgb, tok_grip, ids, mask, carry,
+                      thresholds, state=None):
+        media = fuse_vision_tokens(params, tok_rgb, tok_grip, cfg, state,
+                                   stacked, window_size=enc_w)
+        x = embed_tokens(params["decoder"], ids, cfg.dtypes.cdt)
+        return decode(params, stacked, media, x, ids == cfg.media_token_id,
+                      mask, carry, thresholds, state)
+
+    def decode(params, stacked, media, x, mloc, mask, carry, thresholds,
+               state=None):
         attn_bias = make_attn_bias(mask, cfg.mpt, x.dtype)
         rope = (rope_tables(x.shape[1], cfg.mpt.head_dim, device=x.device)
                 if llama else None)
         head = params[head_key]
-        b = x.shape[0]
+        # streams: the text rows, a window of them each under use_hist
+        b = x.shape[0] // (enc_w if cfg.use_hist else 1)
         dev = x.device
+        hstate = state
+        if state is not None and enc_w > 1 and cfg.fusion_mode == "vit_concat":
+            hstate = state.reshape((b, enc_w) + state.shape[1:])[:, -1]
 
         def eval_head(x_in):
-            out, cand = any_head_step(head, x_in.float(), carry, cfg)
+            if cfg.use_hist:
+                out = any_head_forward(head, x_in.float(), cfg, hstate,
+                                       window=enc_w, last_action=True)
+                cand = carry
+            else:
+                out, cand = any_head_step(head, x_in.float(), carry, cfg,
+                                          hstate)
             return (out.actions[:, 0].float(), out.gripper_probs[:, 0].float(),
                     cand)
 
@@ -229,13 +306,13 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     break
         return st["arm"], st["grip"], st["carry"], st["exit"], x
 
-    return exits, encode, decode
+    return exits, encode, decode, encode_frame, decode_tokens
 
 
 class HostInputs:
-    """Moves a step's host inputs to ``self.device``: frames (numpy or
-    tensors) as fp32, token ids checked against the vocabulary first, the
-    attention mask as given."""
+    """Moves a step's host inputs to ``self.device``: frames and proprio
+    rows (numpy or tensors) as fp32, token ids checked against the
+    vocabulary first, the attention mask as given."""
 
     def _upload(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -257,6 +334,10 @@ class HostInputs:
         if isinstance(x, torch.Tensor):
             return x.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def _state(self, state) -> Optional[torch.Tensor]:
+        """Proprio rows (numpy or a tensor) as fp32, or None."""
+        return None if state is None else self._image(state)
 
 
 def host_actions(arm: np.ndarray, grip: np.ndarray, k: int) -> np.ndarray:
@@ -287,9 +368,10 @@ class ScanDeerPolicy(nn.Module, HostInputs):
                  indexed_mm: bool = False, quantize: Optional[str] = None,
                  device=None):
         super().__init__()
-        check_serving_supported(cfg)
+        check_serving_supported(cfg, allow_window_folded=True)
         exit_ids = list(exit_ids or cfg.all_exit_ids())
-        self.exits, self._encode, self._decode = build_scan_step(
+        (self.exits, self._encode, self._decode, self._encode_frame,
+         self._decode_tokens) = build_scan_step(
             cfg, exit_ids, threshold_type, max_layer, indexed_mm=indexed_mm)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -383,7 +465,10 @@ class ScanDeerPolicy(nn.Module, HostInputs):
     def set_timestep(self, t: int) -> None:
         self.cur_step = t
 
-    def _ensure_carry(self, b: int) -> None:
+    def _ensure_carry(self, text_rows: int) -> None:
+        """A fresh carry when the stream count changes: one stream a text
+        row, a window of text rows each under ``use_hist``."""
+        b = text_rows // (self.cfg.window_size if self.cfg.use_hist else 1)
         if self.carry is None or self._carry_rows != b:
             self.carry = any_zero_carry(self.cfg, b, device=self.device)
         self._carry_rows = b
@@ -399,47 +484,86 @@ class ScanDeerPolicy(nn.Module, HostInputs):
                            for f, c in zip(fresh, self.carry))
 
     # -- inputs --------------------------------------------------------------
-    def _run(self, image, gripper, input_ids, attention_mask, thresholds):
-        media, x, mloc = self.encode(image, gripper, input_ids)
-        return self._run_decode(media, x, mloc, attention_mask, thresholds)
+    def _run(self, image, gripper, input_ids, attention_mask, thresholds,
+             state=None):
+        state = self._state(state)
+        media, x, mloc = self.encode(image, gripper, input_ids, state)
+        return self._run_decode(media, x, mloc, attention_mask, thresholds,
+                                state)
 
-    def _run_decode(self, media, x, mloc, attention_mask, thresholds):
+    def _run_decode(self, media, x, mloc, attention_mask, thresholds,
+                    state=None):
         self._ensure_carry(x.shape[0])
         arm, grip, self.carry, exit_layer, self.last_hidden = self._decode(
             self.params, self.stacked, media, x, mloc,
-            self._upload(attention_mask), self.carry, thresholds)
+            self._upload(attention_mask), self.carry, thresholds,
+            self._state(state))
         return arm, grip, exit_layer
 
     # -- serving -----------------------------------------------------------
     @torch.inference_mode()
-    def step(self, image, gripper, input_ids, attention_mask) -> np.ndarray:
+    def step(self, image, gripper, input_ids, attention_mask,
+             state=None) -> np.ndarray:
         """One env step of one stream: a 7-dof action (or a (k, 7) plan
-        for multi_step_action k > 1)."""
+        for multi_step_action k > 1).  Window-folded models take the
+        stream's W frames as image rows (``folded_window``); ``state``
+        (state models) one proprio row an image row."""
+        if state is not None and state.shape[0] != image.shape[0]:
+            raise ValueError(
+                f"state rows ({state.shape[0]}) must match the image batch "
+                f"({image.shape[0]}): window-folded models take one proprio "
+                "row a frame of the rolling window")
         arm, grip, exit_layer = self._run(image, gripper, input_ids,
                                           attention_mask,
-                                          self._stage_thresholds())
+                                          self._stage_thresholds(), state)
         self.last_exit_layer = int(exit_layer[0])
         return self._postprocess(arm, grip)
 
     @torch.inference_mode()
-    def encode(self, image, gripper, input_ids):
+    def encode(self, image, gripper, input_ids, state=None):
         """The vision and embedding prefix on its own: (media, x,
         media_locations) on the device, for ``step_from_encoded``."""
         return self._encode(self.params, self.stacked, self._image(image),
-                            self._image(gripper), self._ids(input_ids))
+                            self._image(gripper), self._ids(input_ids),
+                            self._state(state))
 
     @torch.inference_mode()
-    def step_from_encoded(self, media, x, mloc,
-                          attention_mask) -> np.ndarray:
+    def step_from_encoded(self, media, x, mloc, attention_mask,
+                          state=None) -> np.ndarray:
         """``step`` from a (possibly cached) encoded prefix."""
         arm, grip, exit_layer = self._run_decode(media, x, mloc,
                                                  attention_mask,
-                                                 self._stage_thresholds())
+                                                 self._stage_thresholds(),
+                                                 state)
         self.last_exit_layer = int(exit_layer[0])
         return self._postprocess(arm, grip)
 
     @torch.inference_mode()
-    def dispatch_batch(self, image, gripper, input_ids, attention_mask):
+    def encode_frame(self, image, gripper):
+        """Both cameras' ViT tokens of the frames given (per frame and
+        independent of the window position): the rolling frame cache's
+        encode half (``eval/caching.FrameCachePolicy``)."""
+        return self._encode_frame(self.params, self.stacked,
+                                  self._image(image), self._image(gripper))
+
+    @torch.inference_mode()
+    def step_from_tokens(self, tok_rgb, tok_grip, input_ids, attention_mask,
+                         state=None) -> np.ndarray:
+        """One env step from a window of cached per-frame ViT tokens:
+        perceiver, window fold and the dynamic-exit decode."""
+        ids = self._ids(input_ids)
+        self._ensure_carry(ids.shape[0])
+        arm, grip, self.carry, exit_layer, self.last_hidden = \
+            self._decode_tokens(self.params, self.stacked, tok_rgb, tok_grip,
+                                ids, self._upload(attention_mask),
+                                self.carry, self._stage_thresholds(),
+                                self._state(state))
+        self.last_exit_layer = int(exit_layer[0])
+        return self._postprocess(arm, grip)
+
+    @torch.inference_mode()
+    def dispatch_batch(self, image, gripper, input_ids, attention_mask,
+                       state=None):
         """The first half of ``step_batch``: runs the step, commits the
         carry, and starts copying (arm, grip, exit) to the host.
 
@@ -449,9 +573,19 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         into pinned memory with an event that ``finish_batch`` waits on.
         The pipelined rollout steps another lane group's envs meanwhile;
         true overlap of one group's layers with another's host work waits
-        for a loop without host reads (ROADMAP.md M7b)."""
+        for a loop without host reads (ROADMAP.md M7b).
+
+        Window-folded models take B*W stream-major frame rows, and B text
+        rows ('vit_concat') or B*W (``use_hist``, the goal tiled a frame)."""
+        w = folded_window(self.cfg)
+        streams = input_ids.shape[0] // (w if self.cfg.use_hist else 1)
+        if image.shape[0] != streams * w:
+            raise ValueError(
+                f"batched window-folded step: image rows ({image.shape[0]}) "
+                f"must be streams*window ({streams}*{w}) stream-major frame "
+                "windows")
         outs = self._run(image, gripper, input_ids, attention_mask,
-                         self.thresholds)
+                         self.thresholds, state)
         if self.device.type != "cuda":
             return outs + (None,)
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -472,11 +606,12 @@ class ScanDeerPolicy(nn.Module, HostInputs):
                              self.cfg.head.multi_step_action),
                 exit_layer.cpu().numpy().astype(np.int64))
 
-    def step_batch(self, image, gripper, input_ids, attention_mask):
+    def step_batch(self, image, gripper, input_ids, attention_mask,
+                   state=None):
         """B parallel streams with per-stream exits: (actions (B, 7) or
         (B, k, 7), exit_layers (B,) int64)."""
         return self.finish_batch(self.dispatch_batch(
-            image, gripper, input_ids, attention_mask))
+            image, gripper, input_ids, attention_mask, state))
 
     def _postprocess(self, arm, grip) -> np.ndarray:
         return host_actions(arm[:1].cpu().numpy(), grip[:1].cpu().numpy(),

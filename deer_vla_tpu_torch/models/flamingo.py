@@ -1,9 +1,12 @@
-"""The DeeR policy's vision path, parameter init, training forward ('post'
-camera fusion) and the freeze policy of training.
+"""The DeeR policy's vision path, parameter init, training forward and
+the freeze policy of training.
 
-Both cameras run through the ViT as ONE doubled batch, then through the
-shared perceiver as one doubled batch, and the two cameras' latents are
-concatenated on the token dim (flamingo_mpt.py:609-668).
+The camera fusions of the JAX package (flamingo_mpt.py:585-777): 'post'
+(both cameras through the ViT and the shared perceiver as one doubled
+batch, their latents concatenated on the token dim), 'pre', 'two_way' and
+'vit_concat', each with a second resampler (``sep_resampler``), a proprio
+token (``use_state``), per-frame embeddings (``use_hist``) and a gripper
+camera at its native size (``gripper_res``).
 """
 
 from __future__ import annotations
@@ -26,22 +29,28 @@ from deer_vla_tpu_torch.models.vit import (init_vit, vit_forward,
                                            vit_forward_stacked,
                                            vit_forward_tome)
 from deer_vla_tpu_torch.ops.dropout import Dropout
-from deer_vla_tpu_torch.ops.layers import tree_map, tree_map_with_path
+from deer_vla_tpu_torch.ops.layers import (init_linear, linear, normal,
+                                           tree_map, tree_map_with_path)
 
 
-def check_vision_supported(cfg: DeerConfig) -> None:
-    """The ported vision path: 'post' fusion, one shared resampler, no
-    proprio token, no frame window, both cameras at one resolution."""
-    unsupported = {
-        "fusion_mode": cfg.fusion_mode != "post",
-        "sep_resampler": cfg.sep_resampler,
-        "use_state": cfg.use_state,
-        "use_hist": cfg.use_hist,
-        "gripper_res": cfg.gripper_res != 0,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+def init_variant_leaves(gen, cfg: DeerConfig, device, dtype) -> dict:
+    """The leaves the vision and state variants add to the tree: a second
+    resampler (``sep_resampler``), the proprio token's projection
+    (``use_state``) and the per-frame embeddings (``use_hist``).  Drawn
+    after everything else, so that a variant's backbone is the one the
+    same seed draws for the plain model."""
+    out = {}
+    if cfg.sep_resampler:
+        out["perceiver_gripper"] = init_perceiver(gen, cfg.perceiver, device,
+                                                  dtype)
+    if cfg.use_state:
+        out["state_fc"] = init_linear(gen, cfg.state_dim, cfg.vis_dim, True,
+                                      device, dtype)
+    if cfg.use_hist:
+        # added to the ViT tokens before the perceiver (flamingo_mpt.py:138)
+        out["frame_embs"] = normal((cfg.window_size, cfg.vis_dim), 1.0, gen,
+                                   device, dtype)
+    return out
 
 
 def init_deer(cfg: DeerConfig, seed: int = 0, device=None) -> dict:
@@ -49,8 +58,7 @@ def init_deer(cfg: DeerConfig, seed: int = 0, device=None) -> dict:
     head family), drawn from a seeded ``torch.Generator`` on ``device``."""
     if cfg.head_type != "deterministic":
         raise NotImplementedError(
-            f"head_type {cfg.head_type!r} is not ported")
-    check_vision_supported(cfg)
+            f"head_type {cfg.head_type!r} is not ported (ROADMAP.md M10b)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pdt = cfg.dtypes.pdt
@@ -68,48 +76,76 @@ def init_deer(cfg: DeerConfig, seed: int = 0, device=None) -> dict:
                                                           pdt)
     if cfg.share_exit:
         del params["extra_exit"]
+    params.update(init_variant_leaves(gen, cfg, dev, pdt))
     return params
 
 
 def encode_vision(params: dict, vision_rgb: torch.Tensor,
                   vision_gripper: Optional[torch.Tensor], cfg: DeerConfig,
-                  stacked: Optional[dict] = None) -> torch.Tensor:
-    """(B, T, F, 3, H, W) cameras -> media (B, T, 2n, vis_dim)."""
+                  state_tensor: Optional[torch.Tensor] = None,
+                  stacked: Optional[dict] = None,
+                  window_size: int = 1) -> torch.Tensor:
+    """Camera fusion (flamingo_mpt.py:585-777) by ``cfg.fusion_mode``, from
+    (B, T, F, 3, H, W) cameras:
+
+      'post': each camera through the perceiver, latents concatenated on
+          the token dim -> (B, T, 2n(+1), d);
+      'pre': both cameras' ViT tokens concatenated, one perceiver ->
+          (B, T, n(+1), d);
+      'two_way': the static camera only;
+      'vit_concat': B*W frames in, each frame's latents folded into one
+          media set per trajectory -> (B/W, T, 2nW(+1), d).
+
+    ``use_hist`` adds the learned frame embedding to each window position's
+    ViT tokens (rows stay per frame); ``use_state`` appends the projected
+    proprio token.  ``window_size`` is the frame window the rows hold."""
     tok_rgb, tok_grip = dual_camera_tokens(params, vision_rgb,
                                            vision_gripper, cfg, stacked)
-    return fuse_vision_tokens(params, tok_rgb, tok_grip, cfg, stacked)
+    return fuse_vision_tokens(params, tok_rgb, tok_grip, cfg, state_tensor,
+                              stacked, window_size)
 
 
 def dual_camera_tokens(params: dict, vision_rgb: torch.Tensor,
                        vision_gripper: Optional[torch.Tensor],
                        cfg: DeerConfig, stacked: Optional[dict] = None):
-    """Same-resolution cameras share the ViT as one doubled batch."""
-    if not cfg.use_gripper or vision_gripper is None:
+    """Camera -> ViT tokens.  Cameras at one resolution share the ViT as
+    one doubled batch, unless each has its own resampler (and the fusion is
+    not 'pre'); a gripper at its native size (``gripper_res``) runs its own
+    pass.  'two_way' encodes the static camera only."""
+    grip_on = (cfg.use_gripper and vision_gripper is not None
+               and cfg.fusion_mode != "two_way")
+    if not grip_on:
         return vision_tokens(params, vision_rgb, cfg, stacked), None
-    if vision_gripper.shape[-2:] != vision_rgb.shape[-2:]:
-        raise NotImplementedError("cameras at different resolutions")
-    both = torch.cat([vision_rgb, vision_gripper], dim=0)
-    tok = vision_tokens(params, both, cfg, stacked)
-    b = vision_rgb.shape[0]
-    return tok[:b], tok[b:]
+    same_res = vision_gripper.shape[-2:] == vision_rgb.shape[-2:]
+    if same_res and (cfg.fusion_mode == "pre" or not cfg.sep_resampler):
+        both = torch.cat([vision_rgb, vision_gripper], dim=0)
+        tok = vision_tokens(params, both, cfg, stacked)
+        b = vision_rgb.shape[0]
+        return tok[:b], tok[b:]
+    return (vision_tokens(params, vision_rgb, cfg, stacked),
+            vision_tokens(params, vision_gripper, cfg, stacked))
 
 
 def vision_tokens(params: dict, v: torch.Tensor, cfg: DeerConfig,
                   stacked: Optional[dict] = None) -> torch.Tensor:
-    """ViT forward -> token grid (B, T, F, P, width); with
-    ``cfg.vit.tome_r`` > 0 the ToMe-merged tower (P less the merges; the
-    perceiver reads tokens as a set).  The ViT is cut from the graph unless
-    ``cfg.unfreeze_vit`` (the JAX package's ``stop_gradient``,
-    flamingo.py:202-207): it runs under ``no_grad``, which also keeps none
-    of its activations."""
+    """ViT forward -> token grid (B, T, F, P, width), per frame and
+    independent of the window position (so a rolling cache can keep them).
+    With ``cfg.vit.tome_r`` > 0 the ToMe-merged tower (P less the merges;
+    the perceiver reads tokens as a set), except at another resolution than
+    the tower's (the native-size gripper), which runs the exact tower.  The
+    ViT is cut from the graph unless ``cfg.unfreeze_vit`` (the JAX
+    package's ``stop_gradient``, flamingo.py:202-207): it runs under
+    ``no_grad``, which also keeps none of its activations."""
+    stacked = stacked or {}
     b, t, f = v.shape[:3]
     flat = v.reshape((b * t * f,) + v.shape[3:]).to(cfg.dtypes.cdt)
+    native = flat.shape[-2:] == (cfg.vit.image_size, cfg.vit.image_size)
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and cfg.unfreeze_vit):
-        if cfg.vit.tome_r > 0:
+        if cfg.vit.tome_r > 0 and native:
             _, tokens = vit_forward_tome(params["vit"], flat, cfg.vit,
-                                         (stacked or {}).get("vit"))
-        elif stacked and "vit" in stacked:
+                                         stacked.get("vit"))
+        elif "vit" in stacked:
             _, tokens = vit_forward_stacked(params["vit"], stacked["vit"],
                                             flat, cfg.vit)
         else:
@@ -119,20 +155,76 @@ def vision_tokens(params: dict, v: torch.Tensor, cfg: DeerConfig,
 
 def fuse_vision_tokens(params: dict, tok_rgb: torch.Tensor,
                        tok_grip: Optional[torch.Tensor], cfg: DeerConfig,
-                       stacked: Optional[dict] = None) -> torch.Tensor:
-    """Perceiver resample + 'post' fusion: (B, T, 2n, d) media."""
-    def run_perceiver(tok):
-        if stacked and "perceiver" in stacked:
-            return perceiver_forward_stacked(params["perceiver"],
-                                             stacked["perceiver"], tok,
-                                             cfg.perceiver)
-        return perceiver_forward(params["perceiver"], tok, cfg.perceiver)
+                       state_tensor: Optional[torch.Tensor] = None,
+                       stacked: Optional[dict] = None,
+                       window_size: int = 1) -> torch.Tensor:
+    """Frame embeddings, perceiver resampling, the fusion fold and the state
+    token, from (possibly cached) ViT tokens: ``encode_vision`` is this on
+    ``dual_camera_tokens``' output."""
+    stacked = stacked or {}
 
+    def run_perceiver(pkey, tok):
+        if pkey in stacked:
+            return perceiver_forward_stacked(params[pkey], stacked[pkey], tok,
+                                             cfg.perceiver)
+        return perceiver_forward(params[pkey], tok, cfg.perceiver)
+
+    def add_frame_embs(tokens):
+        """(B*W, T, F, v, d) + frame_embs[w] at window position w
+        (flamingo_mpt.py:713-721)."""
+        if not (cfg.use_hist and "frame_embs" in params):
+            return tokens
+        fe = params["frame_embs"].to(tokens.dtype)[:window_size]
+        fe = fe.repeat(tokens.shape[0] // window_size, 1)  # (B*W, d)
+        return tokens + fe[:, None, None, None, :]
+
+    def window_concat(lat):
+        """(B*W, T, n, d) -> (B, T, n*W, d): the window folded into the
+        media tokens."""
+        bw, t, n, d = lat.shape
+        lat = lat.reshape(bw // window_size, window_size, t, n, d)
+        return lat.transpose(1, 2).reshape(bw // window_size, t,
+                                           window_size * n, d)
+
+    def per_camera(rgb_key, grip_key):
+        """Both cameras' latents: one doubled-batch pass through a shared
+        resampler at equal token counts, else one pass each."""
+        if rgb_key == grip_key and tok_rgb.shape[3] == tok_grip.shape[3]:
+            lat = run_perceiver(rgb_key, torch.cat([tok_rgb, tok_grip]))
+            b = tok_rgb.shape[0]
+            return lat[:b], lat[b:]
+        return run_perceiver(rgb_key, tok_rgb), run_perceiver(grip_key,
+                                                              tok_grip)
+
+    tok_rgb = add_frame_embs(tok_rgb)
+    if tok_grip is not None:
+        tok_grip = add_frame_embs(tok_grip)
+    grip_key = "perceiver_gripper" if cfg.sep_resampler else "perceiver"
     if tok_grip is None:
-        return run_perceiver(tok_rgb)
-    lat = run_perceiver(torch.cat([tok_rgb, tok_grip], dim=0))
-    b = tok_rgb.shape[0]
-    return torch.cat([lat[:b], lat[b:]], dim=2)
+        media = run_perceiver("perceiver", tok_rgb)
+        if cfg.fusion_mode == "vit_concat":
+            media = window_concat(media)
+    elif cfg.fusion_mode == "pre":
+        # one resampler over the union of both cameras' tokens
+        # (flamingo_mpt.py:596-601)
+        media = run_perceiver("perceiver", torch.cat([tok_rgb, tok_grip],
+                                                     dim=3))
+    elif cfg.fusion_mode == "vit_concat":
+        rgb_lat, grip_lat = per_camera("perceiver", grip_key)
+        media = torch.cat([window_concat(rgb_lat), window_concat(grip_lat)],
+                          dim=2)
+    else:  # 'post'
+        media = torch.cat(per_camera("perceiver", grip_key), dim=2)
+    if cfg.use_state and state_tensor is not None and "state_fc" in params:
+        st_in = state_tensor
+        if cfg.fusion_mode == "vit_concat" and window_size > 1:
+            # one media set a trajectory: the last frame's state (the
+            # action target is the last step's)
+            st_in = state_tensor.reshape(
+                (-1, window_size) + state_tensor.shape[1:])[:, -1]
+        st = linear(params["state_fc"], st_in.to(cfg.dtypes.cdt))
+        media = torch.cat([media, st.to(media.dtype)], dim=2)
+    return media
 
 
 class TrainOutputs(NamedTuple):
@@ -159,7 +251,10 @@ def forward_train(params: dict, vision_x: torch.Tensor,
                   dropout: Optional[Dropout] = None) -> TrainOutputs:
     """The Flamingo training forward (flamingo_mpt.py:308-517):
     vision_x / vision_gripper (B*W, 1, 1, 3, H, W), lang_x and
-    attention_mask (B*W, S).
+    attention_mask (B*W, S), state_tensor (B*W, 1, 1, state_dim) or None.
+    Under 'vit_concat' the text is per window, (B, S): the decoder runs B
+    rows with the frames folded into the media tokens and the heads see a
+    window of 1 (the last frame's state).
 
     ``no_backbone_grad`` (the exit-only phase) runs vision and decoder under
     ``no_grad``, so only the heads get gradients (JAX: ``stop_gradient`` on
@@ -172,16 +267,18 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     ``rand_layer_ids``.  With ``train`` and a head dropout rate > 0 the
     heads drop through ``dropout`` (from ``gen`` when None), asked for in
     the order final head, internal exits, extra exit, extra exit again."""
-    check_vision_supported(cfg)
     h = cfg.head
-    if state_tensor is not None:
-        raise NotImplementedError("proprio-state models are not ported")
-    w = cfg.window_size
+    w = 1 if cfg.fusion_mode == "vit_concat" else cfg.window_size
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not no_backbone_grad):
-        media = encode_vision(params, vision_x, vision_gripper, cfg)
+        media = encode_vision(params, vision_x, vision_gripper, cfg,
+                              state_tensor, window_size=cfg.window_size)
         hidden, _ = decoder_forward(params["decoder"], lang_x,
                                     attention_mask, media, cfg)
+    st = (None if state_tensor is None
+          else state_tensor.reshape(-1, state_tensor.shape[-1]))
+    if st is not None and cfg.fusion_mode == "vit_concat":
+        st = st.reshape(-1, cfg.window_size, st.shape[-1])[:, -1]
     dev = hidden.device
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -191,7 +288,7 @@ def forward_train(params: dict, vision_x: torch.Tensor,
         dropout = Dropout(gen)
 
     def run_head(head_params, feat):
-        return any_head_forward(head_params, feat, cfg, window=w,
+        return any_head_forward(head_params, feat, cfg, st, window=w,
                                 dropout=dropout)
 
     final_out = run_head(params["lm_head"], hidden[-1])
@@ -240,23 +337,26 @@ def forward_fixed_exit(params: dict, vision_x: torch.Tensor,
                        lang_x: torch.Tensor, attention_mask: torch.Tensor,
                        cfg: DeerConfig, exit_id: int,
                        vision_gripper: Optional[torch.Tensor] = None,
+                       state_tensor: Optional[torch.Tensor] = None,
                        carry=None) -> Tuple[HeadOutput, object]:
     """One streaming frame at a fixed exit: layers [0, exit_id] only (the
     layers above it never run), then the exit's head (``resolve_head``) in
     fp32 with its carry.  Returns (head output, new carry)."""
-    check_vision_supported(cfg)
     if exit_id < 0:
         exit_id += cfg.n_layers
     if not 0 <= exit_id < cfg.n_layers:
         raise ValueError(f"exit_id {exit_id} out of range for a "
                          f"{cfg.n_layers}-layer decoder")
-    media = encode_vision(params, vision_x, vision_gripper, cfg)
+    media = encode_vision(params, vision_x, vision_gripper, cfg,
+                          state_tensor)
     x = embed_tokens(params["decoder"], lang_x, cfg.dtypes.cdt)
     _, x = decoder_segment_forward(params["decoder"], x, attention_mask,
                                    media, cfg, 0, exit_id + 1,
                                    lang_x == cfg.media_token_id)
+    st = (None if state_tensor is None
+          else state_tensor.reshape(-1, state_tensor.shape[-1]))
     return any_head_step(resolve_head(params, cfg, exit_id), x.float(),
-                         carry, cfg)
+                         carry, cfg, st)
 
 
 def resolve_head(params: dict, cfg: DeerConfig, exit_id: int) -> dict:
@@ -286,11 +386,10 @@ def cast_frozen_to_bf16(params: dict, mask: dict) -> dict:
 def trainable_mask(params: dict, cfg: DeerConfig, phase: str = "joint"
                    ) -> dict:
     """Boolean tree of the trainable leaves, keyed off the tree's path names
-    as in the JAX package (for the trees the port builds: no second
-    resampler, state token or frame embeddings; ROADMAP.md M10).  The
-    reference freezes everything, then unfreezes the gated x-attn,
-    perceiver, token embeddings and every head (llama's untied LM head
-    ``norm_f`` / ``lm_head_w`` too, like the embeddings);
+    as in the JAX package.  The reference freezes everything, then
+    unfreezes the gated x-attn, the perceiver(s), token embeddings, the
+    state projection, the frame embeddings and every head (llama's untied
+    LM head ``norm_f`` / ``lm_head_w`` too, like the embeddings);
     phase='exit_only' freezes the backbone too (the second post-strategy
     phase).  Knobs: ``freeze_sampler`` keeps the perceiver frozen,
     ``freeze_embed`` the embeddings, ``unfreeze_vit`` trains the ViT, and
@@ -309,8 +408,10 @@ def trainable_mask(params: dict, cfg: DeerConfig, phase: str = "joint"
         top = keys[0]
         if top == "vit":
             return cfg.unfreeze_vit and joint
-        if top == "perceiver":
+        if top in ("perceiver", "perceiver_gripper"):
             return joint and not cfg.freeze_sampler and cfg.train_params < 0
+        if top in ("state_fc", "frame_embs"):
+            return joint
         if top == "decoder":
             if "xattn" in keys:
                 if budget is not None \

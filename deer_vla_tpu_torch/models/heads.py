@@ -1,5 +1,6 @@
 """Action-head routing by ``cfg.head_type``.  The deterministic LSTM head is
-ported; the fc, gpt and diffusion families raise NotImplementedError."""
+ported; the fc, gpt and diffusion families raise NotImplementedError
+(ROADMAP.md M10b)."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from deer_vla_tpu_torch.ops.lstm import zero_carry
 def _check(cfg: DeerConfig) -> None:
     if cfg.head_type != "deterministic":
         raise NotImplementedError(
-            f"head_type {cfg.head_type!r} is not ported")
+            f"head_type {cfg.head_type!r} is not ported (ROADMAP.md M10b)")
 
 
 def any_head_forward(p: dict, feat: torch.Tensor, cfg: DeerConfig,

@@ -43,11 +43,6 @@ def get_delta(a1: torch.Tensor, a2: torch.Tensor,
     raise NotImplementedError(threshold_type)
 
 
-def _check_state(state, cfg: DeerConfig) -> None:
-    if state is not None and cfg.head.use_state:
-        raise NotImplementedError("proprio-state heads are not ported")
-
-
 # ---------------------------------------------------------------------------
 # calibration deltas (value_net.py:134-160, 'generate' mode)
 # ---------------------------------------------------------------------------
@@ -68,40 +63,62 @@ def generate_exit_deltas(extra_exit_params: dict, hidden_states: torch.Tensor,
     action gap between exit_list[k] and the previous entry of
     [0] + exit_list at window positions W//2-1 .. W-2, each scored after a
     history prefix of random-layer features from a zero carry.
-    ``warm_prefix`` (window-folded, w == 1, models only) puts that many
-    frames of other trajectories' random-layer features before the scored
-    one: the (B, warm_prefix) batch permutations come from ``gen`` or from
-    the caller as ``warm_perms``.  All entries of [0] + exit_list run as one
-    batch through the head."""
+    'vit_concat' folds the window into the media tokens: one position a
+    trajectory, no prefix.  ``warm_prefix`` (window-folded, w == 1, models
+    only) puts that many frames of other trajectories' random-layer
+    features before the scored one: the (B, warm_prefix) batch
+    permutations come from ``gen`` or from the caller as ``warm_perms``.
+    ``state`` (B*W, ..., dim) proprio rows reach a state head frame by
+    frame, the prefix's too (under 'vit_concat' each trajectory's last
+    row).  All entries of [0] + exit_list run as one batch through the
+    head."""
     assert 0 not in exit_list
-    _check_state(state, cfg)
-    w = cfg.window_size
+    w = 1 if cfg.fusion_mode == "vit_concat" else cfg.window_size
     s, d = hidden_states.shape[2], hidden_states.shape[3]
     ids = [0] + list(exit_list)
     feats = hidden_states[ids].reshape(len(ids), -1, w, s, d)
     rand = rand_layer_feat.reshape(-1, w, s, d)
     b = rand.shape[0]
 
-    warm = None
+    st = None
+    if state is not None and cfg.head.use_state:
+        st = state.reshape(-1, state.shape[-1])
+        if w == 1 and st.shape[0] != b:
+            st = st.reshape(b, -1, st.shape[-1])[:, -1:]
+        else:
+            st = st.reshape(-1, w, st.shape[-1])  # (B, W, dim)
+
+    warm = warm_st = None
     if w == 1 and warm_prefix > 0:
         if warm_perms is None:
             assert gen is not None, "warm_prefix needs a generator"
             warm_perms = torch.stack(
                 [torch.randperm(b, generator=gen, device=gen.device)
                  for _ in range(warm_prefix)], dim=1)
-        warm = rand[:, 0][warm_perms.to(rand.device)]  # (B, K, S, D)
+        warm_perms = warm_perms.to(rand.device)
+        warm = rand[:, 0][warm_perms]  # (B, K, S, D)
+        if st is not None:
+            warm_st = st[:, 0][warm_perms]  # (B, K, dim)
 
     per_seq = []
     for seq_id in range(max(w // 2 - 1, 0), max(w - 1, 1)):
         prev = rand[:, :seq_id]
         if warm is not None:
             prev = torch.cat([warm, prev], dim=1)
+        st_win = None
+        if st is not None:
+            st_win = st[:, :seq_id + 1]
+            if warm_st is not None:
+                st_win = torch.cat([warm_st, st_win], dim=1)
+            # the same rows for every entry of [0] + exit_list
+            st_win = st_win.expand(len(ids), *st_win.shape).reshape(
+                -1, st_win.shape[-1])
         last = feats[:, :, seq_id:seq_id + 1]
         combined = torch.cat([prev.expand(len(ids), *prev.shape), last],
                              dim=2)  # (n_exit + 1, B, T, S, D)
         t = combined.shape[2]
         out = any_head_forward(extra_exit_params, combined.reshape(-1, s, d),
-                               cfg, window=t, last_action=True)
+                               cfg, st_win, window=t, last_action=True)
         per_seq.append(out.actions[:, 0].reshape(len(ids), b, -1))
     acts = torch.stack(per_seq, dim=2)  # (n_exit + 1, B, n_seq, 6k)
     delta = get_delta(acts[1:], acts[:-1], threshold_type)
@@ -144,11 +161,11 @@ def generate_streamed_exit_deltas(extra_exit_params: dict,
     indices into exit_list, come from ``commit_exits`` or are drawn from
     ``gen`` with ``exit_sample_probs`` (default uniform)."""
     assert 0 not in exit_list
-    _check_state(state, cfg)
-    if cfg.window_size < 2:
+    if cfg.fusion_mode == "vit_concat" or cfg.window_size < 2:
         raise ValueError(
             "streamed calibration needs a real time window "
-            f"(window={cfg.window_size}); use warm_prefix")
+            f"(fusion_mode={cfg.fusion_mode}, window={cfg.window_size}); "
+            "use warm_prefix for window-folded models")
     if cfg.use_hist:
         raise ValueError("streamed calibration does not apply to use_hist "
                          "models; use the default folded calibration")
@@ -174,14 +191,18 @@ def generate_streamed_exit_deltas(extra_exit_params: dict,
                          "timesteps")
 
     dev = hidden_states.device
+    st = None
+    if state is not None and cfg.head.use_state:
+        st = state.reshape(b, w, -1)
     carry = any_zero_carry(cfg, b, device=dev)
     per_t = []
     for r in range(WARM_ROUNDS + 1):
         for t in range(w):
             rep = tuple(c.repeat(1, n_ids, 1) for c in carry)
+            st_t = None if st is None else st[:, t].repeat(n_ids, 1)
             out, cand = any_head_step(extra_exit_params,
                                       feats[:, :, t].reshape(-1, s, d), rep,
-                                      cfg)
+                                      cfg, st_t)
             if r == WARM_ROUNDS and t >= max(w // 2 - 1, 0):
                 a = out.actions[:, 0].reshape(n_ids, b, -1)
                 per_t.append(get_delta(a[1:], a[:-1], threshold_type))

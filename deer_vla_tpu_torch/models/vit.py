@@ -74,6 +74,25 @@ def _block(p: dict, x: torch.Tensor, heads: int, act) -> torch.Tensor:
     return x + linear(p["mlp_proj"], act(linear(p["mlp_fc"], h)))
 
 
+def resize_pos_embed(pos: torch.Tensor, new_patches: int) -> torch.Tensor:
+    """(1+P0, D) position table -> (1+P, D): the patch rows bilinearly
+    interpolated on the grid in fp32, antialiased when the grid shrinks, as
+    ``jax.image.resize(method="linear")`` computes it; the CLS row kept.
+    Lets the shared tower run the gripper camera at its native size
+    (cfg.gripper_res)."""
+    p0 = pos.shape[0] - 1
+    g0 = int(round(p0 ** 0.5))
+    g1 = int(round(new_patches ** 0.5))
+    if g0 * g0 != p0 or g1 * g1 != new_patches:
+        raise ValueError(f"position table of {p0} patches and {new_patches} "
+                         "patches are not both square grids")
+    grid = pos[1:].float().reshape(1, g0, g0, -1).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(g1, g1), mode="bilinear",
+                         align_corners=False, antialias=True)
+    grid = grid.permute(0, 2, 3, 1).reshape(g1 * g1, -1)
+    return torch.cat([pos[:1], grid.to(pos.dtype)], dim=0)
+
+
 def _prologue(params: dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     if x.shape[-1] % cfg.patch_size:
         raise ValueError(f"input {x.shape[-1]} not a multiple of patch "
@@ -84,8 +103,8 @@ def _prologue(params: dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     h = torch.cat([cls, h], dim=1)
     pos = params["positional_embedding"]
     if pos.shape[0] != h.shape[1]:
-        raise NotImplementedError(
-            "variable-resolution input (resize_pos_embed) is not ported")
+        # a camera at another resolution (the native-size gripper)
+        pos = resize_pos_embed(pos, h.shape[1] - 1)
     return layernorm(params["ln_pre"], h + pos.to(x.dtype))
 
 

@@ -4,7 +4,7 @@ train_utils.py:487-558).
 Per exit: huber on the arm actions (mean over the action dim) plus
 ``bin_coef`` times BCE-with-logits on the gripper; the exits' losses are
 summed (every exit weighs 1, get_exit_weights train_utils.py:179).  The
-diffusion head's loss is not ported (ROADMAP.md M10).
+diffusion head's loss is not ported (ROADMAP.md M10b).
 """
 
 from __future__ import annotations

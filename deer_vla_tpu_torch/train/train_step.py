@@ -34,16 +34,20 @@ def init_train_state(params: dict, optimizer: GroupedAdamW) -> TrainState:
 def _split_micro(batch: Dict[str, torch.Tensor], grad_accum: int,
                  cfg: DeerConfig) -> List[Dict[str, torch.Tensor]]:
     """The microbatches: per-frame leaves (B*W, ...) -> k of (mb*W, ...),
-    the per-window labels (B, ...) -> k of (mb, ...)."""
+    the per-window ones (B, ...) -> k of (mb, ...): the labels, and the text
+    under 'vit_concat'."""
     bs = batch["labels"].shape[0]
     if bs % grad_accum:
         raise ValueError(f"batch {bs} is not divisible by grad_accum "
                          f"{grad_accum}")
     mb = bs // grad_accum
     w = cfg.window_size
+    per_window = {"labels"}
+    if cfg.fusion_mode == "vit_concat":
+        per_window |= {"input_ids", "attention_mask"}
 
     def part(key, x, i):
-        n = mb if key == "labels" else mb * w
+        n = mb if key in per_window else mb * w
         return x[i * n:(i + 1) * n]
 
     return [{k: part(k, v, i) for k, v in batch.items()}
@@ -77,6 +81,7 @@ def loss_and_grads(params: dict, keys: Sequence[str], batch: Dict,
                     params, mb["image"], mb["input_ids"],
                     mb["attention_mask"], cfg, gen,
                     vision_gripper=mb.get("gripper"),
+                    state_tensor=mb.get("state"),
                     no_backbone_grad=phase == "exit_only", train=True,
                     **(draws[i] if draws is not None else {}))
                 loss, m = multi_exit_loss(
@@ -120,7 +125,8 @@ def make_train_step(cfg: DeerConfig, optimizer: GroupedAdamW, *,
     """``step(state, batch, gen=None, draws=None) -> (state, metrics)``.
 
     batch: image, gripper (B*W, 1, 1, 3, H, W); input_ids, attention_mask
-    (B*W, S); labels (B, W, 7).  The trainable leaves are the optimizer's
+    (B*W, S), or (B, S) under 'vit_concat'; labels (B, W, 7) or
+    (B, W, k, 7); state (B*W, 1, 1, state_dim) for a state model.  The trainable leaves are the optimizer's
     non-frozen ones; they hold fp32 masters and are updated in place, so
     the state passed in is the state returned.  ``calvin_multiplier``
     scales the loss before the gradient; the logged loss is the scaled

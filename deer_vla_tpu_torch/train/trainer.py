@@ -9,7 +9,7 @@ Phases (train_calvin_post_strategy.py:644-660):
 Each phase starts a fresh optimizer with its own schedule (two AdamW
 optimizers, train_calvin_post_strategy.py:535-585); auto-resume picks the
 newest checkpoint and restores the phase optimizer's state (:589-629).
-The action normalizer of the diffusion head waits for ROADMAP.md M10, the
+The action normalizer of the diffusion head waits for ROADMAP.md M10b, the
 tcp-frame labels (``--tcp_rel``) for M9b and co-training for M16.
 """
 
@@ -25,8 +25,9 @@ import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
-from deer_vla_tpu_torch.data.preprocess import preprocess_train_frames
-from deer_vla_tpu_torch.data.text import fixed_length
+from deer_vla_tpu_torch.data.preprocess import (preprocess_train_frames,
+                                                state_rows)
+from deer_vla_tpu_torch.data.text import window_text
 from deer_vla_tpu_torch.models.flamingo import (cast_frozen_to_bf16,
                                                 checkpoint_mask, init_deer,
                                                 trainable_mask)
@@ -95,8 +96,9 @@ def prepare_batch(raw: Dict[str, np.ndarray], cfg: DeerConfig,
                   device) -> Dict[str, torch.Tensor]:
     """A loader batch -> the train step's batch on ``device``: frames
     resized, normalized and randomly shifted there (shifts from ``gen``),
-    the instruction repeated per frame and padded to ``cfg.text_len``, the
-    window's action labels (the host-to-device flatten of
+    the instruction repeated per frame (once a window under 'vit_concat')
+    and padded to ``cfg.text_len``, the window's action labels, and a state
+    model's proprio rows (the host-to-device flatten of
     train_utils.py:441-478)."""
     w = cfg.window_size
     stat = torch.as_tensor(raw["rgb_static"]).to(device)
@@ -106,16 +108,17 @@ def prepare_batch(raw: Dict[str, np.ndarray], cfg: DeerConfig,
         grip.reshape(-1, *grip.shape[2:]), rgb_pad=tcfg.rgb_pad,
         gripper_pad=tcfg.gripper_pad, traj_cons=tcfg.traj_cons, window=w,
         size=cfg.vit.image_size, gripper_size=cfg.gripper_res or None)
-    bs, s = raw["input_ids"].shape
-    ids = np.repeat(raw["input_ids"][:, None], w, axis=1).reshape(bs * w, s)
-    mask = np.repeat(raw["attention_mask"][:, None], w,
-                     axis=1).reshape(bs * w, s)
-    ids, mask = fixed_length(ids, mask, cfg.text_len, 0)
-    return {"image": img, "gripper": gri,
-            "input_ids": torch.as_tensor(ids.astype(np.int64), device=device),
-            "attention_mask": torch.as_tensor(mask.astype(np.int64),
-                                              device=device),
-            "labels": torch.as_tensor(raw["actions"][:, :w], device=device)}
+    ids, mask = window_text(raw["input_ids"], raw["attention_mask"], cfg)
+    batch = {"image": img, "gripper": gri,
+             "input_ids": torch.as_tensor(ids.astype(np.int64),
+                                          device=device),
+             "attention_mask": torch.as_tensor(mask.astype(np.int64),
+                                               device=device),
+             "labels": torch.as_tensor(raw["actions"][:, :w], device=device)}
+    state = state_rows(raw, cfg, device)
+    if state is not None:
+        batch["state"] = state
+    return batch
 
 
 class Trainer:

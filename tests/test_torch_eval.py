@@ -286,11 +286,11 @@ def test_cli_lanes_and_fixed_thresholds(capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--visualize", "gifs"], "M9"),
-    (["--frame_cache"], "M10"),
+    (["--diff_steps", "3"], "M10"),
     (["--head_type", "gpt"], "M10"),
-    (["--gripper_res", "84"], "M10"),
+    (["--ddim_eta", "0.5"], "M10"),
     (["--calvin_conf_path", "conf"], "M9"),
-    (["--calib_warm", "3"], "M10")])
+    (["--future_act_len", "3"], "M10")])
 def test_cli_unserved_flags_raise_naming_the_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         cli.main(CLI_ARGS + flag, device="cpu")

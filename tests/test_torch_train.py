@@ -965,10 +965,10 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--cotrain"], "M16"), (["--head_type", "gpt"], "M10"),
-    (["--use_state"], "M10"), (["--use_hist"], "M10"),
-    (["--fusion_mode", "pre"], "M10"), (["--sep_resampler"], "M10"),
-    (["--multi_step_action", "2"], "M10"), (["--gripper_res", "84"], "M10"),
-    (["--clip_state"], "M10"), (["--n_timesteps", "10"], "M10"),
+    (["--n_obs_steps", "3"], "M10"), (["--diff_horizon", "16"], "M10"),
+    (["--coco_ann", "a.json"], "M16"), (["--vqa_ann", "a.json"], "M16"),
+    (["--vl_weight", "0.5"], "M16"), (["--vl_batch_size", "2"], "M16"),
+    (["--process_id", "1"], "M15"), (["--n_timesteps", "10"], "M10"),
     (["--tcp_rel"], "M9b"), (["--tokenizer_path", "x"], "M9"),
     (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
     (["--hidden_size", "64"], "M10")])
