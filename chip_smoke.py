@@ -66,7 +66,20 @@ frame cache against the uncached step, equal exits and arm actions within
 with ``--calib_warm 2``) and ``train_variants`` (``cli/train --use_state
 --fusion_mode vit_concat``, one joint epoch of 4 batches, then ``cli/eval
 --frame_cache`` on its checkpoint, in ``build/chip_smoke_variants/``,
-deleted after).  Then deer_9b (MPT-7B, d_model 4096, x-attn every 4 layers) at its
+deleted after).  The head families (ROADMAP M10b) run on the same draw with
+heads of their own (``head_weights``): ``serve_heads`` (gpt, fc under
+vit_concat and diffusion at B=1 / B=8 over a six-decade threshold sweep;
+gpt also through ``DeerPolicy`` against the scan engine; the diffusion
+model's feature step, its DDIM and DDPM plans timed with their CUDA launches
+profiled, and ``DiffusionSamplerPolicy`` plans), ``cross_check_heads`` (gpt
+and fc a full-depth bf16 step against fp32 on the CPU; the U-Net and a DDIM
+plan on the card against the CPU with the same noise), ``calibrate_heads``
+(gpt and diffusion in both regimes, the realized mix on the samples against
+its target), three ``cli/eval`` rollouts (``--head_type gpt``, ``diffusion
+--diff_steps 10``, the same over 2 lanes) and ``train_heads`` (``cli/train
+--head_type diffusion`` and ``gpt``, one joint epoch of 4 batches, then
+``cli/eval`` on each checkpoint, in ``build/chip_smoke_heads/``, deleted
+after).  Then deer_9b (MPT-7B, d_model 4096, x-attn every 4 layers) at its
 preset depth of 12 layers: K2 / K3 / K4 at its four products (K = 4096 /
 16384, N up to 16384) first, each layer against the plain version, timed
 against the bound and cuBLAS, bit-identical across launches and graph
@@ -457,7 +470,7 @@ def rollout_streams() -> set:
     1 sequentially, the lanes over the pipeline's groups with --lanes."""
     from deer_vla_tpu_torch.cli import eval as cli
     out = set()
-    for _, flags in ROLLOUT_RUNS:
+    for _, flags in ROLLOUT_RUNS + HEAD_ROLLOUTS:
         args = cli.build_parser().parse_args(ROLLOUT_ARGV + flags)
         groups = max(1, min(args.pipeline, args.lanes))
         while args.lanes % groups:
@@ -1112,6 +1125,8 @@ def phase_serve(torch, np, cfg, pol, quantize=None, b1_steps=8,
             return make_policy_inputs(np, cfg, b, seed), {}
     k = cfg.head.multi_step_action
     plan = (k, 7) if k > 1 else (7,)
+    if cfg.head_type == "diffusion":  # the chosen exit's feature
+        plan = (cfg.head.hidden_size,)
     n_exits = len(pol.exits)
     counters = kernel_counters()
     for f in counters.values():
@@ -3143,15 +3158,459 @@ def phase_train_variants(torch, np) -> list:
     return [out]
 
 
+# ---------------------------------------------------------------------------
+# the head families (ROADMAP M10b: fc, gpt, diffusion) on the deer_3b draw
+# ---------------------------------------------------------------------------
+
+# name -> DeerConfig changes: the fc head needs the window folded, the
+# diffusion head takes the default 150 timesteps, horizon 32, 6 steps of
+# history and down dims (256, 512, 1024)
+HEAD_FAMILIES = (("gpt", {"head_type": "gpt"}),
+                 ("fc", {"head_type": "fc", "fusion_mode": "vit_concat"}),
+                 ("diffusion", {"head_type": "diffusion"}))
+# the thresholds the head phases sweep, one a step (a stream at B=8): six
+# decades, as the families compare arm actions or 1024-wide features
+HEAD_SWEEP = [10.0 ** (-6 + 6 * s / 7) for s in range(8)]
+# DDIM evaluations of a plan in the serve and rollout phases
+DDIM_STEPS = 10
+# the U-Net on the card against fp32 on the CPU with the same inputs and
+# noise: the convolutions are fp32 products (no TF32; the settings are
+# recorded beside), so one call differs by summation order (1e-5 relative
+# L2), and a DDIM plan, 10 calls deep and scaled by 1 / sqrt(alpha_bar) at
+# the chain's start, is held to 1e-4
+UNET_TOL = {"unet_rel_l2": 1e-5, "plan_rel_l2": 1e-4}
+HEAD_TRAIN_DIR = REPO / "build" / "chip_smoke_heads"
+HEAD_TRAIN_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--batch_size_calvin",
+                   str(TRAIN_BATCH), "--num_joint_epochs", "1",
+                   "--num_exit_epochs", "0", "--joint_warmup_steps", "1",
+                   "--logging_steps", "1", "--from_scratch"]
+HEAD_ROLLOUTS = (
+    ("rollout_gpt", ["--head_type", "gpt"]),
+    ("rollout_diffusion", ["--head_type", "diffusion", "--diff_steps",
+                           str(DDIM_STEPS)]),
+    ("rollout_diffusion_lanes2", ["--head_type", "diffusion", "--diff_steps",
+                                  str(DDIM_STEPS), "--lanes", "2"]))
+
+
+def head_weights(torch, np, base: dict, cfg) -> dict:
+    """The family's tree on the base draw: every head (final, per-layer
+    exits, extra exit) of ``cfg.head_type`` drawn on the card from
+    SEED + 3, then the variant leaves and, for diffusion, the U-Net and the
+    normalizer, fitted on 2 debug batches' actions; the backbone is the
+    base's."""
+    from deer_vla_tpu_torch.models.flamingo import (init_diffusion_leaves,
+                                                    init_variant_leaves)
+    from deer_vla_tpu_torch.models.heads import init_any_head
+    from deer_vla_tpu_torch.train.trainer import fit_action_normalizer
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    pdt = cfg.dtypes.pdt
+    p = dict(base)
+    for key in ("lm_head", "extra_exit"):
+        p[key] = init_any_head(gen, cfg, "cuda", pdt)
+    p["lm_exits"] = {k: init_any_head(gen, cfg, "cuda", pdt)
+                     for k in base["lm_exits"]}
+    p.update(init_variant_leaves(gen, cfg, "cuda", pdt))
+    if cfg.head_type == "diffusion":
+        p.update(init_diffusion_leaves(gen, cfg, "cuda", pdt))
+        p = fit_action_normalizer(p, calib_debug_batches(cfg, 2, 2)[1])
+    return p
+
+
+def unet_settings(torch) -> dict:
+    return {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def plan_inputs(torch, np, sampler, b: int, seed: int, device):
+    """(cond, mask, features, noise) of ``b`` plans with a random history,
+    drawn on the host and moved to ``device``."""
+    r = np.random.RandomState(seed)
+    hist = r.uniform(-1, 1, (b, sampler.hist_len, sampler.adim)).astype(
+        np.float32)
+    cond, mask = sampler.cond(hist)
+    feats = torch.as_tensor(r.randn(b, sampler.dcfg.global_cond_dim).astype(
+        np.float32))
+    noise = sampler.noise(SEED, range(b)).cpu()
+    return (cond.to(device), mask.to(device), feats.to(device),
+            noise.to(device))
+
+
+def profiled_launches(torch, fn) -> dict:
+    """CUDA kernels launched by one ``fn()`` and their busy time
+    (torch.profiler), beside its host-clock time."""
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", None)
+               or getattr(e, "self_cuda_time_total", 0.0)
+               for e in kernels) / 1e3
+    return {"kernel_launches": sum(e.count for e in kernels),
+            "device_busy_ms": busy, "profiled_wall_ms": wall}
+
+
+def phase_diffusion_plans(torch, np, cfg, p, pol) -> dict:
+    """The diffusion model's plans on the card: the feature step (the scan
+    engine, K1 and K2, median of 5) and the plan apart.  A DDIM plan of
+    DDIM_STEPS U-Net evaluations is timed on the host clock (median of 5
+    after one), profiled once for its CUDA launches, and runs 4 steps of
+    ``DiffusionSamplerPolicy`` around the engine; the full 150-evaluation
+    DDPM chain runs once through the wrapper (its step less the feature
+    step's median is its plan time) and is profiled once.  Each wrapper
+    step gives a finite (W - hist, 7) plan with the gripper at +-1."""
+    from deer_vla_tpu_torch.eval.diffusion_policy import \
+        DiffusionSamplerPolicy
+    from deer_vla_tpu_torch.models.diffusion import sampler_steps
+    pol.set_thresholds([HEAD_SWEEP[4]] * len(pol.exits))
+    pol.reset()
+    args, _ = variant_inputs(np, cfg)(1, 500)
+    feat_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        feature = pol.step(*args)
+        feat_ms.append((time.perf_counter() - t0) * 1e3)
+    feat_median = statistics.median(feat_ms)
+    out = {"phase": "serve_heads_diffusion_plans",
+           "feature_step_ms": feat_ms, "feature_step_median_ms": feat_median,
+           "feature_width": int(feature.shape[0]),
+           "unet_settings": unet_settings(torch), "plans": {}}
+    rows = cfg.window_size - (cfg.n_obs_steps - 1)
+    for kind, steps, wrapper_steps in (("ddim", DDIM_STEPS, 4),
+                                       ("ddpm", 0, 1)):
+        wrapper = DiffusionSamplerPolicy(pol, p, seed=SEED,
+                                         sample_steps=steps)
+        s = wrapper.sampler
+        cond, mask, feats, noise = plan_inputs(torch, np, s, 1, 501, "cuda")
+
+        def plan():
+            return s.sample(cond, mask, feats, noise)
+
+        ms = []
+        if kind == "ddim":
+            plan()
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = plan()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(x).all()), "ddim plan not finite")
+        wrapper.reset()
+        plans, step_ms = [], []
+        for t in range(wrapper_steps):
+            t0 = time.perf_counter()
+            plans.append(wrapper.step(*variant_inputs(np, cfg)(1, 510 + t)[0]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(a.shape == (rows, 7) and bool(np.isfinite(a).all())
+                  and set(a[:, 6].tolist()) <= {-1.0, 1.0} for a in plans),
+              f"{kind}: sampler plans {[a.shape for a in plans]}")
+        if kind == "ddpm":
+            ms = [step_ms[0] - feat_median]
+        prof = profiled_launches(torch, plan)
+        evals = sampler_steps(s.dcfg, steps)
+        out["plans"][kind] = {
+            "unet_evaluations": evals, "plan_ms": ms,
+            "plan_median_ms": statistics.median(ms),
+            "sampler_step_ms": step_ms,
+            "launches_per_plan": prof["kernel_launches"],
+            "launches_per_unet": prof["kernel_launches"] / evals,
+            "device_busy_ms": prof["device_busy_ms"],
+            "profiled_wall_ms": prof["profiled_wall_ms"],
+            "sampler_plan_rows": rows}
+    emit(out)
+    return out
+
+
+def full_depth_launches(torch, np, cfg, pol) -> dict:
+    """Every CUDA kernel a full-depth step launches (every exit checked,
+    the last one taken) and the device's busy time, at B=1 and B=8, one
+    profiled step each after one unprofiled."""
+    out = {}
+    pol.set_thresholds([-1.0] * (len(pol.exits) - 1) + [1e8])
+    for b in (1, 8):
+        args, _ = variant_inputs(np, cfg)(b, 600 + b)
+
+        def step():
+            pol.reset()
+            return pol.step_batch(*args) if b > 1 else pol.step(*args)
+
+        step()
+        out[f"b{b}"] = profiled_launches(torch, step)
+    return out
+
+
+def phase_serve_heads(torch, np, cfg, base: dict, serve: dict) -> list:
+    """Each HEAD_FAMILIES model through ``ScanDeerPolicy`` with K1 and K2:
+    8 B=1 and 4 B=8 steps over HEAD_SWEEP (``phase_serve``: exits among
+    the exit set, finite outputs: a 7-dof action, or the diffusion head's
+    1024-wide feature), peak memory, and every CUDA launch of a full-depth
+    step at B=1 and B=8 beside post's (``full_depth_launches``); the gpt
+    model also through
+    ``DeerPolicy``, held against the scan engine with the same products
+    (``phase_serve_bucketed``: equal exits, actions within 1e-2); the
+    diffusion model's plans (``phase_diffusion_plans``)."""
+    from deer_vla_tpu_torch.eval.policy import DeerPolicy
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.models.value_net import ExitController
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    results, summary = [], {}
+    pol = ScanDeerPolicy(base, cfg, indexed_mm=True)
+    summary["post"] = full_depth_launches(torch, np, cfg, pol)
+    del pol
+    for name, changes in HEAD_FAMILIES:
+        hcfg = variant_config(cfg, changes)
+        p = head_weights(torch, np, base, hcfg)
+        pol = ScanDeerPolicy(p, hcfg, indexed_mm=True)
+        torch.cuda.reset_peak_memory_stats()
+        res = phase_serve(torch, np, hcfg, pol, name=f"serve_heads_{name}",
+                          sweep=HEAD_SWEEP, inputs=variant_inputs(np, hcfg))
+        res["head_params"] = sum(
+            v.numel() for v in flat_leaves(p["extra_exit"]).values())
+        res["full_depth"] = full_depth_launches(torch, np, hcfg, pol)
+        results.append(res)
+        summary[name] = {k: res[k] for k in (
+            "b1_median_ms", "b8_median_ms", "b1_exit_layers",
+            "launches_per_step", "peak_mem_gb", "head_params", "full_depth")}
+        if name == "gpt":
+            deer = DeerPolicy(p, hcfg, controller=ExitController(
+                exit_id_list=list(hcfg.all_exit_ids()),
+                max_layer=hcfg.n_layers))
+            scan_plain = ScanDeerPolicy(p, hcfg)
+            results.append(phase_serve_bucketed(
+                torch, np, hcfg, deer, scan_plain, serve,
+                name="serve_heads_gpt_bucketed", sweep=HEAD_SWEEP,
+                inputs=variant_inputs(np, hcfg)))
+            del deer, scan_plain
+        if name == "diffusion":
+            plans = phase_diffusion_plans(torch, np, hcfg, p, pol)
+            results.append(plans)
+            summary[name]["plans"] = {k: {x: v[x] for x in (
+                "plan_median_ms", "launches_per_plan", "unet_evaluations")}
+                for k, v in plans["plans"].items()}
+        del pol, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_heads",
+          "post": {"b1_median_ms": serve["b1_median_ms"],
+                   "b8_median_ms": serve["b8_median_ms"]},
+          "families": summary})
+    return results
+
+
+def phase_cross_check_heads(torch, np, cfg, base: dict,
+                            cpu_base: dict) -> None:
+    """A full-depth bf16 step of the gpt and the fc model (and the same
+    weights in fp32 on the card) against fp32 on the CPU
+    (``phase_cross_check``'s tolerances); then the diffusion model's U-Net
+    (3 rows at timesteps 0, 75, 149) and a DDIM plan of DDIM_STEPS
+    evaluations, on the card against the CPU with the same inputs and
+    noise (UNET_TOL)."""
+    from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.eval.diffusion_policy import _PlanSampler
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.models.diffusion import unet_forward
+    for name, changes in HEAD_FAMILIES[:2]:
+        hcfg = variant_config(cfg, changes)
+        p = head_weights(torch, np, base, hcfg)
+        cpu_p = dict(cpu_base, **{k: to_torch(v, "cpu") for k, v in p.items()
+                                  if v is not base.get(k)})
+        pol = ScanDeerPolicy(p, hcfg, indexed_mm=True)
+        phase_cross_check(torch, np, hcfg, p, cpu_p, pol,
+                          name=f"cross_check_heads_{name}",
+                          inputs=variant_inputs(np, hcfg)(1, 300))
+        del pol, p, cpu_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    hcfg = variant_config(cfg, dict(HEAD_FAMILIES)["diffusion"])
+    p = head_weights(torch, np, base, hcfg)
+    card = _PlanSampler(hcfg, p, "cuda", DDIM_STEPS, 0.0)
+    cpu = _PlanSampler(hcfg, p, "cpu", DDIM_STEPS, 0.0)
+    cond, mask, feats, noise = plan_inputs(torch, np, cpu, 3, 520, "cpu")
+    t = torch.tensor([0, 75, 149])
+    x = noise[0]
+    with torch.inference_mode():
+        u_card = unet_forward(card.unet, x.cuda(), t.cuda(), card.dcfg,
+                              feats.cuda()).cpu()
+        u_cpu = unet_forward(cpu.unet, x, t, cpu.dcfg, feats)
+        x_card = card.sample(cond.cuda(), mask.cuda(), feats.cuda(),
+                             noise.cuda()).cpu()
+        x_cpu = cpu.sample(cond, mask, feats, noise)
+    got = {"unet_rel_l2": rel_l2(np, u_card.numpy(), u_cpu.numpy()),
+           "plan_rel_l2": rel_l2(np, x_card.numpy(), x_cpu.numpy()),
+           "plan_max_abs": float((x_card - x_cpu).abs().max())}
+    emit({"phase": "cross_check_heads_diffusion", "ddim_steps": DDIM_STEPS,
+          "unet_rows": 3, "timesteps": t.tolist(), "card_vs_cpu_fp32": got,
+          "tolerance": UNET_TOL, "unet_settings": unet_settings(torch)})
+    for key, limit in UNET_TOL.items():
+        check(got[key] <= limit, f"cross_check_heads_diffusion {key} "
+                                 f"{got[key]}")
+    del card, cpu, p
+    torch.cuda.empty_cache()
+
+
+def realized_mix(np, values, thresholds: dict, exits: list) -> list:
+    """The exit mix the thresholds give the calibration samples: a sample
+    exits at the first exit whose delta is at most its threshold, at the
+    last one otherwise."""
+    taken = np.full(values.shape[1], len(exits) - 1)
+    for i in reversed(range(len(exits) - 1)):
+        taken = np.where(values[i] <= thresholds[exits[i]], i, taken)
+    return (np.bincount(taken, minlength=len(exits))
+            / values.shape[1]).tolist()
+
+
+def phase_calibrate_heads(torch, np, cfg, base: dict) -> dict:
+    """Calibration (B=2, W=12, 2 debug batches) of the gpt and the
+    diffusion model, folded and streamed: seconds and kernel counts a
+    batch, the deltas (the diffusion head's on its features), and the
+    realized mix on the samples of the thresholds solved for ratio 0.5
+    against its target."""
+    from deer_vla_tpu_torch.cli.eval import CALIB_BATCH_SIZE as bs
+    from deer_vla_tpu_torch.eval.calibrate import (
+        generate_calibration_values, streamed_sample_probs)
+    from deer_vla_tpu_torch.models.value_net import (exit_probs,
+                                                     solve_thresholds)
+    counters = kernel_counters()
+    out = {"phase": "calibrate_heads", "batch_size": bs, "runs": {}}
+    for name in ("gpt", "diffusion"):
+        hcfg, batches = calib_debug_batches(
+            variant_config(cfg, dict(HEAD_FAMILIES)[name]), bs, 2)
+        p = head_weights(torch, np, base, hcfg)
+        exits = list(hcfg.all_exit_ids())
+        for regime in ("folded", "streamed"):
+            streamed = regime == "streamed"
+            esp = (streamed_sample_probs(hcfg, 0.5, None, "exp", "deer_3b")
+                   if streamed else None)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            vals, secs, launches = [], [], []
+            for batch in batches:
+                for f in counters.values():
+                    f.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vals.append(generate_calibration_values(
+                    p, hcfg, [batch], gen=gen, streamed=streamed,
+                    exit_sample_probs=esp))
+                secs.append(time.perf_counter() - t0)
+                launches.append({n: f.launches for n, f in counters.items()})
+            v = np.concatenate(vals, axis=1)
+            per_traj = hcfg.window_size // 2 + (1 if streamed else 0)
+            check(v.shape == (len(exits), bs * len(batches) * per_traj)
+                  and bool(np.isfinite(v).all()),
+                  f"calibrate_heads {name} {regime}: values {v.shape}")
+            check(all(n["flash_attention"] > 0 for n in launches),
+                  f"calibrate_heads {name}: K1 not launched: {launches}")
+            th, _ = solve_thresholds(v, 0.5, exits, hcfg.n_layers - 1,
+                                     model_name="deer_3b")
+            target = exit_probs(len(exits), 0.5, "exp", "deer_3b").tolist()
+            mix = realized_mix(np, v, th, exits)
+            out["runs"][f"{name}_{regime}"] = {
+                "values_shape": list(v.shape), "min": float(v.min()),
+                "median": float(np.median(v)), "max": float(v.max()),
+                "thresholds": th, "target_mix": target,
+                "realized_mix": mix,
+                "mix_max_abs_gap": max(abs(a - b)
+                                       for a, b in zip(mix, target)),
+                "seconds_per_batch": secs, "launches": launches[-1]}
+        del p
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_train_heads(torch, np) -> list:
+    """``cli/train --debug --head_type diffusion`` and ``--head_type gpt``
+    in-process at JAX's defaults (B=6, W=12), one joint epoch of 4
+    batches: finite losses, K1 24 times a step and K2-K4 never, step
+    seconds and peak memory; the diffusion run's checkpoint holds the
+    normalizer it fitted.  Then ``cli/eval --evaluate_from_checkpoint`` on
+    each checkpoint (``phase_rollout``'s checks; DDIM for diffusion).  The
+    run directories are deleted after."""
+    import io
+    from deer_vla_tpu_torch.cli import train as cli
+    from deer_vla_tpu_torch.train.checkpoint import load_checkpoint
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    results = []
+    for name, flags, eval_flags in (
+            ("diffusion", ["--head_type", "diffusion"],
+             ["--diff_steps", str(DDIM_STEPS)]),
+            ("gpt", ["--head_type", "gpt"], [])):
+        run = HEAD_TRAIN_DIR / name
+        shutil.rmtree(run, ignore_errors=True)
+        argv = HEAD_TRAIN_ARGV + ["--run_name", str(run)] + flags
+        counters = kernel_counters()
+        for f in counters.values():
+            f.launches = 0
+        held_gb = released_gb(torch)
+        torch.cuda.reset_peak_memory_stats()
+        steps, buf = [], io.StringIO()
+        t0 = time.perf_counter()
+        with train_updates(steps), contextlib.redirect_stdout(buf):
+            trainer = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        (OUT_DIR / f"cli_train_heads_{name}.log").write_text(buf.getvalue())
+        check(trainer.cfg.head_type == name, f"train_heads {name}: config")
+        check(len(steps) == TRAIN_STEPS // 2 and all(
+            np.isfinite(s["loss"]) for s in steps),
+            f"train_heads {name}: losses {[s['loss'] for s in steps]}")
+        check(launches["flash_attention"] == VIT_LAYERS * len(steps)
+              and all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+              f"train_heads {name}: launches {launches}")
+        ckpt = run / "deer_0.ckpt"
+        out = {"phase": f"train_heads_{name}", "argv": argv,
+               "seconds": seconds, "losses": [s["loss"] for s in steps],
+               "step_s": step_intervals(steps),
+               "step_s_median": statistics.median(step_intervals(steps)),
+               "peak_memory_gb": peak_gb, "allocated_before_gb": held_gb,
+               "trainable": len(steps[0]["keys"]),
+               "trainable_params": sum(
+                   v.numel() for k, v in flat_leaves(trainer.params).items()
+                   if k in steps[0]["keys"]),
+               "checkpoint_bytes": ckpt.stat().st_size, "launches": launches}
+        if name == "diffusion":
+            norm = trainer.params["diffusion"]["norm"]
+            saved = load_checkpoint(str(ckpt), trainer.params)[0][
+                "diffusion"]["norm"]
+            check(all(torch.equal(saved[k], norm[k]) for k in norm)
+                  and not bool((norm["scale"] == 1).all()),
+                  "train_heads diffusion: the fitted normalizer is not in "
+                  "the checkpoint")
+            out["normalizer"] = {k: v.tolist() for k, v in norm.items()}
+        emit(out)
+        del trainer
+        released_gb(torch)
+        eval_argv = (["--debug", "--model", "deer_3b",
+                      "--evaluate_from_checkpoint", str(ckpt)]
+                     + ROLLOUT_ARGV[3:] + eval_flags)
+        out["runs"] = {"eval": phase_rollout(
+            torch, np, f"train_heads_{name}_eval", eval_argv)}
+        shutil.rmtree(run, ignore_errors=True)
+        torch.cuda.empty_cache()
+        results.append(out)
+    shutil.rmtree(HEAD_TRAIN_DIR, ignore_errors=True)
+    return results
+
+
 def drive_paths(torch, np, cfg) -> tuple:
     """The main paths on seeded deer_3b weights: serving in every mode with
     its cross-checks, the serving variants (DeerPolicy, the caches,
     BatchedDeerPolicy, ToMe), the vision, state and window variants on the
     same draw (serve_variants, cross_check_variants, serve_folded,
-    calibrate_variants), calibration with its cross-check, the train
-    step's cross-check and guard, the cli/eval rollouts, then cli/train and
-    cli/eval on its checkpoint, and the same for a vit_concat state model
-    (train_variants)."""
+    calibrate_variants), the head families (serve_heads,
+    cross_check_heads, calibrate_heads), calibration with its cross-check,
+    the train step's cross-check and guard, the cli/eval rollouts (the head
+    families' too), then cli/train and cli/eval on its checkpoint, and the
+    same for a vit_concat state model (train_variants) and for the
+    diffusion and gpt heads (train_heads)."""
     from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.eval.policy import DeerPolicy
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
@@ -3181,6 +3640,9 @@ def drive_paths(torch, np, cfg) -> tuple:
     phase_cross_check_variants(torch, np, cfg, params, cpu_params)
     variants += phase_serve_folded(torch, np, cfg, params)
     variants.append(phase_calibrate_variants(torch, np, cfg, params))
+    variants += phase_serve_heads(torch, np, cfg, params, serve)
+    phase_cross_check_heads(torch, np, cfg, params, cpu_params)
+    variants.append(phase_calibrate_heads(torch, np, cfg, params))
     calib = phase_calibrate(torch, np, cfg, params)
     phase_calibrate_cross_check(torch, np, cfg, params, cpu_params)
     phase_train_cross_check(torch, np, params, cpu_params)
@@ -3189,7 +3651,7 @@ def drive_paths(torch, np, cfg) -> tuple:
     del params
     torch.cuda.empty_cache()
     rollouts = {name: phase_rollout(torch, np, name, ROLLOUT_ARGV + flags)
-                for name, flags in ROLLOUT_RUNS}
+                for name, flags in ROLLOUT_RUNS + HEAD_ROLLOUTS}
     piped, plain = (rollouts["rollout_lanes4_pipeline2"]["report"],
                     rollouts["rollout_lanes4"]["report"])
     check(piped == plain, f"--pipeline 2 --env_workers 2 changed the "
@@ -3197,6 +3659,7 @@ def drive_paths(torch, np, cfg) -> tuple:
     paths = variants + list(rollouts.values()) + [
         phase_train(torch, np), phase_train_eval(torch, np)]
     paths += phase_train_variants(torch, np)
+    paths += phase_train_heads(torch, np)
     phase_calvin_data(np)
     paths += [phase_train_calvin(torch, np),
               phase_train_calvin_difws(torch, np),

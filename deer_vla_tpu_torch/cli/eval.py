@@ -14,7 +14,11 @@ host-bucketed ``DeerPolicy`` (``--engine``, ``--exit_id``,
 ``--layerwise_exit_eval``), optionally behind the vision and action caches;
 ``--lanes`` through ``ScanDeerPolicy.step_batch`` (``--pipeline``,
 ``--env_workers``); ``--vit_tome_r`` merges ViT tokens in calibration and
-serving (``build_policy``).  The model variant comes from the checkpoint's
+serving (``build_policy``).  The fc, gpt and diffusion heads
+(``--head_type`` for a seeded model, else the checkpoint's) serve through
+the same engines; a diffusion model's plans come from the DDPM chain or
+``--diff_steps`` DDIM steps (``--ddim_eta``, ``--future_act_len``),
+through ``BatchedDiffusionSampler`` under ``--lanes``.  The model variant comes from the checkpoint's
 sidecar config ('pre' / 'two_way' / 'vit_concat' fusion, a second
 resampler, proprio state, ``use_hist``, a native-size gripper,
 ``multi_step_action``); ``--gripper_res`` sets the gripper's size,
@@ -75,16 +79,12 @@ UNSERVED = (
     ("--calvin_conf_path", "", {}, "M9 (the CALVIN env and data)"),
     ("--eval_sequences", "eval_sequences.json", {},
      "M9 (the CALVIN env and data)"),
-    ("--diverse_inst", False, _FLAG, "M9 (the CALVIN env and data)"),
+    ("--diverse_inst", False, _FLAG, "M9b (enriched instructions)"),
     ("--annotation_cache", "lang_annotation_cache.json", {},
-     "M9 (the CALVIN env and data)"),
+     "M9b (enriched instructions)"),
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
-    ("--tcp_rel", False, _FLAG, "M9 (tcp-frame actions)"),
-    ("--visualize", "", {}, "M9 (rollout GIFs)"),
-    ("--head_type", "deterministic", {}, "M10b (other head families)"),
-    ("--diff_steps", 0, {"type": int}, "M10b (the diffusion head)"),
-    ("--ddim_eta", 0.0, {"type": float}, "M10b (the diffusion head)"),
-    ("--future_act_len", -1, {"type": int}, "M10b (the diffusion head)"),
+    ("--tcp_rel", False, _FLAG, "M9b (tcp-frame actions)"),
+    ("--visualize", "", {}, "M9b (rollout GIFs)"),
 )
 
 
@@ -137,6 +137,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "(bucketed engine, value_net.py:92-95)")
     p.add_argument("--multi_execution", type=int, default=1,
                    help="repeat each action this many env steps")
+    p.add_argument("--head_type", default=None,
+                   choices=["deterministic", "fc", "gpt", "diffusion"],
+                   help="the head family of the seeded --model (fc needs a "
+                        "window-folded checkpoint); a checkpoint's is its "
+                        "sidecar's")
+    p.add_argument("--diff_steps", type=int, default=0,
+                   help="diffusion head: >0 samples plans with a DDIM "
+                        "subsequence of this many U-Net evaluations instead "
+                        "of the full n_timesteps DDPM chain (the reference "
+                        "always runs full DDPM, action_head.py:1028)")
+    p.add_argument("--ddim_eta", type=float, default=0.0,
+                   help="DDIM stochasticity (0 = deterministic)")
+    p.add_argument("--future_act_len", type=int, default=-1,
+                   help="diffusion head: execute only the first K sampled "
+                        "actions of each plan (eval_calvin.py:209)")
     p.add_argument("--layerwise_exit_eval", action="store_true",
                    help="the final action from the chosen exit's own head "
                         "(lm_exits[i] / lm_head), each head streaming its "
@@ -308,6 +323,11 @@ def load_model(args, dev: torch.device):
 
     if not args.evaluate_from_checkpoint:
         cfg = model_config(args)
+        if args.head_type:
+            # the family at cli/train's defaults of the head flags
+            from deer_vla_tpu_torch.cli.train import head_family_updates
+            cfg = dataclasses.replace(cfg, **head_family_updates(
+                args.head_type, cfg.window_size))
         return cfg, init_deer(cfg, seed=args.seed, device=dev)
     path = args.evaluate_from_checkpoint
     stem = path[:-5] if path.endswith(".ckpt") else path
@@ -319,6 +339,9 @@ def load_model(args, dev: torch.device):
     if args.max_layer > 0:
         cfg = dataclasses.replace(cfg, mpt=dataclasses.replace(
             cfg.mpt, n_layers=args.max_layer))
+    if args.head_type and args.head_type != cfg.head_type:
+        raise SystemExit(f"--head_type {args.head_type}: {path} holds a "
+                         f"{cfg.head_type!r} head")
     try:
         params = rebuild_backbone(side.get("meta", {}).get("init"), cfg, dev)
     except RuntimeError as err:
@@ -432,19 +455,40 @@ def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
     controller.set_thresholds(thresholds)
 
 
+def check_head_flags(args, cfg) -> None:
+    """The JAX CLI's refusals for the fc, gpt and diffusion heads
+    (cli/eval.py:361-376)."""
+    if cfg.head_type == "deterministic":
+        return
+    if cfg.head_type == "diffusion" and args.action_cache_tau > 0:
+        raise SystemExit("--action_cache_tau does not compose with the "
+                         "diffusion head's plan sampling")
+    if cfg.head_type == "diffusion" and args.multi_execution > 1:
+        raise SystemExit("--multi_execution has no effect with the diffusion "
+                         "head (it emits its own action plan); use "
+                         "--future_act_len to bound the executed plan length")
+    if args.vision_cache_tau > 0:
+        raise SystemExit("--vision_cache_tau currently serves the "
+                         "deterministic LSTM head only")
+
+
 def build_policy(args, cfg, params, controller, max_layer, dev):
     """The sequential policy, routed as the JAX CLI routes it
     (cli/eval.py:348-434): ``ScanDeerPolicy`` for dynamic exit unless the
     bucketed engine is asked for or needed (the ensemble, --multi_execution,
     --layerwise_exit_eval, a fixed --exit_id), each wrapped in its vision
-    cache with --vision_cache_tau, then in the action cache with
+    cache with --vision_cache_tau; a diffusion model's policy in the DDPM /
+    DDIM sampler (``DiffusionSamplerPolicy``); then the action cache with
     --action_cache_tau."""
     from deer_vla_tpu_torch.eval.caching import (ActionCachePolicy,
                                                  FrameCachePolicy,
                                                  VisionCacheDeerPolicy,
                                                  VisionCacheScanPolicy)
+    from deer_vla_tpu_torch.eval.diffusion_policy import \
+        DiffusionSamplerPolicy
     from deer_vla_tpu_torch.eval.policy import DeerPolicy
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    check_head_flags(args, cfg)
     quantize = None if args.quantize == "none" else args.quantize
     use_fused = (args.engine == "fused"
                  or (args.engine == "auto" and controller is not None
@@ -487,10 +531,43 @@ def build_policy(args, cfg, params, controller, max_layer, dev):
                             quantize=quantize, device=dev)
         if args.vision_cache_tau > 0:
             policy = VisionCacheDeerPolicy(policy, tau=args.vision_cache_tau)
+    if cfg.head_type == "diffusion":
+        policy = DiffusionSamplerPolicy(
+            policy, params, future_act_len=args.future_act_len,
+            seed=args.seed, sample_steps=args.diff_steps,
+            ddim_eta=args.ddim_eta)
     if args.action_cache_tau > 0:
         policy = ActionCachePolicy(policy, tau=args.action_cache_tau,
                                    refresh_every=args.action_cache_refresh)
     return policy
+
+
+def batched_policy(args, cfg, params, policy, thresholds, max_layer, dev):
+    """The ``--lanes`` engine: the sequential path's ``ScanDeerPolicy``
+    (also from inside a diffusion model's sampler) or a new one, and for a
+    diffusion model the lanes' sampler around it
+    (``BatchedDiffusionSampler``)."""
+    from deer_vla_tpu_torch.eval.diffusion_policy import \
+        BatchedDiffusionSampler
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    inner = (policy.policy if cfg.head_type == "diffusion"
+             and isinstance(getattr(policy, "policy", None), ScanDeerPolicy)
+             else policy)
+    bpolicy = inner
+    if not isinstance(inner, ScanDeerPolicy):
+        bpolicy = ScanDeerPolicy(
+            params, cfg, threshold_type=args.threshold_type,
+            max_layer=max_layer, steps_per_stage=args.steps_per_stage,
+            indexed_mm=cfg.mpt.arch == "mpt",
+            quantize=None if args.quantize == "none" else args.quantize,
+            device=dev)
+        bpolicy.set_thresholds(thresholds)
+    if cfg.head_type == "diffusion":
+        bpolicy = BatchedDiffusionSampler(
+            bpolicy, params, future_act_len=args.future_act_len,
+            seed=args.seed, sample_steps=args.diff_steps,
+            ddim_eta=args.ddim_eta)
+    return bpolicy
 
 
 def main(argv=None, device: Optional[str] = None) -> dict:
@@ -508,7 +585,6 @@ def main(argv=None, device: Optional[str] = None) -> dict:
                                                  evaluate_policy,
                                                  make_debug_sequences,
                                                  process_count)
-    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
     from deer_vla_tpu_torch.models.value_net import (ExitController,
                                                      exit_probs)
 
@@ -555,15 +631,8 @@ def main(argv=None, device: Optional[str] = None) -> dict:
             for _ in range(max(args.lanes, 1))]
     t0 = time.perf_counter()
     if args.lanes > 1:
-        bpolicy = policy
-        if not isinstance(policy, ScanDeerPolicy):
-            bpolicy = ScanDeerPolicy(
-                params, cfg, threshold_type=args.threshold_type,
-                max_layer=max_layer, steps_per_stage=args.steps_per_stage,
-                indexed_mm=cfg.mpt.arch == "mpt",
-                quantize=None if args.quantize == "none" else args.quantize,
-                device=dev)
-            bpolicy.set_thresholds(thresholds)
+        bpolicy = batched_policy(args, cfg, params, policy, thresholds,
+                                 max_layer, dev)
         report = evaluate_policy_batched(
             bpolicy, envs, sequences[:n_seq], {}, oracle, tok,
             text_len=cfg.text_len, ep_len=ep_len, n_layers=cfg.n_layers,

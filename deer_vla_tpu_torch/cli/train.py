@@ -14,8 +14,11 @@ plain versions on the CPU.  The weights are ``init_deer`` draws from
 their ``.json`` sidecars, and ``cli/eval --evaluate_from_checkpoint``
 serves them.  The vision, state and window variants are flags
 (``--fusion_mode``, ``--sep_resampler``, ``--use_state`` [``--clip_state``],
-``--use_hist``, ``--gripper_res``, ``--multi_step_action``) and ride the
-sidecar config into evaluation.  The flags keep the JAX names; a JAX flag
+``--use_hist``, ``--gripper_res``, ``--multi_step_action``), and so are
+the head families (``--head_type fc|gpt|diffusion`` with ``--hidden_size``,
+``--n_timesteps``, ``--n_obs_steps``, ``--diff_horizon``); all ride the
+sidecar config into evaluation.  A diffusion model's normalizer is fitted
+on the training batches and saved in its checkpoints.  The flags keep the JAX names; a JAX flag
 this CLI does not serve raises SystemExit naming the ROADMAP.md item that
 will serve it.
 """
@@ -36,13 +39,7 @@ MODELS = MODEL_REGISTRY
 # JAX flags not served yet: (flag, JAX default, argparse keywords, the
 # ROADMAP.md item that serves it).  A value other than the default raises.
 _FLAG = {"action": "store_true"}
-_HEADS = "M10b (the fc, gpt and diffusion heads)"
 UNSERVED = (
-    ("--head_type", "deterministic", {}, _HEADS),
-    ("--hidden_size", None, {"type": int}, _HEADS),
-    ("--n_timesteps", 150, {"type": int}, _HEADS),
-    ("--n_obs_steps", 6, {"type": int}, _HEADS),
-    ("--diff_horizon", 32, {"type": int}, _HEADS),
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
     ("--tcp_rel", False, _FLAG, "M9b (tcp-frame actions)"),
     ("--cotrain", False, _FLAG, "M16 (vision-language co-training)"),
@@ -124,6 +121,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gripper-BCE weight; default 0.05 with --real_data, "
                         "else 0.01 (train_utils.py:314-316)")
     p.add_argument("--exit_strategy", default="post", choices=["post"])
+    p.add_argument("--head_type", default="deterministic",
+                   choices=["deterministic", "fc", "gpt", "diffusion"],
+                   help="action-head family (models/heads.py); fc needs "
+                        "--use_hist or --fusion_mode vit_concat")
+    p.add_argument("--hidden_size", type=int, default=None,
+                   help="GPTDecoder backbone width (head_type gpt); default "
+                        "the decoder's width")
+    p.add_argument("--n_timesteps", type=int, default=150,
+                   help="diffusion timesteps (head_type diffusion)")
+    p.add_argument("--n_obs_steps", type=int, default=6,
+                   help="action-history length + 1 for the diffusion head "
+                        "(clamped to the window)")
+    p.add_argument("--diff_horizon", type=int, default=32,
+                   help="the diffusion plan's horizon (at least the window)")
     p.add_argument("--loss_multiplier_calvin", type=float, default=1.0)
     p.add_argument("--save_freq", type=int, default=1)
     p.add_argument("--calvin_dataset", default="",
@@ -187,6 +198,27 @@ def check_served(args) -> None:
                          "CALVIN-format directory) or --debug")
 
 
+def head_family_updates(head_type: str, window: int,
+                        hidden_size: Optional[int] = None,
+                        n_timesteps: int = 150, n_obs_steps: int = 6,
+                        diff_horizon: int = 32) -> dict:
+    """The config fields of the head flags (JAX cli/train.py:216-230): the
+    family, the gpt width and, for diffusion, the timesteps, the history
+    clamped to the window and the horizon at least the window (the
+    reference couples them through eval_hist_size = n_obs_steps,
+    train_calvin_post_strategy.py:348)."""
+    updates = {}
+    if head_type != "deterministic":
+        updates["head_type"] = head_type
+    if hidden_size:
+        updates["gpt_hidden_size"] = hidden_size
+    if head_type == "diffusion":
+        updates["diff_timesteps"] = n_timesteps
+        updates["n_obs_steps"] = min(n_obs_steps, window)
+        updates["diff_horizon"] = max(diff_horizon, window)
+    return updates
+
+
 def make_model_config(args):
     """The model config the flags ask for (JAX ``make_model_config``)."""
     dtypes = BF16 if args.precision == "bf16" else FP32
@@ -213,6 +245,10 @@ def make_model_config(args):
                "remat_policy": args.remat_policy,
                "train_params": args.train_params,
                "use_gripper": not args.no_gripper}
+    updates.update(head_family_updates(
+        args.head_type, cfg.window_size, hidden_size=args.hidden_size,
+        n_timesteps=args.n_timesteps, n_obs_steps=args.n_obs_steps,
+        diff_horizon=args.diff_horizon))
     if args.single_exit:
         updates["multi_exit"] = False
     head_updates = {}

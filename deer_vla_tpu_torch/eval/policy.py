@@ -28,7 +28,9 @@ stays on the extra exit (eval_calvin.py:583).
 
 The decoder runs ``linear`` on the unstacked per-layer weights, as the JAX
 package's segment programs do, so K2-K4 do not run here; K1 runs in the
-ViT of the encode prefix.
+ViT of the encode prefix.  Every head family is served (``models/heads``);
+a diffusion model's step returns the chosen exit's conditioning feature,
+which ``eval/diffusion_policy.DiffusionSamplerPolicy`` turns into a plan.
 """
 
 from __future__ import annotations
@@ -73,7 +75,12 @@ class DeerPolicy(HostInputs):
                  use_action_ensemble: bool = False,
                  multi_execution: int = 1,
                  quantize: Optional[str] = None, device=None):
-        check_serving_supported(cfg, allow_window_folded=True)
+        check_serving_supported(cfg, allow_window_folded=True,
+                                allow_any_head=True)
+        if cfg.head_type == "diffusion" and use_action_ensemble:
+            raise NotImplementedError(
+                "action ensembling averages exit ACTIONS; the diffusion "
+                "head's exits emit conditioning features")
         self.device = resolve_device(device)
         params = to_torch(params, self.device)
         self.quantize = None if quantize in (None, "none") else quantize
@@ -280,6 +287,10 @@ class DeerPolicy(HostInputs):
                 lc = any_zero_carry(cfg, streams, device=self.device)
             out, self.layer_carries[exit_layer] = self._head(
                 self._final_heads[exit_layer], x, lc, hstate)
+        if cfg.head_type == "diffusion":
+            # the chosen exit's conditioning feature, for the DDPM sampler
+            # (eval/diffusion_policy.DiffusionSamplerPolicy)
+            return out.actions[0, 0].float().cpu().numpy()
         if ctrl is not None and reuse:
             ctrl.cur_exit_id = exit_layer
             ctrl.record_action(_host_read(None, crit_out)[1:])

@@ -45,7 +45,9 @@ from deer_vla_tpu_torch.models.flamingo import (dual_camera_tokens,
 from deer_vla_tpu_torch.models.gated_xattn import gated_xattn_forward
 from deer_vla_tpu_torch.models.heads import (any_head_forward, any_head_step,
                                              any_zero_carry,
-                                             head_action_width)
+                                             head_action_width,
+                                             head_gripper_width, reset_carry,
+                                             select_carry)
 from deer_vla_tpu_torch.models.llama import llama_block_forward, rope_tables
 from deer_vla_tpu_torch.models.mpt import (embed_tokens, make_attn_bias,
                                            mpt_block_forward,
@@ -123,12 +125,15 @@ def prune_serving_params(params: dict, cfg: DeerConfig) -> dict:
 
 
 def check_serving_supported(cfg: DeerConfig,
-                            allow_window_folded: bool = False) -> None:
+                            allow_window_folded: bool = False,
+                            allow_any_head: bool = False) -> None:
     """The engines serve per-frame media; 'vit_concat' and ``use_hist`` fold
     the frame window into the media or the head, which only the engines
     that feed a rolling window serve (``allow_window_folded``: the scan
     engine and ``DeerPolicy``).  Both at once is refused, as in the JAX
-    package, and so is a head family the port does not have."""
+    package.  The fc, gpt and diffusion heads serve through the engines
+    that route every head family (``allow_any_head``: the scan engine and
+    ``DeerPolicy``)."""
     if cfg.fusion_mode == "vit_concat" and not allow_window_folded:
         raise NotImplementedError(
             "this engine does not serve --fusion_mode vit_concat; use the "
@@ -142,9 +147,11 @@ def check_serving_supported(cfg: DeerConfig,
         raise NotImplementedError(
             "use_hist + vit_concat combined serving is undefined (per-frame "
             "text vs per-trajectory media); train/serve one or the other")
-    if cfg.head_type != "deterministic":
+    if cfg.head_type != "deterministic" and not allow_any_head:
         raise NotImplementedError(
-            f"head_type {cfg.head_type!r} is not ported (ROADMAP.md M10b)")
+            f"this engine hardcodes the LSTM head; head_type "
+            f"{cfg.head_type!r} serves through ScanDeerPolicy or "
+            "DeerPolicy (cli.eval routes it automatically)")
 
 
 def folded_window(cfg: DeerConfig) -> int:
@@ -158,7 +165,9 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     threshold_type: str = "L2",
                     max_layer: Optional[int] = None,
                     indexed_mm: bool = False):
-    """Returns (exits, encode, decode, encode_frame, decode_tokens).
+    """Returns (exits, encode, decode, encode_frame, decode_tokens), routed
+    by ``cfg.head_type`` (``models/heads``; for diffusion the "arm" is the
+    chosen exit's conditioning feature and the gripper a zero).
 
     ``encode(params, stacked, img, grip, ids, state=None)`` -> (media, x,
     media locations); ``decode(params, stacked, media, x, mloc, mask,
@@ -204,7 +213,7 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
     has_xattn = [cfg.has_xattn(i) for i in range(cfg.n_layers)]
     head_key = "lm_head" if cfg.share_exit else "extra_exit"
     adim = head_action_width(cfg)
-    gdim = cfg.head.multi_step_action
+    gdim = head_gripper_width(cfg)
     enc_w = folded_window(cfg)
 
     def encode(params, stacked, img, grip, ids, state=None):
@@ -286,8 +295,7 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
             st["ref"] = torch.where(done[:, None], st["ref"], arm)
             st["arm"] = torch.where(take[:, None], arm, st["arm"])
             st["grip"] = torch.where(take[:, None], grip, st["grip"])
-            st["carry"] = tuple(torch.where(take[None, :, None], c, bc)
-                                for c, bc in zip(cand, st["carry"]))
+            st["carry"] = select_carry(cfg, take, cand, st["carry"])
             st["exit"] = st["exit"].masked_fill(take, i)
             st["done"] = done | take
             return bool(st["done"].all())
@@ -368,7 +376,8 @@ class ScanDeerPolicy(nn.Module, HostInputs):
                  indexed_mm: bool = False, quantize: Optional[str] = None,
                  device=None):
         super().__init__()
-        check_serving_supported(cfg, allow_window_folded=True)
+        check_serving_supported(cfg, allow_window_folded=True,
+                                allow_any_head=True)
         exit_ids = list(exit_ids or cfg.all_exit_ids())
         (self.exits, self._encode, self._decode, self._encode_frame,
          self._decode_tokens) = build_scan_step(
@@ -475,13 +484,12 @@ class ScanDeerPolicy(nn.Module, HostInputs):
 
     @torch.inference_mode()
     def reset_streams(self, stream_mask) -> None:
-        """Zero the carry of the streams where ``stream_mask`` is true."""
+        """Zero the carry of the streams where ``stream_mask`` is true, by
+        carry layout (the fc head has none)."""
         if self.carry is None:
             return
         m = torch.as_tensor(np.asarray(stream_mask, bool), device=self.device)
-        fresh = any_zero_carry(self.cfg, int(m.shape[0]), device=self.device)
-        self.carry = tuple(torch.where(m[None, :, None], f, c)
-                           for f, c in zip(fresh, self.carry))
+        self.carry = reset_carry(self.cfg, self.carry, m)
 
     # -- inputs --------------------------------------------------------------
     def _run(self, image, gripper, input_ids, attention_mask, thresholds,
@@ -562,6 +570,23 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         return self._postprocess(arm, grip)
 
     @torch.inference_mode()
+    def run_batch(self, image, gripper, input_ids, attention_mask,
+                  state=None):
+        """``step_batch``'s step on the device: (arm (B, 6k), gripper
+        (B, k), exit layers (B,)) as device tensors, the carry committed.
+        Window-folded models take B*W stream-major frame rows, and B text
+        rows ('vit_concat') or B*W (``use_hist``, the goal tiled a
+        frame)."""
+        w = folded_window(self.cfg)
+        streams = input_ids.shape[0] // (w if self.cfg.use_hist else 1)
+        if image.shape[0] != streams * w:
+            raise ValueError(
+                f"batched window-folded step: image rows ({image.shape[0]}) "
+                f"must be streams*window ({streams}*{w}) stream-major frame "
+                "windows")
+        return self._run(image, gripper, input_ids, attention_mask,
+                         self.thresholds, state)
+
     def dispatch_batch(self, image, gripper, input_ids, attention_mask,
                        state=None):
         """The first half of ``step_batch``: runs the step, commits the
@@ -573,19 +598,10 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         into pinned memory with an event that ``finish_batch`` waits on.
         The pipelined rollout steps another lane group's envs meanwhile;
         true overlap of one group's layers with another's host work waits
-        for a loop without host reads (ROADMAP.md M7b).
-
-        Window-folded models take B*W stream-major frame rows, and B text
-        rows ('vit_concat') or B*W (``use_hist``, the goal tiled a frame)."""
-        w = folded_window(self.cfg)
-        streams = input_ids.shape[0] // (w if self.cfg.use_hist else 1)
-        if image.shape[0] != streams * w:
-            raise ValueError(
-                f"batched window-folded step: image rows ({image.shape[0]}) "
-                f"must be streams*window ({streams}*{w}) stream-major frame "
-                "windows")
-        outs = self._run(image, gripper, input_ids, attention_mask,
-                         self.thresholds, state)
+        for a loop without host reads (ROADMAP.md M7b).  The rows are
+        ``run_batch``'s."""
+        outs = self.run_batch(image, gripper, input_ids, attention_mask,
+                              state)
         if self.device.type != "cuda":
             return outs + (None,)
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -598,13 +614,17 @@ class ScanDeerPolicy(nn.Module, HostInputs):
 
     def finish_batch(self, handles):
         """The blocking half: waits for the copy, then (actions (B, 7) or
-        (B, k, 7) plans, exit_layers (B,) int64)."""
+        (B, k, 7) plans, exit_layers (B,) int64); a diffusion model's
+        (B, hidden) features in place of the actions."""
         arm, grip, exit_layer, copied = handles
         if copied is not None:
             copied.synchronize()
+        exits = exit_layer.cpu().numpy().astype(np.int64)
+        if self.cfg.head_type == "diffusion":
+            # the chosen exits' (B, hidden) features, as ``step`` gives
+            return arm.float().cpu().numpy(), exits
         return (host_actions(arm.cpu().numpy(), grip.cpu().numpy(),
-                             self.cfg.head.multi_step_action),
-                exit_layer.cpu().numpy().astype(np.int64))
+                             self.cfg.head.multi_step_action), exits)
 
     def step_batch(self, image, gripper, input_ids, attention_mask,
                    state=None):
@@ -614,5 +634,9 @@ class ScanDeerPolicy(nn.Module, HostInputs):
             image, gripper, input_ids, attention_mask, state))
 
     def _postprocess(self, arm, grip) -> np.ndarray:
+        if self.cfg.head_type == "diffusion":
+            # the chosen exit's conditioning feature, for the DDPM sampler
+            # (eval/diffusion_policy.DiffusionSamplerPolicy)
+            return arm[0].float().cpu().numpy()
         return host_actions(arm[:1].cpu().numpy(), grip[:1].cpu().numpy(),
                             self.cfg.head.multi_step_action)[0]

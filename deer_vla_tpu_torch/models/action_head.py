@@ -40,17 +40,19 @@ def _init_mlp_head(gen, cfg: HeadConfig, out_dim: int, device, dtype) -> dict:
     return {"layers": layers, "lns": lns}
 
 
-def init_head(gen, cfg: HeadConfig, device="cpu",
-              dtype=torch.float32) -> dict:
-    p = {
-        "rnn": init_lstm(gen, cfg.in_features, cfg.hidden_size,
-                         cfg.lstm_num_layers, cfg.lstm_layernorm, device,
-                         dtype),
-        "actions": _init_mlp_head(
-            gen, cfg, cfg.out_features * cfg.multi_step_action, device, dtype),
-        "gripper": _init_mlp_head(gen, cfg, cfg.multi_step_action, device,
-                                  dtype),
-    }
+def init_head(gen, cfg: HeadConfig, device="cpu", dtype=torch.float32,
+              features_only: bool = False) -> dict:
+    """``features_only``: the diffusion head's variant, the LSTM as a
+    feature extractor without the action and gripper MLPs (use_diff,
+    action_head.py:364-371)."""
+    p = {"rnn": init_lstm(gen, cfg.in_features, cfg.hidden_size,
+                          cfg.lstm_num_layers, cfg.lstm_layernorm, device,
+                          dtype)}
+    if not features_only:
+        p["actions"] = _init_mlp_head(
+            gen, cfg, cfg.out_features * cfg.multi_step_action, device, dtype)
+        p["gripper"] = _init_mlp_head(gen, cfg, cfg.multi_step_action, device,
+                                      dtype)
     if cfg.use_state:
         # action_head.py:447-449: the arm state (6) through Linear+ReLU, the
         # gripper state {0, 1} through Embedding+ReLU, both concatenated
@@ -152,6 +154,17 @@ def head_forward(p: dict, feat: torch.Tensor, cfg: HeadConfig,
     act = torch.tanh(_mlp_head_forward(p["actions"], y, cfg, dropout))
     glog = _mlp_head_forward(p["gripper"], y, cfg, dropout)
     return HeadOutput(act, torch.sigmoid(glog), glog)
+
+
+def head_features(p: dict, feat: torch.Tensor, cfg: HeadConfig,
+                  state: Optional[torch.Tensor] = None, *,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Full-window LSTM features (B, W, hidden) from a zero carry: the
+    use_diff return path (action_head.py:602-603), the diffusion model's
+    global conditioning."""
+    x = _prepare_input(p, feat, state, cfg, window if window is not None
+                       else cfg.window_size)
+    return lstm_forward(p["rnn"], x)[0]
 
 
 def head_step(p: dict, feat: torch.Tensor, carry: Optional[Carry],

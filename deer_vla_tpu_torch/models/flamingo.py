@@ -17,8 +17,12 @@ import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
-from deer_vla_tpu_torch.models.action_head import HeadOutput, init_head
-from deer_vla_tpu_torch.models.heads import any_head_forward, any_head_step
+from deer_vla_tpu_torch.models.action_head import HeadOutput
+from deer_vla_tpu_torch.models.diffusion import init_unet
+from deer_vla_tpu_torch.models.heads import (any_head_forward, any_head_step,
+                                             check_head_type,
+                                             diffusion_head_config,
+                                             head_uses_dropout, init_any_head)
 from deer_vla_tpu_torch.models.mpt import (decoder_forward,
                                            decoder_segment_forward,
                                            embed_tokens, init_decoder)
@@ -53,12 +57,25 @@ def init_variant_leaves(gen, cfg: DeerConfig, device, dtype) -> dict:
     return out
 
 
+def init_diffusion_leaves(gen, cfg: DeerConfig, device, dtype) -> dict:
+    """The diffusion head's model-level leaves (flamingo_mpt.py:168-176):
+    one DDPM U-Net shared by every exit and the action normalizer's fp32
+    affine, the identity until the trainer fits it
+    (train_calvin_post_strategy.py:457-461)."""
+    adim = cfg.head.out_features + 1
+    return {"diffusion": {
+        "unet": init_unet(gen, diffusion_head_config(cfg), device, dtype),
+        "norm": {"scale": torch.ones(adim, device=device),
+                 "offset": torch.zeros(adim, device=device)}}}
+
+
 def init_deer(cfg: DeerConfig, seed: int = 0, device=None) -> dict:
-    """Random parameters with the JAX package's tree layout (deterministic
-    head family), drawn from a seeded ``torch.Generator`` on ``device``."""
-    if cfg.head_type != "deterministic":
-        raise NotImplementedError(
-            f"head_type {cfg.head_type!r} is not ported (ROADMAP.md M10b)")
+    """Random parameters with the JAX package's tree layout, the heads of
+    ``cfg.head_type``, drawn from a seeded ``torch.Generator`` on
+    ``device``.  The backbone is drawn first, so a head family's backbone
+    is the plain model's for the same seed; the diffusion head's U-Net and
+    normalizer come last."""
+    check_head_type(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pdt = cfg.dtypes.pdt
@@ -66,17 +83,19 @@ def init_deer(cfg: DeerConfig, seed: int = 0, device=None) -> dict:
         "vit": init_vit(gen, cfg.vit, dev, pdt),
         "perceiver": init_perceiver(gen, cfg.perceiver, dev, pdt),
         "decoder": init_decoder(gen, cfg, dev, pdt),
-        "lm_head": init_head(gen, cfg.head, dev, pdt),
-        "extra_exit": init_head(gen, cfg.head, dev, pdt),
+        "lm_head": init_any_head(gen, cfg, dev, pdt),
+        "extra_exit": init_any_head(gen, cfg, dev, pdt),
         "lm_exits": {},
     }
     if cfg.multi_exit and not cfg.share_exit:
         for layer_id in cfg.exit_layer_ids():
-            params["lm_exits"][str(layer_id)] = init_head(gen, cfg.head, dev,
-                                                          pdt)
+            params["lm_exits"][str(layer_id)] = init_any_head(gen, cfg, dev,
+                                                              pdt)
     if cfg.share_exit:
         del params["extra_exit"]
     params.update(init_variant_leaves(gen, cfg, dev, pdt))
+    if cfg.head_type == "diffusion":
+        params.update(init_diffusion_leaves(gen, cfg, dev, pdt))
     return params
 
 
@@ -266,8 +285,9 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     ``switch_layer_ids`` (B, W) layer indices; the first is returned as
     ``rand_layer_ids``.  With ``train`` and a head dropout rate > 0 the
     heads drop through ``dropout`` (from ``gen`` when None), asked for in
-    the order final head, internal exits, extra exit, extra exit again."""
-    h = cfg.head
+    the order final head, internal exits, extra exit, extra exit again.
+    The diffusion head's outputs are its (B, W, hidden) LSTM features, which
+    the DDPM loss takes (``train/losses.multi_exit_diffusion_loss``)."""
     w = 1 if cfg.fusion_mode == "vit_concat" else cfg.window_size
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not no_backbone_grad):
@@ -282,7 +302,7 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     dev = hidden.device
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
-    if not (train and (h.dropout > 0 or h.lstm_dropout > 0)):
+    if not (train and head_uses_dropout(cfg)):
         dropout = None
     elif dropout is None:
         dropout = Dropout(gen)
@@ -423,6 +443,10 @@ def trainable_mask(params: dict, cfg: DeerConfig, phase: str = "joint"
             if "norm_f" in keys or "lm_head_w" in keys:
                 return joint  # llama's untied LM head (JAX :505-509)
             return False  # the decoder blocks and ln_f stay frozen
+        if top == "diffusion":
+            # the U-Net trains in both phases like the heads (factory.py:232);
+            # the normalizer is fitted from data, never optimized
+            return "norm" not in keys
         return top in ("lm_head", "extra_exit", "lm_exits")
 
     return tree_map_with_path(label, params)
@@ -430,5 +454,10 @@ def trainable_mask(params: dict, cfg: DeerConfig, phase: str = "joint"
 
 def checkpoint_mask(params: dict, cfg: DeerConfig) -> dict:
     """The leaves a delta checkpoint stores: the joint phase's trainable
-    set (the exit-only set is a subset of it)."""
-    return trainable_mask(params, cfg, "joint")
+    set (the exit-only set is a subset of it) and the diffusion head's
+    fitted normalizer, which no phase trains."""
+    def label(keys, trained):
+        return trained or keys[:2] == ("diffusion", "norm")
+
+    return tree_map_with_path(
+        lambda keys, m: label(keys, m), trainable_mask(params, cfg, "joint"))

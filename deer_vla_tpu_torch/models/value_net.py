@@ -22,7 +22,8 @@ import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.models.heads import (any_head_forward, any_head_step,
-                                             any_zero_carry)
+                                             any_zero_carry, head_actions,
+                                             pick_carry, tile_carry)
 
 
 def get_delta(a1: torch.Tensor, a2: torch.Tensor,
@@ -119,7 +120,8 @@ def generate_exit_deltas(extra_exit_params: dict, hidden_states: torch.Tensor,
         t = combined.shape[2]
         out = any_head_forward(extra_exit_params, combined.reshape(-1, s, d),
                                cfg, st_win, window=t, last_action=True)
-        per_seq.append(out.actions[:, 0].reshape(len(ids), b, -1))
+        per_seq.append(head_actions(out, cfg)[:, 0].reshape(len(ids), b,
+                                                            -1))
     acts = torch.stack(per_seq, dim=2)  # (n_exit + 1, B, n_seq, 6k)
     delta = get_delta(acts[1:], acts[:-1], threshold_type)
     return delta.reshape(delta.shape[0], -1)
@@ -198,7 +200,7 @@ def generate_streamed_exit_deltas(extra_exit_params: dict,
     per_t = []
     for r in range(WARM_ROUNDS + 1):
         for t in range(w):
-            rep = tuple(c.repeat(1, n_ids, 1) for c in carry)
+            rep = tile_carry(cfg, carry, n_ids)
             st_t = None if st is None else st[:, t].repeat(n_ids, 1)
             out, cand = any_head_step(extra_exit_params,
                                       feats[:, :, t].reshape(-1, s, d), rep,
@@ -207,8 +209,7 @@ def generate_streamed_exit_deltas(extra_exit_params: dict,
                 a = out.actions[:, 0].reshape(n_ids, b, -1)
                 per_t.append(get_delta(a[1:], a[:-1], threshold_type))
             k = commit[r * w + t] + 1  # entry 0 is never committed
-            carry = tuple(c.reshape(c.shape[0], n_ids, b, -1)[:, k]
-                          for c in cand)
+            carry = pick_carry(cfg, cand, n_ids, k)
     delta = torch.stack(per_t, dim=2)  # (n_exit, B, n_positions)
     return delta.reshape(delta.shape[0], -1)
 

@@ -17,8 +17,14 @@ import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.models.flamingo import forward_train
-from deer_vla_tpu_torch.train.losses import multi_exit_loss
+from deer_vla_tpu_torch.train.losses import (multi_exit_diffusion_loss,
+                                             multi_exit_loss)
 from deer_vla_tpu_torch.train.optimizer import GroupedAdamW, flat_leaves
+
+
+# the diffusion loss's draws in a microbatch's ``draws`` entry: timesteps
+# (B,) and standard-normal noise (B, horizon, 7)
+DIFFUSION_DRAWS = ("diff_t", "diff_noise")
 
 
 class TrainState(NamedTuple):
@@ -65,11 +71,16 @@ def loss_and_grads(params: dict, keys: Sequence[str], batch: Dict,
     leaf the loss does not reach gets ``None``.  The random draws of each
     microbatch come from ``gen``, or from ``draws[i]``: keyword arguments of
     ``forward_train`` (``rand_layer_ids``, ``switch_layer_ids``,
-    ``dropout``)."""
+    ``dropout``) and, for the diffusion head, the loss's ``diff_t`` and
+    ``diff_noise``.  The diffusion head trains on the DDPM loss
+    (``multi_exit_diffusion_loss``), the others on ``multi_exit_loss``."""
     flat = flat_leaves(params)
     leaves = [flat[k] for k in keys]
     micro = [batch] if grad_accum == 1 else _split_micro(batch, grad_accum,
                                                           cfg)
+    if gen is None and draws is None:
+        # forward_train's own default, shared with the diffusion loss
+        gen = torch.Generator(device=batch["labels"].device).manual_seed(0)
     grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
     losses, metrics = [], []
     for leaf in leaves:
@@ -83,11 +94,20 @@ def loss_and_grads(params: dict, keys: Sequence[str], batch: Dict,
                     vision_gripper=mb.get("gripper"),
                     state_tensor=mb.get("state"),
                     no_backbone_grad=phase == "exit_only", train=True,
-                    **(draws[i] if draws is not None else {}))
-                loss, m = multi_exit_loss(
-                    out, mb["labels"], bin_coef,
-                    last_step_only=cfg.use_hist
-                    or cfg.fusion_mode == "vit_concat")
+                    **({k: v for k, v in draws[i].items()
+                        if k not in DIFFUSION_DRAWS}
+                       if draws is not None else {}))
+                if cfg.head_type == "diffusion":
+                    d = draws[i] if draws is not None else {}
+                    loss, m = multi_exit_diffusion_loss(
+                        out, mb["labels"], params["diffusion"], cfg,
+                        gen=gen, t=d.get("diff_t"),
+                        noise=d.get("diff_noise"))
+                else:
+                    loss, m = multi_exit_loss(
+                        out, mb["labels"], bin_coef,
+                        last_step_only=cfg.use_hist
+                        or cfg.fusion_mode == "vit_concat")
                 loss = calvin_multiplier * loss
                 gs = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [g if acc is None else (acc if g is None else acc + g)

@@ -9,8 +9,9 @@ Phases (train_calvin_post_strategy.py:644-660):
 Each phase starts a fresh optimizer with its own schedule (two AdamW
 optimizers, train_calvin_post_strategy.py:535-585); auto-resume picks the
 newest checkpoint and restores the phase optimizer's state (:589-629).
-The action normalizer of the diffusion head waits for ROADMAP.md M10b, the
-tcp-frame labels (``--tcp_rel``) for M9b and co-training for M16.
+A diffusion model's action normalizer is fitted on the loader's actions
+before training (``fit_action_normalizer``).  The tcp-frame labels
+(``--tcp_rel``) wait for ROADMAP.md M9b and co-training for M16.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from deer_vla_tpu_torch.core.device import resolve_device
 from deer_vla_tpu_torch.data.preprocess import (preprocess_train_frames,
                                                 state_rows)
 from deer_vla_tpu_torch.data.text import window_text
+from deer_vla_tpu_torch.models.normalizer import SingleFieldLinearNormalizer
 from deer_vla_tpu_torch.models.flamingo import (cast_frozen_to_bf16,
                                                 checkpoint_mask, init_deer,
                                                 trainable_mask)
@@ -121,6 +123,31 @@ def prepare_batch(raw: Dict[str, np.ndarray], cfg: DeerConfig,
     return batch
 
 
+def fit_action_normalizer(params: dict, loader, max_actions: int = 10000,
+                          mode: str = "limits") -> dict:
+    """The diffusion head's normalizer fitted on up to ``max_actions``
+    dataset actions (train_calvin_post_strategy.py:457-461: 'limits' mode
+    over about 10k stacked actions), as an fp32 affine in
+    params['diffusion']['norm'] on its device; a copy of ``params``."""
+    if "diffusion" not in params:
+        return params
+    acts, n = [], 0
+    for raw in loader:
+        a = np.asarray(raw["actions"], np.float32)
+        acts.append(a.reshape(-1, a.shape[-1]))
+        n += acts[-1].shape[0]
+        if n >= max_actions:
+            break
+    norm = SingleFieldLinearNormalizer().fit(np.concatenate(acts, axis=0),
+                                             mode=mode)
+    dev = params["diffusion"]["norm"]["scale"].device
+    out = dict(params)
+    out["diffusion"] = dict(params["diffusion"], norm={
+        k: torch.as_tensor(norm.params[k], dtype=torch.float32, device=dev)
+        for k in ("scale", "offset")})
+    return out
+
+
 class Trainer:
     """Trains ``cfg`` on ``loader`` (an iterable of raw batches with
     ``set_epoch`` and ``len``) on ``device`` (the card unless given).
@@ -128,7 +155,9 @@ class Trainer:
     on ``device``, which the checkpoints' meta records so that an
     evaluation can rebuild the frozen backbone a delta checkpoint
     overlays.  In bf16 compute the frozen leaves are cast to bf16 (they
-    need no fp32 master); the liveness file is <run_dir>/heartbeat.json."""
+    need no fp32 master); a diffusion model's normalizer is then fitted on
+    the loader's actions.  The liveness file is
+    <run_dir>/heartbeat.json."""
 
     def __init__(self, cfg: DeerConfig, tcfg: TrainConfig, loader,
                  params: Optional[dict] = None,
@@ -152,6 +181,9 @@ class Trainer:
         if cfg.dtypes.compute_dtype == "bfloat16":
             params = cast_frozen_to_bf16(
                 params, trainable_mask(params, cfg, "joint"))
+        if cfg.head_type == "diffusion":
+            # after the cast, so that the fitted affine stays fp32
+            params = fit_action_normalizer(params, loader)
         self.params = params
         steps_per_epoch = len(loader)
         bin_coef = (tcfg.bin_coef if tcfg.bin_coef is not None

@@ -286,11 +286,11 @@ def test_cli_lanes_and_fixed_thresholds(capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--visualize", "gifs"], "M9"),
-    (["--diff_steps", "3"], "M10"),
-    (["--head_type", "gpt"], "M10"),
-    (["--ddim_eta", "0.5"], "M10"),
+    (["--tcp_rel"], "M9b"),
+    (["--diverse_inst"], "M9b"),
+    (["--annotation_cache", "a.json"], "M9b"),
     (["--calvin_conf_path", "conf"], "M9"),
-    (["--future_act_len", "3"], "M10")])
+    (["--visualize", "out"], "M9b")])
 def test_cli_unserved_flags_raise_naming_the_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         cli.main(CLI_ARGS + flag, device="cpu")

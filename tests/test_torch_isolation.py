@@ -34,7 +34,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     mods = port_modules()
     for name in ("eval.scan_policy", "eval.policy", "eval.caching",
                  "eval.batched_policy", "eval.batched_rollout", "ops.tome",
-                 "models.llama"):
+                 "models.llama", "models.alt_heads", "models.diffusion",
+                 "models.normalizer", "eval.diffusion_policy"):
         assert f"deer_vla_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

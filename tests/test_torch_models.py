@@ -296,8 +296,8 @@ def test_head_routing_refuses_other_families(cfgs):
     assert theads.head_action_width(tcfg) == 6
     carry = theads.any_zero_carry(tcfg, 3)
     assert carry[0].shape == (2, 3, 32)
-    for ht in ("fc", "gpt", "diffusion"):
-        with pytest.raises(NotImplementedError):
+    for ht in ("lstm", "transformer"):
+        with pytest.raises(ValueError):
             theads.any_zero_carry(dataclasses.replace(tcfg, head_type=ht), 1)
 
 

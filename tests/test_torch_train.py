@@ -964,14 +964,14 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--cotrain"], "M16"), (["--head_type", "gpt"], "M10"),
-    (["--n_obs_steps", "3"], "M10"), (["--diff_horizon", "16"], "M10"),
+    (["--cotrain"], "M16"), (["--cotrain_laion_shards", "s"], "M16"),
+    (["--coco_image_dir", "d"], "M16"), (["--vqa_image_dir", "d"], "M16"),
     (["--coco_ann", "a.json"], "M16"), (["--vqa_ann", "a.json"], "M16"),
     (["--vl_weight", "0.5"], "M16"), (["--vl_batch_size", "2"], "M16"),
-    (["--process_id", "1"], "M15"), (["--n_timesteps", "10"], "M10"),
+    (["--process_id", "1"], "M15"), (["--vqa_questions", "q.json"], "M16"),
     (["--tcp_rel"], "M9b"), (["--tokenizer_path", "x"], "M9"),
     (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
-    (["--hidden_size", "64"], "M10")])
+    (["--vl_weight", "2"], "M16")])
 def test_train_cli_unserved_flags_raise(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         train_cli.main(["--debug", "--model", "tiny"] + flag, device="cpu")
