@@ -94,6 +94,26 @@ llama_9b``.  Every K2-K4 shape the driven paths launch must be one a
 phase checked (``k2_shapes``).  A line before the kernels line gives the
 script's total seconds.
 
+Deployment (ROADMAP M14, M9b) runs on the same deer_3b draw after
+calibration: ``serve_http`` (``make_server`` on 127.0.0.1 around
+``DeerActionServer``: 4 client threads, a stream each with a threshold
+override of its own (first exit, last exit, the calibrated row), 6 steps of
+random 200 px and 84 px uint8 frames each, every action and exit layer
+bit-equal to a local ``CalvinPolicyAdapter`` on its own view of the engine;
+in bf16 and in int8, where K3 launches and K2 does not; healthz and a 400),
+``serve_http_batched`` (``BatchedActionServer`` at 8 lanes and a 5 ms
+window: 6 concurrent streams and 2 parked ones, each lane bit-equal to
+``step_batch`` of a copy of the engine, the parked carries restored bit for
+bit; actions/s, dispatches, lanes a dispatch and wasted layers recorded),
+``serve_http_diffusion`` (2 streams x 3 DDIM plans bit-equal to a local
+sampler) and ``serve_http_batched_vit_concat_state`` (4 streams x 3 steps
+with robot_obs, on the variant draw); after the rollouts ``rollout_tcp``
+(``cli/gen_sequences``, then ``cli/eval --tcp_rel --diverse_inst
+--annotation_cache``, and the trainer's tcp-frame labels on the card
+against the CPU) and, on the training phase's checkpoint and the values
+sidecar phase train_eval writes beside it, ``serve_cli`` (``main
+--oneshot_healthz`` with --thresholds, ``build_core`` with the sidecar).
+
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2123,7 +2143,8 @@ def phase_train_eval(torch, np) -> dict:
     with warnings.catch_warnings(record=True) as caught, \
             contextlib.redirect_stdout(buf):
         warnings.simplefilter("always")
-        report = cli.main(argv)
+        # the values sidecar beside the checkpoint, for phase serve_cli
+        report = cli.main(argv + ["--value_cache", ckpt[:-len(".ckpt")]])
     seconds = time.perf_counter() - t0
     launches = {n: f.launches for n, f in counters.items()}
     text = buf.getvalue()
@@ -2145,7 +2166,6 @@ def phase_train_eval(torch, np) -> dict:
     layerwise = phase_rollout(torch, np, "train_eval_layerwise",
                               argv + ["--layerwise_exit_eval"])
     out["runs"] = {"layerwise": layerwise}
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
 
@@ -3600,6 +3620,629 @@ def phase_train_heads(torch, np) -> list:
     return results
 
 
+# ---------------------------------------------------------------------------
+# deployment: the HTTP servers, cli/serve and the download-free rollout
+# options (ROADMAP M14, M9b), deer_3b at full width
+# ---------------------------------------------------------------------------
+
+# serve_http: client threads, a stream each, steps a stream
+HTTP_STREAMS = 4
+HTTP_STEPS = 6
+# serve_http_batched: lanes, live streams (the other lanes parked), window
+BATCH_LANES = 8
+BATCH_STREAMS = 6
+BATCH_WINDOW_MS = 5.0
+# serve_http_variants: diffusion streams x steps (DDIM_STEPS evaluations a
+# plan), then vit_concat + use_state streams x steps on BATCH_LANES lanes
+DIFF_HTTP = (2, 3)
+FOLDED_HTTP = (4, 3)
+# CALVIN's camera frames: 200 px static, 84 px gripper
+CALVIN_HW = {"rgb": 200, "gripper": 84}
+HTTP_INSTRUCTIONS = ("push the red block left", "lift the blue block",
+                     "open the drawer", "turn on the led",
+                     "move the slider right", "rotate the pink block")
+SERVE_CLI_DIR = TRAIN_DIR  # the training phase's checkpoint and sidecar
+# the trainer's tcp-frame labels on the card against the CPU: the same fp32
+# trigonometry in other implementations; the orientation is scaled by 100,
+# so a few fp32 ulps of an angle are about 1e-5 there
+TCP_LABEL_TOL = 1e-4
+
+
+def http_payload(np, stream: str, seed: int, instruction: str,
+                 robot_obs=None) -> dict:
+    """A /v1/step body with random CALVIN-size uint8 frames (base64)."""
+    import base64
+    r = np.random.RandomState(seed)
+    out = {"stream": stream, "instruction": instruction}
+    for key, hw in CALVIN_HW.items():
+        f = r.randint(0, 256, (hw, hw, 3), dtype=np.uint8)
+        out[key] = base64.b64encode(f.tobytes()).decode()
+        out[key + "_shape"] = [hw, hw, 3]
+    if robot_obs is not None:
+        out["robot_obs"] = [float(x) for x in robot_obs]
+    return out
+
+
+def frames_of(np, payload: dict) -> tuple:
+    """The (rgb, gripper) uint8 frames of a /v1/step body."""
+    import base64
+    return tuple(np.frombuffer(base64.b64decode(payload[k]), np.uint8)
+                 .reshape(payload[k + "_shape"]).copy()
+                 for k in ("rgb", "gripper"))
+
+
+def http_post(base: str, path: str, payload, expect: int = 200) -> dict:
+    import urllib.error
+    import urllib.request
+    body = (payload if isinstance(payload, bytes)
+            else json.dumps(payload).encode())
+    req = urllib.request.Request(base + path, data=body, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, out = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, out = e.code, json.loads(e.read())
+    check(code == expect, f"{path}: HTTP {code}, {expect} expected: {out}")
+    return out
+
+
+def http_get(base: str, path: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+@contextlib.contextmanager
+def serving(core):
+    """``make_server`` on 127.0.0.1, a free port, served from a thread;
+    yields the base URL and stops the server after."""
+    import threading
+    from deer_vla_tpu_torch.serving.server import make_server
+    httpd = make_server(core, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        if hasattr(core, "shutdown"):
+            core.shutdown()
+
+
+def in_threads(fns: list) -> list:
+    """Runs each ``fn()`` in its own thread, all at once; their results,
+    or the first exception raised."""
+    import threading
+    results, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            results[i] = fns[i]()
+        except BaseException as e:  # reported in the phase's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    return results
+
+
+def threshold_profiles(calib: dict, exits: list) -> dict:
+    """The per-stream rows the serve phases override with /v1/reset: the
+    first exit, the last exit, and the calibrated row (phase calibrate's
+    folded thresholds at exit ratio 0.5)."""
+    th = calib["regimes"]["folded"]["thresholds"]["0.5"]
+    return {"first": [1e30] * len(exits),
+            "last": [-1e30] * (len(exits) - 1) + [1e30],
+            "calibrated": [float(th[e]) for e in exits]}
+
+
+def serving_tokenizer(cfg):
+    """The debug tokenizer and ``cfg`` with its media token, as cli/serve
+    builds them."""
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
+    return tok, dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+
+
+def check_decoder_launches(phase: str, launches: dict, quantize) -> None:
+    """K1 and the mode's decoder kernel launched, the other decoder kernels
+    not."""
+    decoder = DECODER_KERNEL[quantize]
+    others = set(DECODER_KERNEL.values()) - {decoder}
+    check(launches["flash_attention"] > 0 and launches[decoder] > 0
+          and all(launches[k] == 0 for k in others),
+          f"{phase}: K1 and {decoder} alone must launch: {launches}")
+
+
+def phase_serve_http(torch, np, cfg, profiles: dict, pol, tok,
+                     quantize=None) -> dict:
+    """``DeerActionServer`` around ``pol`` behind ``make_server``: one
+    client thread a stream (HTTP_STREAMS), each resetting its stream with
+    a threshold profile and stepping HTTP_STEPS CALVIN-size frame pairs,
+    with the kernel counts set to 0 before and read after; then each
+    stream's requests again through a local ``CalvinPolicyAdapter`` on its
+    own view of the engine: actions and exit layers bit-equal.  Also
+    healthz and a malformed request (400)."""
+    from deer_vla_tpu_torch.eval.rollout import CalvinPolicyAdapter
+    from deer_vla_tpu_torch.serving.server import (DeerActionServer,
+                                                   engine_mode)
+    name = "serve_http" + (f"_{quantize}" if quantize else "")
+    names = [f"arm{i}" for i in range(HTTP_STREAMS)]
+    kinds = list(profiles)
+    prof = {n: kinds[i % len(kinds)] for i, n in enumerate(names)}
+    reqs = {n: [http_payload(np, n, 5000 + 100 * i + t,
+                             HTTP_INSTRUCTIONS[i])
+                for t in range(HTTP_STEPS)] for i, n in enumerate(names)}
+    core = DeerActionServer(pol, tok, max_streams=2 * HTTP_STREAMS)
+    counters = kernel_counters()
+    with serving(core) as base:
+        def client(n):
+            http_post(base, "/v1/reset", {"stream": n,
+                                          "thresholds": profiles[prof[n]]})
+            return [http_post(base, "/v1/step", p) for p in reqs[n]]
+
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        served = dict(zip(names, in_threads([lambda n=n: client(n)
+                                             for n in names])))
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        health = http_get(base, "/healthz")
+        bad = dict(reqs[names[0]][0], rgb_shape=[199, 200, 3])
+        err = http_post(base, "/v1/step", bad, expect=400)
+    check_decoder_launches(name, launches, quantize)
+    check(health["steps"] == HTTP_STREAMS * HTTP_STEPS
+          and health["streams"] == sorted(names)
+          and health["quantize"] == quantize,
+          f"{name}: healthz {health}")
+    mismatches, exits = [], {}
+    for n in names:
+        local = CalvinPolicyAdapter(DeerActionServer._clone_policy(pol), tok,
+                                    text_len=cfg.text_len)
+        with engine_mode(pol.device):
+            local.policy.set_thresholds(profiles[prof[n]])
+            for t, (p, out) in enumerate(zip(reqs[n], served[n])):
+                rgb, grip = frames_of(np, p)
+                local.policy.set_timestep(t)
+                want = local.step({"rgb_obs": {"rgb_static": rgb,
+                                               "rgb_gripper": grip}},
+                                  p["instruction"])
+                if (out["action"] != want.tolist()
+                        or out["exit_layer"] != local.current_exit_layer):
+                    mismatches.append((n, t, out["exit_layer"],
+                                       local.current_exit_layer))
+        exits[n] = [o["exit_layer"] for o in served[n]]
+    check(not mismatches, f"{name}: served steps differ from the local "
+                          f"adapter's: {mismatches}")
+    every = {e for row in exits.values() for e in row}
+    check(len(every) > 1, f"{name}: every stream exits at {every}")
+    step_ms = [o["step_ms"] for n in names for o in served[n]]
+    out = {"phase": name, "config": "deer_3b", "quantize": quantize,
+           "streams": HTTP_STREAMS, "steps_per_stream": HTTP_STEPS,
+           "frames": CALVIN_HW, "profiles": prof, "exit_layers": exits,
+           "bit_equal_to_local_adapter": True,
+           "step_ms": step_ms, "step_median_ms": statistics.median(step_ms),
+           "wall_s": wall,
+           "actions_per_s": HTTP_STREAMS * HTTP_STEPS / wall,
+           "bad_request": err["error"], "launches": launches,
+           "launches_per_step": {k: v / (HTTP_STREAMS * HTTP_STEPS)
+                                 for k, v in launches.items()}}
+    emit(out)
+    return out
+
+
+def prep_frame(torch, frame, size: int, device):
+    """A uint8 (H, W, 3) camera frame as the ViT takes it, straight from
+    ``clip_preprocess``."""
+    from deer_vla_tpu_torch.data.preprocess import clip_preprocess
+    return clip_preprocess(torch.as_tensor(frame, device=device)[None],
+                           size)[0]
+
+
+def lane_batch(torch, np, cfg, tok, engine, lanes: int, lanes_in: dict
+               ) -> tuple:
+    """A reference dispatch of ``engine`` at ``lanes`` lanes, built from the
+    public pieces alone (``clip_preprocess``, the tokenizer with
+    ``fixed_length``, ``threshold_row``) and none of the core's own:
+    ``lanes_in`` maps a lane to (frame window [(rgb, grip) uint8],
+    instruction, state window or None, threshold list); every other lane is
+    parked on zero frames and a row that exits at the first exit.  Returns
+    the step_batch arguments and the threshold rows."""
+    from deer_vla_tpu_torch.data.text import fixed_length
+    from deer_vla_tpu_torch.eval.scan_policy import folded_window
+    check(not cfg.use_hist, "lane_batch builds one text row a lane")
+    window = folded_window(cfg)
+    size = cfg.vit.image_size
+    sizes = (size, cfg.gripper_res or size)
+    s = cfg.text_len
+    imgs, grips, states = [], [], []
+    ids = np.zeros((lanes, s), np.int64)
+    masks = np.zeros((lanes, s), np.int64)
+    park = engine.threshold_row([1e30] + [-1e30] * (len(engine.exits) - 1))
+    rows = np.tile(park, (lanes, 1))
+    zero_state = np.zeros(cfg.state_dim, np.float32)
+    zero = [prep_frame(torch, np.zeros((hw, hw, 3), np.uint8), hw,
+                       engine.device) for hw in sizes]
+    for lane in range(lanes):
+        if lane not in lanes_in:
+            imgs += [zero[0]] * window
+            grips += [zero[1]] * window
+            states += [zero_state] * window
+            continue
+        frames, instruction, st, row = lanes_in[lane]
+        imgs += [prep_frame(torch, f[0], sizes[0], engine.device)
+                 for f in frames]
+        grips += [prep_frame(torch, f[1], sizes[1], engine.device)
+                  for f in frames]
+        states += st if st is not None else [zero_state] * window
+        i, m = tok([instruction])
+        i, m = fixed_length(i, m, s, getattr(tok, "pad_token_id", 0))
+        ids[lane], masks[lane] = np.asarray(i[0]), np.asarray(m[0])
+        rows[lane] = engine.threshold_row(row)
+    state = (np.stack(states)[:, None, None, :]
+             if cfg.use_state or cfg.head.use_state else None)
+    return ((torch.stack(imgs)[:, None, None],
+             torch.stack(grips)[:, None, None], ids, masks, state), rows)
+
+
+def replay_lanes(torch, np, cfg, tok, engine, lanes: int, lane_of: dict,
+                 reqs: dict, rows: dict, served: dict, steps: int) -> list:
+    """Each step t of the served streams again through ``step_batch`` of a
+    copy of ``engine`` (its own carry), every stream at its lane with its
+    threshold list, the other lanes parked (``lane_batch``); window-folded,
+    a stream's rolling window is left-padded with its first frame.
+    Returns the (stream, step) pairs whose action or exit layer is not
+    bit-equal to the served one."""
+    import copy
+    from deer_vla_tpu_torch.eval.scan_policy import folded_window
+    from deer_vla_tpu_torch.serving.server import engine_mode
+    ref = copy.copy(engine)
+    ref.reset()
+    w = folded_window(cfg)
+    use_state = cfg.use_state or cfg.head.use_state
+    bad = []
+    with engine_mode(engine.device):
+        for t in range(steps):
+            lanes_in = {}
+            for n, ps in reqs.items():
+                idx = [max(0, i) for i in range(t - w + 1, t + 1)]
+                st = None
+                if use_state:
+                    st = [np.asarray(ps[i]["robot_obs"], np.float32)
+                          for i in idx]
+                lanes_in[lane_of[n]] = ([frames_of(np, ps[i]) for i in idx],
+                                        ps[t]["instruction"], st, rows[n])
+            args, trows = lane_batch(torch, np, cfg, tok, engine, lanes,
+                                     lanes_in)
+            ref.set_threshold_array(trows)
+            acts, exits = ref.step_batch(*args)
+            for n in reqs:
+                lane, out = lane_of[n], served[n][t]
+                if (out["action"] != np.asarray(acts[lane]).tolist()
+                        or out["exit_layer"] != int(exits[lane])):
+                    bad.append((n, t, out["exit_layer"], int(exits[lane])))
+    return bad
+
+
+def batched_run(torch, np, core, engine, tok, name: str, reqs: dict,
+                rows: dict, parked: list, steps: int, quantize=None) -> dict:
+    """Every stream of ``reqs`` stepped over HTTP from its own thread
+    through the micro-batching ``core`` around ``engine`` (``parked``
+    streams hold lanes and never step), the kernel counts set to 0 before
+    and read after; the parked lanes' carry rows must come back bit for bit
+    and each stream must equal its replay (``replay_lanes``).  A new stream
+    takes the lowest free lane, so the resets' order gives the lanes."""
+    from deer_vla_tpu_torch.eval.scan_policy import folded_window
+    counters = kernel_counters()
+    lane_of = {n: i for i, n in enumerate(list(parked) + list(reqs))}
+    with serving(core) as base:
+        for n in parked:
+            http_post(base, "/v1/reset", {"stream": n})
+        for n in reqs:
+            http_post(base, "/v1/reset", {"stream": n, "thresholds":
+                                          rows[n]})
+        check(dict(core._lane_of) == lane_of,
+              f"{name}: lanes {core._lane_of}, {lane_of} expected")
+        park_lanes = [lane_of[n] for n in parked]
+        before = [c[:, park_lanes].clone() for c in engine.carry]
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        served = dict(zip(reqs, in_threads([
+            lambda n=n: [http_post(base, "/v1/step", p) for p in reqs[n]]
+            for n in reqs])))
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        health = core.healthz()
+        restored = all(bool(torch.equal(c[:, park_lanes], b))
+                       for c, b in zip(engine.carry, before))
+    check_decoder_launches(name, launches, quantize)
+    check(restored, f"{name}: a parked lane's carry row changed")
+    total = len(reqs) * steps
+    check(health["steps"] == total, f"{name}: healthz {health}")
+    bad = replay_lanes(torch, np, core.cfg, tok, engine, core.lanes, lane_of,
+                       reqs, rows, served, steps)
+    check(not bad, f"{name}: served lanes differ from step_batch: {bad}")
+    exits = {n: [o["exit_layer"] for o in served[n]] for n in reqs}
+    step_ms = [o["step_ms"] for n in reqs for o in served[n]]
+    out = {"phase": name, "config": "deer_3b", "lanes": core.lanes,
+           "window_ms": core.window_s * 1e3, "streams": len(reqs),
+           "parked_streams": len(parked), "steps_per_stream": steps,
+           "frame_rows_per_lane": folded_window(core.cfg),
+           "exit_layers": exits, "bit_equal_to_step_batch": True,
+           "parked_carry_restored": True, "wall_s": wall,
+           "actions_per_s": total / wall,
+           "dispatches": health["dispatches"],
+           "lanes_per_dispatch": total / health["dispatches"],
+           "avg_wasted_layers_per_step":
+               health["avg_wasted_layers_per_step"],
+           "dispatch_ms": step_ms,
+           "dispatch_median_ms": statistics.median(step_ms),
+           "launches": launches,
+           "launches_per_dispatch": {k: v / health["dispatches"]
+                                     for k, v in launches.items()}}
+    emit(out)
+    return out
+
+
+def phase_serve_http_batched(torch, np, pol, tok, profiles: dict) -> dict:
+    """``BatchedActionServer`` around ``pol`` at BATCH_LANES lanes and a
+    BATCH_WINDOW_MS window: BATCH_STREAMS concurrent streams, a threshold
+    profile each, HTTP_STEPS steps each, and two parked streams
+    (``batched_run``)."""
+    from deer_vla_tpu_torch.serving.batcher import BatchedActionServer
+    kinds = list(profiles)
+    names = [f"lane{i}" for i in range(BATCH_STREAMS)]
+    reqs = {n: [http_payload(np, n, 6000 + 100 * i + t,
+                             HTTP_INSTRUCTIONS[i])
+                for t in range(HTTP_STEPS)] for i, n in enumerate(names)}
+    rows = {n: profiles[kinds[i % len(kinds)]] for i, n in enumerate(names)}
+    core = BatchedActionServer(pol, tok, lanes=BATCH_LANES,
+                               window_ms=BATCH_WINDOW_MS)
+    parked = [f"parked{i}" for i in range(BATCH_LANES - BATCH_STREAMS)]
+    return batched_run(torch, np, core, pol, tok, "serve_http_batched", reqs,
+                       rows, parked, HTTP_STEPS)
+
+
+def phase_serve_http_variants(torch, np, cfg, base: dict, profiles: dict
+                              ) -> list:
+    """The diffusion head per stream (``DiffusionSamplerPolicy``, DDIM
+    with DDIM_STEPS evaluations; DIFF_HTTP streams x steps over HTTP, each
+    stream's (k, 7) plans bit-equal to a local adapter around its own view
+    of the sampler), then vit_concat + use_state on BATCH_LANES lanes
+    (FOLDED_HTTP streams x steps, robot_obs with every request, each lane
+    bit-equal to its replay through step_batch), on the variant draws."""
+    from deer_vla_tpu_torch.eval.diffusion_policy import \
+        DiffusionSamplerPolicy
+    from deer_vla_tpu_torch.eval.rollout import CalvinPolicyAdapter
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.serving.batcher import BatchedActionServer
+    from deer_vla_tpu_torch.serving.server import (DeerActionServer,
+                                                   engine_mode)
+    results = []
+    tok, hcfg = serving_tokenizer(variant_config(
+        cfg, {"head_type": "diffusion"}))
+    p = head_weights(torch, np, base, hcfg)
+    pol = ScanDeerPolicy(p, hcfg, indexed_mm=True)
+    pol.set_thresholds(profiles["calibrated"])
+    sampler = DiffusionSamplerPolicy(pol, p, seed=SEED,
+                                     sample_steps=DDIM_STEPS)
+    core = DeerActionServer(sampler, tok)
+    n_streams, steps = DIFF_HTTP
+    names = [f"diff{i}" for i in range(n_streams)]
+    reqs = {n: [http_payload(np, n, 7000 + 100 * i + t,
+                             HTTP_INSTRUCTIONS[i]) for t in range(steps)]
+            for i, n in enumerate(names)}
+    counters = kernel_counters()
+    with serving(core) as url:
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        served = dict(zip(names, in_threads([
+            lambda n=n: [http_post(url, "/v1/step", q) for q in reqs[n]]
+            for n in names])))
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+    check_decoder_launches("serve_http_diffusion", launches, None)
+    k = max(1, hcfg.window_size - (hcfg.n_obs_steps - 1))  # plan rows
+    bad = []
+    for n in names:
+        local = CalvinPolicyAdapter(DeerActionServer._clone_policy(sampler),
+                                    tok, text_len=hcfg.text_len)
+        with engine_mode(pol.device):
+            for t, (q, out) in enumerate(zip(reqs[n], served[n])):
+                rgb, grip = frames_of(np, q)
+                local.policy.set_timestep(t)
+                want = local.step({"rgb_obs": {"rgb_static": rgb,
+                                               "rgb_gripper": grip}},
+                                  q["instruction"])
+                plan = np.asarray(out["action"], np.float32)
+                if (plan.shape != (k, 7) or not np.isfinite(plan).all()
+                        or not np.array_equal(plan, want, equal_nan=True)
+                        or out["exit_layer"] != local.current_exit_layer):
+                    bad.append((n, t, plan.shape, out["exit_layer"],
+                                local.current_exit_layer,
+                                float(np.isfinite(plan).mean()),
+                                float(np.nanmax(np.abs(plan - want)))
+                                if plan.shape == want.shape else None))
+    check(not bad, f"serve_http_diffusion: plans differ from the local "
+                   f"sampler's: {bad}")
+    step_ms = [o["step_ms"] for n in names for o in served[n]]
+    out = {"phase": "serve_http_diffusion", "config": "deer_3b",
+           "ddim_steps": DDIM_STEPS, "streams": n_streams,
+           "steps_per_stream": steps, "plan_shape": [k, 7],
+           "exit_layers": {n: [o["exit_layer"] for o in served[n]]
+                           for n in names},
+           "bit_equal_to_local_sampler": True, "step_ms": step_ms,
+           "step_median_ms": statistics.median(step_ms), "wall_s": wall,
+           "launches": launches}
+    emit(out)
+    results.append(out)
+    del core, sampler, pol, p
+    torch.cuda.empty_cache()
+
+    tok, vcfg = serving_tokenizer(variant_config(
+        cfg, {"fusion_mode": "vit_concat", "use_state": True}))
+    p = variant_weights(torch, base, vcfg)
+    pol = ScanDeerPolicy(p, vcfg, indexed_mm=True)
+    pol.set_thresholds(profiles["calibrated"])
+    n_streams, steps = FOLDED_HTTP
+    r = np.random.RandomState(8000)
+    names = [f"folded{i}" for i in range(n_streams)]
+    reqs = {}
+    for i, n in enumerate(names):
+        reqs[n] = []
+        for t in range(steps):
+            ro = r.uniform(-1, 1, vcfg.state_dim).astype(np.float32)
+            ro[-1] = 1.0 if r.rand() > 0.5 else -1.0  # CALVIN's gripper
+            reqs[n].append(http_payload(np, n, 8000 + 100 * i + t,
+                                        HTTP_INSTRUCTIONS[i], robot_obs=ro))
+    kinds = list(profiles)
+    rows = {n: profiles[kinds[i % len(kinds)]] for i, n in enumerate(names)}
+    core = BatchedActionServer(pol, tok, lanes=BATCH_LANES,
+                               window_ms=BATCH_WINDOW_MS)
+    results.append(batched_run(torch, np, core, pol, tok,
+                               "serve_http_batched_vit_concat_state", reqs,
+                               rows, [], steps))
+    del core, pol, p
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_serve_cli(torch, np) -> dict:
+    """``cli/serve`` in-process on the card: ``main`` with --thresholds and
+    --oneshot_healthz on a seeded deer_3b (binds, prints healthz, exits),
+    then ``build_core`` on the training phase's checkpoint, whose
+    calibration values sidecar phase train_eval wrote: the sidecar's
+    thresholds (solved at --exit_ratio) must reach the engine, and two
+    steps are served with the kernel counts set to 0 before."""
+    import io
+    from deer_vla_tpu_torch.cli import serve as serve_cli
+    from deer_vla_tpu_torch.core.config import deer_3b
+    from deer_vla_tpu_torch.models.value_net import solve_thresholds
+    from deer_vla_tpu_torch.train.checkpoint import load_calibration_values
+    exits = list(deer_3b().all_exit_ids())
+    argv = ["--model", "deer_3b", "--port", "0", "--oneshot_healthz",
+            "--thresholds"] + ["1e-4"] * (len(exits) - 1) + ["1e30"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(argv)
+    oneshot_s = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    check(rc == 0 and lines[0]["device"].startswith("cuda")
+          and lines[1]["exits"] == exits and lines[1]["ok"],
+          f"serve_cli: --oneshot_healthz printed {lines}")
+    torch.cuda.empty_cache()
+    ckpt = str(SERVE_CLI_DIR / "deer_1.ckpt")
+    values = load_calibration_values(ckpt)
+    check(values is not None, f"serve_cli: no values sidecar beside {ckpt}")
+    args = serve_cli.build_parser().parse_args([
+        "--model", "deer_3b", "--evaluate_from_checkpoint", ckpt,
+        "--exit_ratio", "0.5"])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        core, cfg = serve_cli.build_core(args)
+    build_s = time.perf_counter() - t0
+    th, _ = solve_thresholds(values, 0.5, exits, max_layer=exits[-1] + 1,
+                             model_name="deer_3b")
+    row = core._base.thresholds.cpu().numpy()
+    check(all(row[e] == np.float32(th[e]) for e in exits[:-1]),
+          f"serve_cli: engine thresholds {row} != the sidecar's {th}")
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    outs = [core.step(http_payload(np, "cli", 9000 + t,
+                                   HTTP_INSTRUCTIONS[0])) for t in range(2)]
+    launches = {k: f.launches for k, f in counters.items()}
+    check_decoder_launches("serve_cli", launches, None)
+    check(all(len(o["action"]) == 7 and np.isfinite(o["action"]).all()
+              for o in outs), f"serve_cli: steps {outs}")
+    out = {"phase": "serve_cli", "oneshot_argv": argv,
+           "oneshot_seconds": oneshot_s, "healthz": lines[1],
+           "checkpoint": ckpt, "build_core_seconds": build_s,
+           "sidecar_thresholds": {str(e): float(th[e]) for e in exits},
+           "exit_layers": [o["exit_layer"] for o in outs],
+           "step_ms": [o["step_ms"] for o in outs], "launches": launches}
+    emit(out)
+    del core
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rollout_tcp(torch, np) -> dict:
+    """``cli/gen_sequences`` writes the sequences and the annotation cache,
+    then ``cli/eval --debug --tcp_rel --diverse_inst --annotation_cache``
+    at deer_3b (``phase_rollout``'s checks); then the trainer's
+    ``prepare_batch`` with ``tcp_rel`` on the card against the CPU, for
+    single-step and (B, W, 3, 7) multi-step labels."""
+    import io
+    from deer_vla_tpu_torch.cli import gen_sequences
+    from deer_vla_tpu_torch.core.config import deer_3b
+    from deer_vla_tpu_torch.train.trainer import TrainConfig, prepare_batch
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    cache = OUT_DIR / "lang_annotation_cache.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_sequences.main(["--num_sequences", "2", "--out_sequences",
+                            str(OUT_DIR / "eval_sequences.json"),
+                            "--out_annotation_cache", str(cache)])
+    out = phase_rollout(torch, np, "rollout_tcp", ROLLOUT_ARGV + [
+        "--tcp_rel", "--diverse_inst", "--annotation_cache", str(cache)])
+    cfg, batches = calib_debug_batches(deer_3b(), 2, 1)
+    raw = batches[0]
+    tcfg = TrainConfig(tcp_rel=True, rgb_pad=0, gripper_pad=0)
+    errs = {}
+    for k in (1, 3):
+        if k > 1:
+            a = np.asarray(raw["actions"])
+            raw = dict(raw, actions=np.stack([a] * k, axis=2))
+        card = prepare_batch(raw, cfg, None, tcfg, "cuda")["labels"]
+        cpu = prepare_batch(raw, cfg, None, tcfg, "cpu")["labels"]
+        errs[k] = float((card.cpu() - cpu).abs().max())
+        check(card.shape == raw["actions"].shape and errs[k] <= TCP_LABEL_TOL,
+              f"rollout_tcp: tcp labels k={k}: card against CPU {errs[k]}")
+    out["tcp_labels_max_abs_err"] = errs
+    out["tcp_labels_tolerance"] = TCP_LABEL_TOL
+    emit({"phase": "rollout_tcp_labels", "max_abs_err": errs,
+          "tolerance": TCP_LABEL_TOL})
+    return out
+
+
+def drive_deployment(torch, np, cfg, params, calib) -> list:
+    """The deployment phases on the seeded deer_3b draw: serve_http in bf16
+    (K1 and K2) and int8 (K3 in K2's place), serve_http_batched on the
+    bf16 engine, serve_http_variants."""
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    tok, scfg = serving_tokenizer(cfg)
+    exits = list(scfg.all_exit_ids())
+    profiles = threshold_profiles(calib, exits)
+    t0 = time.perf_counter()
+    pol = ScanDeerPolicy(params, scfg, indexed_mm=True)
+    results = [phase_serve_http(torch, np, scfg, profiles, pol, tok),
+               phase_serve_http_batched(torch, np, pol, tok, profiles)]
+    del pol
+    torch.cuda.empty_cache()
+    pol = ScanDeerPolicy(params, scfg, indexed_mm=True, quantize="int8")
+    results.append(phase_serve_http(torch, np, scfg, profiles, pol, tok,
+                                    quantize="int8"))
+    del pol
+    torch.cuda.empty_cache()
+    results += phase_serve_http_variants(torch, np, cfg, params, profiles)
+    emit({"phase": "deployment", "seconds": time.perf_counter() - t0})
+    return results
+
+
 def drive_paths(torch, np, cfg) -> tuple:
     """The main paths on seeded deer_3b weights: serving in every mode with
     its cross-checks, the serving variants (DeerPolicy, the caches,
@@ -3607,10 +4250,12 @@ def drive_paths(torch, np, cfg) -> tuple:
     same draw (serve_variants, cross_check_variants, serve_folded,
     calibrate_variants), the head families (serve_heads,
     cross_check_heads, calibrate_heads), calibration with its cross-check,
-    the train step's cross-check and guard, the cli/eval rollouts (the head
-    families' too), then cli/train and cli/eval on its checkpoint, and the
-    same for a vit_concat state model (train_variants) and for the
-    diffusion and gpt heads (train_heads)."""
+    the deployment phases (the HTTP servers, per stream and batched, on
+    the calibrated thresholds), the train step's cross-check and guard,
+    the cli/eval rollouts (the head families' and --tcp_rel's too), then
+    cli/train, cli/eval and cli/serve on its checkpoint, and the same for a
+    vit_concat state model (train_variants) and for the diffusion and gpt
+    heads (train_heads)."""
     from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.eval.policy import DeerPolicy
     from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
@@ -3644,6 +4289,7 @@ def drive_paths(torch, np, cfg) -> tuple:
     phase_cross_check_heads(torch, np, cfg, params, cpu_params)
     variants.append(phase_calibrate_heads(torch, np, cfg, params))
     calib = phase_calibrate(torch, np, cfg, params)
+    variants += drive_deployment(torch, np, cfg, params, calib)
     phase_calibrate_cross_check(torch, np, cfg, params, cpu_params)
     phase_train_cross_check(torch, np, params, cpu_params)
     del cpu_params
@@ -3656,8 +4302,11 @@ def drive_paths(torch, np, cfg) -> tuple:
                     rollouts["rollout_lanes4"]["report"])
     check(piped == plain, f"--pipeline 2 --env_workers 2 changed the "
                           f"report: {piped} against {plain}")
+    rollouts["rollout_tcp"] = phase_rollout_tcp(torch, np)
     paths = variants + list(rollouts.values()) + [
-        phase_train(torch, np), phase_train_eval(torch, np)]
+        phase_train(torch, np), phase_train_eval(torch, np),
+        phase_serve_cli(torch, np)]
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     paths += phase_train_variants(torch, np)
     paths += phase_train_heads(torch, np)
     phase_calvin_data(np)

@@ -24,7 +24,11 @@ resampler, proprio state, ``use_hist``, a native-size gripper,
 ``multi_step_action``); ``--gripper_res`` sets the gripper's size,
 ``--frame_cache`` caches a window-folded model's per-frame ViT tokens, and
 ``--calib_warm`` warms its calibration head with other trajectories'
-frames.
+frames.  The rollout options that need no download are served:
+``--tcp_rel`` (a tcp-frame policy's actions back to the world frame),
+``--visualize DIR`` (a GIF an episode) and ``--diverse_inst`` with
+``--annotation_cache`` (enriched instructions, written by
+``cli/gen_sequences``); the first two need the sequential harness.
 
     python -m deer_vla_tpu_torch.cli.eval --debug --model deer_3b \
         --calib_batches 2 --num_sequences_override 2 --exit_ratio 0.5
@@ -79,12 +83,7 @@ UNSERVED = (
     ("--calvin_conf_path", "", {}, "M9 (the CALVIN env and data)"),
     ("--eval_sequences", "eval_sequences.json", {},
      "M9 (the CALVIN env and data)"),
-    ("--diverse_inst", False, _FLAG, "M9b (enriched instructions)"),
-    ("--annotation_cache", "lang_annotation_cache.json", {},
-     "M9b (enriched instructions)"),
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
-    ("--tcp_rel", False, _FLAG, "M9b (tcp-frame actions)"),
-    ("--visualize", "", {}, "M9b (rollout GIFs)"),
 )
 
 
@@ -189,6 +188,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="window-folded models (vit_concat / use_hist): "
                         "cache per-frame ViT tokens in a rolling window and "
                         "encode only the newest frame a step (exact)")
+    p.add_argument("--tcp_rel", action="store_true",
+                   help="the policy was trained on tcp-frame actions; "
+                        "convert them back to the world frame with the live "
+                        "robot_obs (sequential harness only)")
+    p.add_argument("--visualize", default="",
+                   help="directory for a GIF of each subtask episode (static "
+                        "camera, tagged ok / fail; needs PIL; sequential "
+                        "harness only)")
+    p.add_argument("--diverse_inst", action="store_true",
+                   help="enriched instructions from --annotation_cache "
+                        "(list[seq][subtask], eval_utils.py:513-516)")
+    p.add_argument("--annotation_cache", default="lang_annotation_cache.json",
+                   help="the lang_annotation_cache.json --diverse_inst reads "
+                        "(cli/gen_sequences writes one)")
     p.add_argument("--validation_set", action="store_true", default=True)
     p.add_argument("--amp", type=int, default=0)  # accepted, no effect
     p.add_argument("--report_json", default="",
@@ -240,6 +253,14 @@ def check_served(args) -> None:
                                     "counter)")):
             if bad:
                 raise SystemExit(f"--lanes does not compose with {why}")
+        if args.visualize:
+            raise SystemExit("--visualize needs the sequential harness; run "
+                             "without --lanes")
+        if args.tcp_rel:
+            raise SystemExit("--lanes does not apply the tcp->world "
+                             "action-frame conversion (it lives in the "
+                             "sequential adapter); run tcp_rel models "
+                             "without --lanes")
 
 
 def check_layerwise(args, cfg):
@@ -323,11 +344,12 @@ def load_model(args, dev: torch.device):
 
     if not args.evaluate_from_checkpoint:
         cfg = model_config(args)
-        if args.head_type:
+        head_type = getattr(args, "head_type", None)  # cli/serve has none
+        if head_type:
             # the family at cli/train's defaults of the head flags
             from deer_vla_tpu_torch.cli.train import head_family_updates
             cfg = dataclasses.replace(cfg, **head_family_updates(
-                args.head_type, cfg.window_size))
+                head_type, cfg.window_size))
         return cfg, init_deer(cfg, seed=args.seed, device=dev)
     path = args.evaluate_from_checkpoint
     stem = path[:-5] if path.endswith(".ckpt") else path
@@ -339,8 +361,9 @@ def load_model(args, dev: torch.device):
     if args.max_layer > 0:
         cfg = dataclasses.replace(cfg, mpt=dataclasses.replace(
             cfg.mpt, n_layers=args.max_layer))
-    if args.head_type and args.head_type != cfg.head_type:
-        raise SystemExit(f"--head_type {args.head_type}: {path} holds a "
+    head_type = getattr(args, "head_type", None)
+    if head_type and head_type != cfg.head_type:
+        raise SystemExit(f"--head_type {head_type}: {path} holds a "
                          f"{cfg.head_type!r} head")
     try:
         params = rebuild_backbone(side.get("meta", {}).get("init"), cfg, dev)
@@ -570,6 +593,21 @@ def batched_policy(args, cfg, params, policy, thresholds, max_layer, dev):
     return bpolicy
 
 
+def load_annotations(args):
+    """The rollouts' instructions: the enriched list[seq][subtask] of
+    ``--annotation_cache`` under ``--diverse_inst``, else {} (each task's
+    own name).  A missing cache file leaves {} with a warning, where the
+    JAX CLI falls back silently (cli/eval.py:447-450)."""
+    if not args.diverse_inst:
+        return {}
+    if not os.path.exists(args.annotation_cache):
+        print(f"WARNING: --diverse_inst without {args.annotation_cache}; "
+              "serving the tasks' own instructions")
+        return {}
+    with open(args.annotation_cache) as f:
+        return json.load(f)
+
+
 def main(argv=None, device: Optional[str] = None) -> dict:
     args = build_parser().parse_args(argv)
     check_served(args)
@@ -624,6 +662,7 @@ def main(argv=None, device: Optional[str] = None) -> dict:
 
     oracle = DebugTaskOracle(threshold=0.05)
     sequences = make_debug_sequences(args.num_sequences_override or 8)
+    annotations = load_annotations(args)
     ep_len = min(args.ep_len, 40)
     n_seq = min(args.num_seq, len(sequences))
     per_layer = llm_flops_per_exit(cfg)
@@ -634,19 +673,21 @@ def main(argv=None, device: Optional[str] = None) -> dict:
         bpolicy = batched_policy(args, cfg, params, policy, thresholds,
                                  max_layer, dev)
         report = evaluate_policy_batched(
-            bpolicy, envs, sequences[:n_seq], {}, oracle, tok,
+            bpolicy, envs, sequences[:n_seq], annotations, oracle, tok,
             text_len=cfg.text_len, ep_len=ep_len, n_layers=cfg.n_layers,
             pipeline=args.pipeline, reset=args.reset,
             env_workers=args.env_workers)
     else:
         procs = process_count()
         report = evaluate_policy(
-            CalvinPolicyAdapter(policy, tok, text_len=cfg.text_len), envs[0],
-            sequences[:n_seq], {}, oracle,
+            CalvinPolicyAdapter(policy, tok, text_len=cfg.text_len,
+                                tcp_rel=args.tcp_rel), envs[0],
+            sequences[:n_seq], annotations, oracle,
             rank=torch.distributed.get_rank() if procs > 1 else 0,
             world_size=procs, num_sequences=n_seq, ep_len=ep_len,
             replan=args.replan, reset=args.reset,
-            flops_per_layer=per_layer[0] * 1e9, n_layers=cfg.n_layers)
+            flops_per_layer=per_layer[0] * 1e9, n_layers=cfg.n_layers,
+            visualize_dir=args.visualize or None)
     report["rollout_seconds"] = time.perf_counter() - t0
     report["env_steps"] = sum(e.steps for e in envs)
     print(f"rollout: {report['env_steps']} env steps in "

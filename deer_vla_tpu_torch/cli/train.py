@@ -41,7 +41,6 @@ MODELS = MODEL_REGISTRY
 _FLAG = {"action": "store_true"}
 UNSERVED = (
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
-    ("--tcp_rel", False, _FLAG, "M9b (tcp-frame actions)"),
     ("--cotrain", False, _FLAG, "M16 (vision-language co-training)"),
     ("--cotrain_laion_shards", "", {}, "M16 (vision-language co-training)"),
     ("--coco_image_dir", "", {}, "M16 (vision-language co-training)"),
@@ -181,6 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--logging_steps", type=int, default=100)
     p.add_argument("--save_every_iter", type=int, default=-1)
     p.add_argument("--ema_decay", type=float, default=0.0)
+    p.add_argument("--tcp_rel", action="store_true",
+                   help="train on tool-center-point-frame relative actions "
+                        "(labels converted with robot_obs)")
     p.add_argument("--debug", action="store_true",
                    help="DebugBatcher random batches, no dataset")
     for flag, default, kw, _ in UNSERVED:
@@ -353,7 +355,7 @@ def build_trainer(argv=None, device: Optional[str] = None):
         loss_multiplier_calvin=args.loss_multiplier_calvin,
         save_freq=args.save_freq, logging_steps=args.logging_steps,
         seed=args.seed, save_every_iter=args.save_every_iter,
-        ema_decay=args.ema_decay)
+        ema_decay=args.ema_decay, tcp_rel=args.tcp_rel)
 
     def log_fn(d):
         print(json.dumps(d, default=float), flush=True)

@@ -7,7 +7,10 @@
     ``data/calvin.py`` and the training CLI run without the dataset.
 
 numpy only and seeded by ``RandomState``, so the same seed gives the same
-batches and files in both packages.
+batches and files in both packages, but for one entry on purpose: the
+port puts ``robot_obs``'s last entry, CALVIN's gripper state, at -1 or 1
+(``with_gripper_state``), where the JAX package leaves a normal draw that
+a state head cannot always look up.
 """
 
 from __future__ import annotations
@@ -73,10 +76,19 @@ class DebugBatcher:
                 "rgb_gripper": r.randint(0, 256, (bs, w, self.grip_hw,
                                                   self.grip_hw, 3), np.uint8),
                 "actions": acts,
-                "robot_obs": r.randn(bs, w, 15).astype(np.float32),
+                "robot_obs": with_gripper_state(
+                    r.randn(bs, w, 15).astype(np.float32)),
                 "input_ids": ids, "attention_mask": mask,
                 "robot_obs_multi": np.zeros(1, np.float32),
             }
+
+
+def with_gripper_state(robot_obs: np.ndarray) -> np.ndarray:
+    """``robot_obs`` with its last entry, CALVIN's gripper state, at -1 or 1
+    (the sign of the draw), as CALVIN records it; a draw of 3 or more
+    would be refused by ``data/preprocess.check_gripper_state``."""
+    robot_obs[..., -1] = np.where(robot_obs[..., -1] >= 0, 1.0, -1.0)
+    return robot_obs
 
 
 def make_synthetic_calvin(root: str, n_episodes: int = 3, ep_len: int = 24,
@@ -103,7 +115,8 @@ def make_synthetic_calvin(root: str, n_episodes: int = 3, ep_len: int = 24,
                                        np.uint8),
                  rel_actions=np.clip(r.randn(7).astype(np.float32) * 0.3,
                                      -1, 1),
-                 robot_obs=r.randn(15).astype(np.float32),
+                 robot_obs=with_gripper_state(
+                     r.randn(15).astype(np.float32)),
                  scene_obs=r.randn(24).astype(np.float32))
             frame += 1
         spans.append((start, frame - 1))

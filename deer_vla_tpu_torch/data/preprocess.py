@@ -122,15 +122,38 @@ def preprocess_train_frames(gen: Optional[torch.Generator],
     return stat[:, None, None], grip[:, None, None]
 
 
+def check_gripper_state(rows: np.ndarray, cfg) -> None:
+    """Raises ValueError when a head that embeds the gripper state
+    (``cfg.head.use_state``) would look up a row outside its table: the
+    index is trunc((g + 1) / 2) of the last entry g, in fp32 as the head
+    computes it (``models/action_head.embed_state``), and one outside
+    [-2, 2) gives NaN actions there.  Indices -2 and -1 wrap to the table's
+    rows, as the JAX package's lookup does.  Runs on the host rows, so it
+    costs no device sync."""
+    if not cfg.head.use_state:
+        return
+    g = np.asarray(rows, np.float32)[..., -1]
+    idx = np.trunc((g + np.float32(1.0)) / np.float32(2.0))
+    bad = ~((idx >= -2) & (idx < 2))  # NaN fails both
+    if bad.any():
+        raise ValueError(
+            f"gripper state {g[bad].ravel()[:4].tolist()} is out of range: "
+            "the head looks up row trunc((g + 1) / 2), which must lie in "
+            "[-2, 2) (CALVIN's gripper state is -1 or 1)")
+
+
 def state_rows(batch: dict, cfg, device) -> Optional[torch.Tensor]:
     """A state model's (B*W, 1, 1, dim) fp32 proprio rows from the batch's
     ``robot_obs`` (arm pose + gripper only with ``clip_state``,
-    train_utils.py:253-255); None for other models or without robot_obs."""
+    train_utils.py:253-255); None for other models or without robot_obs.
+    A gripper state the head cannot look up raises
+    (``check_gripper_state``)."""
     if not ((cfg.use_state or cfg.head.use_state) and "robot_obs" in batch):
         return None
     st = np.asarray(batch["robot_obs"])[:, :cfg.window_size]
     st = st.reshape(-1, st.shape[-1])
     if cfg.clip_state:
         st = np.concatenate([st[:, :6], st[:, -1:]], -1)
+    check_gripper_state(st, cfg)
     return torch.as_tensor(st[:, None, None, :], dtype=torch.float32,
                            device=device)

@@ -1,7 +1,10 @@
 """Rollout evaluation (the JAX package's ``eval/rollout.py``; the
 reference's eval_utils.py): the env protocol, the fake ``DebugEnv`` and its
 success oracle, the policy adapter, the rollout loop (EP_LEN = 360),
-sequence evaluation and the static split of sequences over processes.
+sequence evaluation and the static split of sequences over processes,
+with the options that need no download: tcp-frame actions (``tcp_rel``),
+episode GIFs (``visualize_dir``) and enriched instructions (a
+``lang_annotation_cache.json`` list as ``annotations``).
 
 The environment stays on the host; frames go to the policy's device as
 raw uint8 and are resized and normalized there.
@@ -10,6 +13,7 @@ raw uint8 and are resized and normalized there.
 from __future__ import annotations
 
 import json
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -17,10 +21,12 @@ import numpy as np
 import torch
 
 from deer_vla_tpu_torch.data.debug_data import TASKS
-from deer_vla_tpu_torch.data.preprocess import clip_preprocess
+from deer_vla_tpu_torch.data.preprocess import (check_gripper_state,
+                                                clip_preprocess)
 from deer_vla_tpu_torch.data.text import fixed_length
 from deer_vla_tpu_torch.eval.metrics import summarize
 from deer_vla_tpu_torch.eval.scan_policy import folded_window
+from deer_vla_tpu_torch.utils.tcp import tcp_to_world_frame
 
 EP_LEN = 360
 
@@ -105,12 +111,20 @@ class CalvinPolicyAdapter:
     the goal tiled a frame.  A policy that caches the frame window itself
     (``feeds_single_frame``, ``eval/caching.FrameCachePolicy``) gets the
     newest frame only.  State models get ``robot_obs`` (arm pose and
-    gripper only with ``clip_state``), a row a frame of the window."""
+    gripper only with ``clip_state``), a row a frame of the window.
 
-    def __init__(self, policy, text_fn: Callable, text_len: int = 32):
+    ``tcp_rel``: the policy was trained on tcp-frame actions
+    (``cli/train --tcp_rel``); each action, or each row of a (k, 7) plan,
+    goes back to the world frame at the observation's tcp pose
+    (``robot_obs``).  The reference declares this path and leaves it
+    unimplemented (eval_utils.py:482-487)."""
+
+    def __init__(self, policy, text_fn: Callable, text_len: int = 32,
+                 tcp_rel: bool = False):
         self.policy = policy
         self.text_fn = text_fn
         self.text_len = text_len
+        self.tcp_rel = tcp_rel
         self._goal_cache: Tuple[Optional[str], Optional[tuple]] = (None, None)
         self.llm_time = 0.0
         cfg = policy.cfg
@@ -176,6 +190,11 @@ class CalvinPolicyAdapter:
         else:
             action = self.policy.step(img, grip, ids, mask, state=state)
         self.llm_time = time.perf_counter() - t0
+        if self.tcp_rel and "robot_obs" in obs:
+            action = tcp_to_world_frame(
+                torch.as_tensor(np.asarray(action, np.float32)),
+                torch.as_tensor(np.asarray(obs["robot_obs"], np.float32))
+            ).numpy()
         return action
 
 
@@ -187,10 +206,13 @@ def roll_window(queue: list, item, window: int) -> list:
 
 def state_row(obs: Dict, cfg) -> np.ndarray:
     """``robot_obs`` in the training state layout: fp32, the arm pose and
-    the gripper only with ``clip_state`` (train_utils.py:253-255)."""
+    the gripper only with ``clip_state`` (train_utils.py:253-255).  A
+    gripper state the head cannot look up raises
+    (``data/preprocess.check_gripper_state``)."""
     ro = np.asarray(obs["robot_obs"], np.float32)
     if cfg.clip_state:
         ro = np.concatenate([ro[:6], ro[-1:]], -1)
+    check_gripper_state(ro, cfg)
     return ro
 
 
@@ -199,17 +221,34 @@ def state_row(obs: Dict, cfg) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def save_gif(frames: List[np.ndarray], viz_path: str, ok: bool) -> str:
+    """``frames`` as ``{viz_path}_{ok|fail}.gif``, 50 ms a frame, looping;
+    PIL is imported here only (a host-side option)."""
+    from PIL import Image
+    ims = [Image.fromarray(f) for f in frames]
+    path = f"{viz_path}_{'ok' if ok else 'fail'}.gif"
+    ims[0].save(path, save_all=True, append_images=ims[1:], duration=50,
+                loop=0)
+    return path
+
+
 def rollout(env, adapter: CalvinPolicyAdapter, task_oracle, subtask: str,
-            lang_annotation: str, ep_len: int = EP_LEN, replan: int = -1
+            lang_annotation: str, ep_len: int = EP_LEN, replan: int = -1,
+            viz_path: Optional[str] = None
             ) -> Tuple[bool, List[int], int, List[float]]:
     """One subtask episode (eval_utils.py:625-687).  A (k, 7) plan is
     consumed one action per env step without re-running the policy; the
-    exit layer and LLM time are recorded once per env step."""
+    exit layer and LLM time are recorded once per env step.
+
+    ``viz_path``: the episode's static-camera frames are saved as
+    ``{viz_path}_{ok|fail}.gif`` (the reference's --visualize collects
+    frames it never writes, eval_utils.py:649-678)."""
     obs = env.get_obs()
     adapter.reset()
     start_info = env.get_info()
     exit_layers, llm_times = [], []
     planned: List[np.ndarray] = []
+    frames = [obs["rgb_obs"]["rgb_static"].copy()] if viz_path else None
     for step in range(ep_len):
         if replan != -1 and step % replan == 0:
             adapter.reset()
@@ -224,9 +263,15 @@ def rollout(env, adapter: CalvinPolicyAdapter, task_oracle, subtask: str,
         exit_layers.append(adapter.current_exit_layer)
         llm_times.append(adapter.llm_time)
         obs, _, _, current_info = env.step(planned.pop(0))
+        if frames is not None:
+            frames.append(obs["rgb_obs"]["rgb_static"].copy())
         if task_oracle.get_task_info_for_set(start_info, current_info,
                                              {subtask}):
+            if frames is not None:
+                save_gif(frames, viz_path, True)
             return True, exit_layers, step + 1, llm_times
+    if frames is not None:
+        save_gif(frames, viz_path, False)
     return False, exit_layers, ep_len, llm_times
 
 
@@ -261,10 +306,12 @@ def resolve_annotation(annotations, subtask: str, seq_i: int = 0,
 
 def evaluate_sequence(env, adapter, task_oracle, initial_state,
                       eval_sequence, annotations, ep_len: int = EP_LEN,
-                      seq_i: int = 0, replan: int = -1, reset: bool = False):
+                      seq_i: int = 0, replan: int = -1, reset: bool = False,
+                      visualize_dir: Optional[str] = None):
     """One 5-subtask chain, stopping at the first failure
     (eval_utils.py:583-622); ``reset`` restores the chain's initial state
-    before every subtask (eval_utils.py:603-606)."""
+    before every subtask (eval_utils.py:603-606); with ``visualize_dir``
+    each episode's GIF goes there as ``seq{i:04d}_{j}_{subtask}``."""
     reset_env_to_initial_state(env, initial_state)
     success_counter = 0
     s_exits, f_exits, s_steps, s_times = [], [], [], []
@@ -272,8 +319,12 @@ def evaluate_sequence(env, adapter, task_oracle, initial_state,
         if reset and subtask_i > 0:
             reset_env_to_initial_state(env, initial_state)
         lang = resolve_annotation(annotations, subtask, seq_i, subtask_i)
+        viz = (os.path.join(visualize_dir,
+                            f"seq{seq_i:04d}_{subtask_i}_{subtask}")
+               if visualize_dir else None)
         ok, exits, n_steps, times = rollout(env, adapter, task_oracle,
-                                            subtask, lang, ep_len, replan)
+                                            subtask, lang, ep_len, replan,
+                                            viz_path=viz)
         if ok:
             success_counter += 1
             s_exits.extend(exits)
@@ -310,14 +361,16 @@ def evaluate_policy(adapter: CalvinPolicyAdapter, env, sequences: List,
                     ep_len: int = EP_LEN,
                     flops_per_layer: Optional[float] = None,
                     n_layers: Optional[int] = None, replan: int = -1,
-                    reset: bool = False) -> Dict:
+                    reset: bool = False,
+                    visualize_dir: Optional[str] = None) -> Dict:
     """Split the sequences statically over the processes
     (eval_utils.py:521-527), run this rank's chains, gather every rank's
     raw results in rank order and summarize them all (eval_utils.py:565-577).
 
     ``world_size`` must equal the number of processes the gather runs over
     (the torch.distributed group, else 1): a mismatch would summarize a
-    part of the sequences as if it were all of them."""
+    part of the sequences as if it were all of them.  ``visualize_dir``
+    (created here) receives one GIF an episode (``rollout``)."""
     procs = process_count()
     if world_size != procs:
         raise ValueError(f"world_size={world_size} but {procs} process(es) "
@@ -328,12 +381,14 @@ def evaluate_policy(adapter: CalvinPolicyAdapter, env, sequences: List,
                          "processes (eval_utils.py:525)")
     per = n // world_size
     my = sequences[rank * per:(rank + 1) * per]
+    if visualize_dir:
+        os.makedirs(visualize_dir, exist_ok=True)
     results, s_exits, f_exits, steps, s_times = [], [], [], [], []
     for local_i, (initial_state, eval_sequence) in enumerate(my):
         r, se, fe, st, ti = evaluate_sequence(
             env, adapter, task_oracle, initial_state, eval_sequence,
             annotations, ep_len, seq_i=rank * per + local_i, replan=replan,
-            reset=reset)
+            reset=reset, visualize_dir=visualize_dir)
         results.append(r)
         s_exits.extend(se)
         f_exits.extend(fe)

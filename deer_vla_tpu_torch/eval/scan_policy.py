@@ -395,6 +395,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         self._params_def = self._register_tree(
             "params", prune_serving_params(params, cfg))
         self.steps_per_stage = steps_per_stage
+        self.quantize = quantize
         self.set_thresholds(thresholds if thresholds is not None
                             else [1e8] * len(self.exits))
         self._carry_rows = None

@@ -10,8 +10,9 @@ Each phase starts a fresh optimizer with its own schedule (two AdamW
 optimizers, train_calvin_post_strategy.py:535-585); auto-resume picks the
 newest checkpoint and restores the phase optimizer's state (:589-629).
 A diffusion model's action normalizer is fitted on the loader's actions
-before training (``fit_action_normalizer``).  The tcp-frame labels
-(``--tcp_rel``) wait for ROADMAP.md M9b and co-training for M16.
+before training (``fit_action_normalizer``).  With ``tcp_rel`` the labels
+are tool-center-point-frame actions (``prepare_batch``).  Co-training waits
+for ROADMAP.md M16.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from deer_vla_tpu_torch.train.train_step import (TrainState,
                                                  init_train_state,
                                                  make_train_step)
 from deer_vla_tpu_torch.utils.heartbeat import Heartbeat
+from deer_vla_tpu_torch.utils.tcp import world_to_tcp_frame
 
 
 @dataclass
@@ -87,6 +89,10 @@ class TrainConfig:
     # > 0: an exponential moving average of the checkpointed leaves; each
     # checkpoint gains a sibling <name>_ema.ckpt (the reference has none)
     ema_decay: float = 0.0
+    # --tcp_rel: train on tcp-frame relative actions (labels converted
+    # world -> tcp at robot_obs, train_utils.py:462-465); evaluation must
+    # pass the same flag so that actions convert back
+    tcp_rel: bool = False
 
     @property
     def num_epochs(self) -> int:
@@ -99,9 +105,10 @@ def prepare_batch(raw: Dict[str, np.ndarray], cfg: DeerConfig,
     """A loader batch -> the train step's batch on ``device``: frames
     resized, normalized and randomly shifted there (shifts from ``gen``),
     the instruction repeated per frame (once a window under 'vit_concat')
-    and padded to ``cfg.text_len``, the window's action labels, and a state
-    model's proprio rows (the host-to-device flatten of
-    train_utils.py:441-478)."""
+    and padded to ``cfg.text_len``, the window's action labels (in the tcp
+    frame at each frame's robot_obs with ``tcfg.tcp_rel``, the frame's pose
+    broadcast over a multi-step label's k actions), and a state model's
+    proprio rows (the host-to-device flatten of train_utils.py:441-478)."""
     w = cfg.window_size
     stat = torch.as_tensor(raw["rgb_static"]).to(device)
     grip = torch.as_tensor(raw["rgb_gripper"]).to(device)
@@ -111,12 +118,19 @@ def prepare_batch(raw: Dict[str, np.ndarray], cfg: DeerConfig,
         gripper_pad=tcfg.gripper_pad, traj_cons=tcfg.traj_cons, window=w,
         size=cfg.vit.image_size, gripper_size=cfg.gripper_res or None)
     ids, mask = window_text(raw["input_ids"], raw["attention_mask"], cfg)
+    labels = torch.as_tensor(raw["actions"][:, :w], device=device)
+    if tcfg.tcp_rel and "robot_obs" in raw:
+        ro = torch.as_tensor(np.asarray(raw["robot_obs"])[:, :w],
+                             dtype=torch.float32, device=device)
+        if labels.ndim == 4:  # (B, W, k, 7)
+            ro = ro[:, :, None].expand(labels.shape[:3] + ro.shape[-1:])
+        labels = world_to_tcp_frame(labels, ro)
     batch = {"image": img, "gripper": gri,
              "input_ids": torch.as_tensor(ids.astype(np.int64),
                                           device=device),
              "attention_mask": torch.as_tensor(mask.astype(np.int64),
                                                device=device),
-             "labels": torch.as_tensor(raw["actions"][:, :w], device=device)}
+             "labels": labels}
     state = state_rows(raw, cfg, device)
     if state is not None:
         batch["state"] = state

@@ -166,6 +166,9 @@ def test_preprocess_train_frames_draws_from_the_generator():
 
 
 def test_debug_batcher_matches_jax():
+    """The same draws as JAX's DebugBatcher; the port puts robot_obs's last
+    entry, the gripper state a state head looks up, at the sign of JAX's
+    draw (-1 or 1, as CALVIN's)."""
     jcfg, tcfg, tok = configs()
     jtok = JaxTokenizer(vocab_size=128, max_length=8)
     jb = jdebug.DebugBatcher(jcfg, jtok, num_batches=2, seed=3)
@@ -173,7 +176,12 @@ def test_debug_batcher_matches_jax():
     for a, b in zip(jb, tb):
         assert a.keys() == b.keys()
         for k in a:
-            np.testing.assert_array_equal(a[k], b[k])
+            if k == "robot_obs":
+                np.testing.assert_array_equal(b[k][..., :-1], a[k][..., :-1])
+                np.testing.assert_array_equal(
+                    b[k][..., -1], np.where(a[k][..., -1] >= 0, 1.0, -1.0))
+            else:
+                np.testing.assert_array_equal(a[k], b[k])
 
 
 # ---------------------------------------------------------------------------

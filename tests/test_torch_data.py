@@ -30,7 +30,9 @@ KEYS = ("rgb_static", "rgb_gripper", "rel_actions", "robot_obs", "scene_obs")
 @pytest.fixture(scope="module")
 def synth(tmp_path_factory):
     """One split written by each package from the same seed; the port's
-    second episode with savez_compressed."""
+    second episode with savez_compressed.  The port's gripper states are
+    the signs of JAX's draws, so the loaders of both packages read the
+    port's split."""
     jroot = tmp_path_factory.mktemp("jax_calvin")
     troot = tmp_path_factory.mktemp("torch_calvin")
     jdir = jdebug.make_synthetic_calvin(str(jroot), n_episodes=3, ep_len=20)
@@ -56,7 +58,12 @@ def test_synthetic_calvin_matches_jax(synth):
         t = np.load(f"{tdir}/episode_{i:07d}.npz")
         assert sorted(t.files) == sorted(KEYS)
         for k in KEYS:
-            np.testing.assert_array_equal(t[k], j[k])
+            if k == "robot_obs":  # the gripper state at CALVIN's -1 / 1
+                np.testing.assert_array_equal(t[k][:-1], j[k][:-1])
+                np.testing.assert_array_equal(
+                    t[k][-1], np.where(j[k][-1] >= 0, 1.0, -1.0))
+            else:
+                np.testing.assert_array_equal(t[k], j[k])
     ja = np.load(f"{jdir}/lang_annotations/auto_lang_ann.npy",
                  allow_pickle=True).item()
     ta = np.load(f"{tdir}/lang_annotations/auto_lang_ann.npy",
@@ -106,7 +113,7 @@ def test_dataset_matches_jax(synth, tmp_path, case, validation):
     kw = dict(DATASET_CASES[case], enrich_lang_path=enrich,
               partial_task_path=partial, seed=3)
     jds = jcalvin.DiskCalvinDataset(
-        jcalvin.CalvinDataConfig(dataset_dir=jdir, **kw), validation)
+        jcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), validation)
     tds = tcalvin.DiskCalvinDataset(
         tcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), validation)
     assert len(tds) == len(jds) > 0
@@ -141,11 +148,11 @@ def test_padding_rules_match_jax(synth):
     """A window cut short at the episode's end: frames repeat, the arm
     dims of relative actions are zero, the gripper dim repeats
     (data.py:494-516)."""
-    jdir, tdir = synth
+    _, tdir = synth
     for relative in (True, False):
         kw = dict(window_size=6, relative_actions=relative)
         jds = jcalvin.DiskCalvinDataset(
-            jcalvin.CalvinDataConfig(dataset_dir=jdir, **kw), False)
+            jcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), False)
         tds = tcalvin.DiskCalvinDataset(
             tcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), False)
         s = tds[0]
@@ -172,10 +179,10 @@ def test_validation_window_sizes_match_jax():
 def test_loader_batches_match_jax(synth, rank, world):
     """Two epochs of shuffled, sharded batches (set_epoch reshuffles from
     RandomState(seed + epoch)), bit for bit."""
-    jdir, tdir = synth
+    _, tdir = synth
     kw = dict(window_size=6)
     jds = jcalvin.DiskCalvinDataset(
-        jcalvin.CalvinDataConfig(dataset_dir=jdir, **kw), False)
+        jcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), False)
     tds = tcalvin.DiskCalvinDataset(
         tcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), False)
     jl = jcalvin.CalvinLoader(jds, JaxTokenizer(max_length=16), 4, rank=rank,
@@ -198,11 +205,11 @@ def test_loader_batches_match_jax(synth, rank, world):
 def test_dif_ws_loader_matches_jax(synth):
     """Variable windows through the loader (one worker: the draws come from
     the dataset's RandomState in sample order), padded to the max."""
-    jdir, tdir = synth
+    _, tdir = synth
     kw = dict(window_size=8, dif_ws=True, var_min_window=5,
               var_max_window=8)
     jl = jcalvin.CalvinLoader(jcalvin.DiskCalvinDataset(
-        jcalvin.CalvinDataConfig(dataset_dir=jdir, **kw), False),
+        jcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), False),
         JaxTokenizer(max_length=16), 3, seed=1, workers=1)
     tl = tcalvin.CalvinLoader(tcalvin.DiskCalvinDataset(
         tcalvin.CalvinDataConfig(dataset_dir=tdir, **kw), False),

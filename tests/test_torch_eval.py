@@ -284,15 +284,27 @@ def test_cli_lanes_and_fixed_thresholds(capsys):
     assert report["batched_exit_waste"]["avg_wasted_layers_per_step"] == 0
 
 
+# the ids are the cases' names from when each flag named its item
 @pytest.mark.parametrize("flag,item", [
-    (["--visualize", "gifs"], "M9"),
-    (["--tcp_rel"], "M9b"),
-    (["--diverse_inst"], "M9b"),
-    (["--annotation_cache", "a.json"], "M9b"),
-    (["--calvin_conf_path", "conf"], "M9"),
-    (["--visualize", "out"], "M9b")])
+    pytest.param(["--visualize", "gifs", "--lanes", "2"],
+                 "--visualize needs the sequential harness", id="flag0-M9"),
+    pytest.param(["--tcp_rel", "--lanes", "2"],
+                 "does not apply the tcp->world", id="flag1-M9b"),
+    pytest.param(["--diverse_inst", "--tcp_rel", "--lanes", "2",
+                  "--pipeline", "2"], "does not apply the tcp->world",
+                 id="flag2-M9b"),
+    pytest.param(["--annotation_cache", "a.json", "--visualize", "out",
+                  "--lanes", "4"], "--visualize needs the sequential harness",
+                 id="flag3-M9b"),
+    pytest.param(["--calvin_conf_path", "conf"], r"ROADMAP\.md M9 ",
+                 id="flag4-M9"),
+    pytest.param(["--visualize", "out", "--tcp_rel", "--lanes", "2"],
+                 "--visualize needs the sequential harness", id="flag5-M9b")])
 def test_cli_unserved_flags_raise_naming_the_roadmap_item(flag, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+    """A JAX flag the port does not serve names its ROADMAP.md item; the
+    rollout options that need no download (M9b) are served and keep the
+    JAX CLI's refusals with --lanes (cli/eval.py:468-475)."""
+    with pytest.raises(SystemExit, match=item):
         cli.main(CLI_ARGS + flag, device="cpu")
 
 

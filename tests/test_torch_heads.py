@@ -2,8 +2,9 @@
 CPU: the heads themselves (with JAX's dropout masks), the gpt head's
 streamed history with per-stream counts, the routing and its refusals, the
 scan engine and ``DeerPolicy`` at B=1 and B=4 with per-stream thresholds,
-calibration, the train step, and the CLIs (their refusals, the M9b
-labels, and cli/train then cli/eval on one checkpoint per family).
+calibration, the train step, and the CLIs (their refusals, cli/serve's
+refusals of the micro-batching core, and cli/train then cli/eval on one
+checkpoint per family).
 
 Weights: the shared JAX init of tests/test_torch_fusion.py's backbone with
 heads of the family drawn by the JAX head inits, bridged.  The fc head is
@@ -46,6 +47,7 @@ from deer_vla_tpu_torch.models import alt_heads as talt
 from deer_vla_tpu_torch.models import flamingo as tflam
 from deer_vla_tpu_torch.models import heads as theads
 from deer_vla_tpu_torch.ops.dropout import Dropout
+from deer_vla_tpu_torch.serving.server import ServeError
 from deer_vla_tpu_torch.train import train_step as tstep
 from test_torch_folded import window_obs
 from test_torch_fusion import (frames, full_params, jx, pair, rel_l2,
@@ -614,14 +616,41 @@ def test_eval_cli_head_refusals(flags, error, match):
         eval_cli.main(EVAL_ARGV + flags, device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--tcp_rel"], ["--visualize", "gifs"],
-                                  ["--diverse_inst"],
-                                  ["--annotation_cache", "a.json"]])
-def test_eval_cli_download_free_flags_name_m9b(flag):
-    """The rollout options that need no download wait for M9b, not the
-    dropped CALVIN env item."""
-    with pytest.raises(SystemExit, match=r"\(ROADMAP\.md M9b \("):
-        eval_cli.main(EVAL_ARGV + flag, device="cpu")
+@pytest.fixture(scope="module")
+def served_checkpoints(tmp_path_factory):
+    """A full checkpoint of each SERVED family, its config in the sidecar."""
+    from deer_vla_tpu_torch.train.checkpoint import save_checkpoint
+    root = tmp_path_factory.mktemp("head_ckpts")
+    out = {}
+    for name, changes in SERVED.items():
+        tcfg = configs(changes)[1]
+        out[name] = save_checkpoint(str(root / name), tflam.init_deer(
+            tcfg, seed=3, device="cpu"), tcfg)
+    return out
+
+
+@pytest.mark.parametrize("head,flag,error", [
+    pytest.param(None, ["--batch_lanes", "2", "--tcp_rel"], SystemExit,
+                 id="flag0"),
+    pytest.param("fc", ["--batch_lanes", "2"], ServeError, id="flag1"),
+    pytest.param("gpt", ["--batch_lanes", "2"], ServeError, id="flag2"),
+    pytest.param("gpt", ["--batch_lanes", "4", "--tcp_rel"], SystemExit,
+                 id="flag3")])
+def test_eval_cli_download_free_flags_name_m9b(served_checkpoints, head,
+                                               flag, error):
+    """The rollout options that need no download (M9b) are served now; the
+    refusals that stay are JAX's for the micro-batching server:
+    ``cli/serve --batch_lanes`` with ``--tcp_rel`` (cli/serve.py:147-150)
+    or on an fc / gpt checkpoint (serving/batcher.py:82-86)."""
+    from deer_vla_tpu_torch.cli import serve as serve_cli
+    src = (["--model", "tiny"] if head is None else
+           ["--evaluate_from_checkpoint", served_checkpoints[head],
+            "--precision", "fp32"])
+    match = ("--batch_lanes does not apply" if error is SystemExit
+             else "fc / gpt heads use the per-stream core")
+    with pytest.raises(error, match=match):
+        serve_cli.main(src + ["--oneshot_healthz", "--port", "0"] + flag,
+                       device="cpu")
 
 
 def test_eval_cli_head_type_builds_the_train_cli_config():

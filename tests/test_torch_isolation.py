@@ -167,3 +167,21 @@ def test_new_data_modules_are_walked_and_build_nothing_at_import():
     inner = [n for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
              for n in ast.walk(f) if isinstance(n, ast.Import)]
     assert sum(a.name == "h5py" for n in inner for a in n.names) == 2
+
+
+def test_serving_modules_are_walked():
+    """The deployment modules are in the import check above: the servers,
+    cli/serve, cli/gen_sequences and the tcp frames."""
+    mods = port_modules()
+    for m in ("serving.server", "serving.batcher", "cli.serve",
+              "cli.gen_sequences", "utils.tcp"):
+        assert f"deer_vla_tpu_torch.{m}" in mods
+
+
+def test_serve_cli_without_device_raises_when_no_card(monkeypatch):
+    from deer_vla_tpu_torch.cli import serve as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--model", "tiny", "--thresholds", "0.1", "1e8",
+                  "--oneshot_healthz"])

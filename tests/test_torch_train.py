@@ -969,7 +969,7 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
     (["--coco_ann", "a.json"], "M16"), (["--vqa_ann", "a.json"], "M16"),
     (["--vl_weight", "0.5"], "M16"), (["--vl_batch_size", "2"], "M16"),
     (["--process_id", "1"], "M15"), (["--vqa_questions", "q.json"], "M16"),
-    (["--tcp_rel"], "M9b"), (["--tokenizer_path", "x"], "M9"),
+    (["--tcp_rel", "--cotrain"], "M16"), (["--tokenizer_path", "x"], "M9"),
     (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
     (["--vl_weight", "2"], "M16")])
 def test_train_cli_unserved_flags_raise(flag, item):
@@ -1021,6 +1021,26 @@ def test_train_cli_on_calvin_then_eval_from_checkpoint(tmp_path, capsys,
                             "--num_sequences_override", "2"], device="cpu")
     assert "param groups from ckpt" in capsys.readouterr().out
     assert report["avg_seq_len"] >= 0
+
+
+def test_train_cli_on_calvin_with_state(tmp_path, calvin_root):
+    """cli/train --use_state on the synthetic CALVIN tree: every gripper
+    state is CALVIN's -1 or 1, so the host check passes each batch and the
+    state rows reach the trained head."""
+    from deer_vla_tpu_torch.data.preprocess import check_gripper_state
+    tr = train_cli.main(["--model", "tiny", "--calvin_dataset", calvin_root,
+                         "--use_state", "--num_joint_epochs", "1",
+                         "--num_exit_epochs", "0", "--batch_size_calvin",
+                         "2", "--run_name", str(tmp_path / "run"),
+                         "--joint_warmup_steps", "1", "--precision", "fp32",
+                         "--workers", "1", "--window_size", "4",
+                         "--data_percent", "0.34"], device="cpu")
+    assert tr.cfg.use_state and tr.cfg.head.use_state
+    assert tr.state.opt_state["count"] == len(tr.loader) > 0
+    for i in range(len(tr.loader.ds)):
+        grip = tr.loader.ds[i]["robot_obs"][:, -1]
+        assert set(np.unique(grip)) <= {-1.0, 1.0}
+        check_gripper_state(tr.loader.ds[i]["robot_obs"], tr.cfg)
 
 
 def test_train_cli_refuses_dif_ws_off_the_max_window(calvin_root, tmp_path):
