@@ -114,7 +114,28 @@ against the CPU) and, on the training phase's checkpoint and the values
 sidecar phase train_eval writes beside it, ``serve_cli`` (``main
 --oneshot_healthz`` with --thresholds, ``build_core`` with the sidecar).
 
-Every phase prints one JSON line; any failed check raises and the script
+The tooling (ROADMAP M17) runs on the training phase's checkpoints before
+they are deleted: ``convert_3b`` (the seeded deer_3b tree, every leaf
+given a draw of its own, written as the reference's artifacts in
+``build/chip_smoke_convert/``: an open_clip ViT ``.pt``, an HF MPT snapshot
+of two ``.safetensors`` shards written by this script, a DeeR delta
+``.pth`` with its readout keys and values; then ``cli/convert`` in a
+process of its own with another seed, every converted leaf bit-equal to
+the written one, the audit at 0 unconsumed keys, and 8 B=1 steps of the
+converted tree bit-equal to the written tree's), ``bayes_opt_3b``
+(``cli/bayes_opt --parallel 2`` at deer_3b: its initial ``cli/eval`` run,
+then 2 GP rounds of 2 candidates, each one batched rollout over 4 lanes;
+then ``evaluate_policy_batched(candidates=)`` with the first-exit and the
+full-depth rows), ``eval_ckpts`` (``cli/eval_ckpts --debug`` on the last
+training checkpoint, bf16 at ratio 0.5 on its values sidecar and
+``--quantize int8`` at ratio 1.0 calibrating anew, then both again,
+skipped) and ``profiling`` (``Timer(sync_on=)``
+against CUDA events around device-bound products and an unsynced
+``Timer`` short of them, against the host clock of a served step, a
+``trace()`` under ``chiprun_out/chip_smoke/``, ``MetricLogger``'s JSONL).
+
+Every phase prints one JSON line, with ``t_s`` the seconds since the
+script started; any failed check raises and the script
 exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the port's package beside this file, it
@@ -141,6 +162,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
 SEED = 0
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -286,6 +308,11 @@ def released_gb(torch) -> float:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``t_s``, the seconds since
+    the script started, so that each phase's share of the time limit can
+    be read off the output."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -504,7 +531,8 @@ def vit_batches(cfg) -> dict:
     the paths this script drives hand K1, by compute dtype: the serve
     phases' B=1 and B=8, each rollout's dispatch, a calibration batch's B*W
     frames (phase calibrate and ``cli/eval``), a training batch's B*W
-    frames, the window-folded variants' W frames at B=1 and B=8; in fp32
+    frames, the window-folded variants' W frames at B=1 and B=8, a
+    ``cli/bayes_opt --parallel`` round's lanes (``BO_LANES``); in fp32
     the serve cross-checks' B=1, the calibration and training
     cross-checks' W frames and the folded cross-check's W frames.
     ``images`` holds the one-camera passes, in images.  ``tome`` holds the batches the ToMe
@@ -518,7 +546,7 @@ def vit_batches(cfg) -> dict:
     # the window-folded variants' uncached steps: W frames a stream
     folded = cfg.window_size
     return {"bfloat16": sorted({1, 8, calib, train, difws, folded,
-                                8 * folded, *rollout_streams()}),
+                                8 * folded, BO_LANES, *rollout_streams()}),
             "float32": sorted({1, CALIB_CROSS_WINDOW, folded}),
             "calib": calib, "train": train, "difws": difws,
             "folded": folded,
@@ -654,6 +682,7 @@ DECODER_PRODUCTS = {
 # a stream (a text row a frame under use_hist).  deer_9b: the serve phase's B=1 and B=8, and B=1 in fp32 (the
 # cross-checks' fp32 steps)
 INDEXED_CASES = {
+    # 4 streams: --lanes 4 and a cli/bayes_opt round (BO_LANES)
     "deer_3b": ((1, "bfloat16"), (2, "bfloat16"), (4, "bfloat16"),
                 (8, "bfloat16"), (32, "bfloat16"), (1, "float32"),
                 # use_hist's W=12 text rows a stream at B=1 and B=8
@@ -2163,8 +2192,11 @@ def phase_train_eval(torch, np) -> dict:
            "avg_exit_layer": report["avg_exit_layer"],
            "exit_hist": report["exit_hist"], "launches": launches}
     emit(out)
-    layerwise = phase_rollout(torch, np, "train_eval_layerwise",
-                              argv + ["--layerwise_exit_eval"])
+    # a cache of its own: it calibrates as the run above did, and leaves
+    # that run's sidecar as it is
+    layerwise = phase_rollout(torch, np, "train_eval_layerwise", argv + [
+        "--layerwise_exit_eval", "--value_cache",
+        str(TRAIN_DIR / "layerwise_values")])
     out["runs"] = {"layerwise": layerwise}
     torch.cuda.empty_cache()
     return out
@@ -4219,6 +4251,669 @@ def phase_rollout_tcp(torch, np) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tooling (ROADMAP M17): reference-checkpoint conversion, the threshold
+# search, checkpoint sweeps, profiling
+# ---------------------------------------------------------------------------
+
+CONVERT_DIR = REPO / "build" / "chip_smoke_convert"
+# every leaf of convert_3b's tree gets a seeded normal draw of this scale
+# on top of the seeded init, so that no leaf holds a constant (LayerNorm
+# scales and biases included) and no two leaves hold the same values: a
+# converter that swaps, drops or redraws a leaf cannot give the same tree
+CONVERT_LEAF_STD = 0.01
+# the DeeR dict's readouts (eval_calvin.py:455-476) at deer_3b's values and
+# its cached calibration values: (exits, samples)
+CONVERT_VALUES = 64
+# cli/bayes_opt at deer_3b: the initial cli/eval run (8 calibration batches,
+# 2 sequential rollout sequences), then 2 GP rounds of 2 candidates, each
+# round one batched rollout over 2 lanes a candidate
+BO_Q, BO_LANES_PER = 2, 2
+BO_LANES = BO_Q * BO_LANES_PER  # the ViT batch of a round's dispatch
+BO_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--parallel", str(BO_Q),
+           "--lanes_per_candidate", str(BO_LANES_PER), "--n_calls", "4",
+           "--num_seq", "2"]
+# cli/eval_ckpts on the training phase's last checkpoint: a bf16 sweep at
+# ratio 0.5 that serves the checkpoint's values sidecar (cli/eval's default
+# cache) and an int8 sweep at ratio 1.0 that calibrates under K3 into a
+# cache of its own; arguments after "--" for cli/eval
+SWEEP_LOG_DIR = OUT_DIR / "eval_ckpts"
+SWEEP_RUNS = (("bf16", "0.5", []),
+              ("int8", "1.0", ["--quantize", "int8", "--value_cache",
+                               str(TRAIN_DIR / "sweep_int8_values")]))
+SWEEP_EVAL_ARGS = ["--calib_batches", "2", "--num_sequences_override", "2",
+                   "--ep_len", "40"]
+# Timer(sync_on=) against the host clock of the same served step
+TIMER_REL_TOL = 0.10
+# ... and around a device-bound block with no host read: a chain of bf16
+# (n, n) products, about 10 ms of the card's time.  The synced Timer must
+# span the CUDA events recorded around the same work (to the events'
+# resolution, TIMER_EVENT_SLACK_MS); an unsynced one must read less than
+# TIMER_UNSYNCED_SHARE of them
+TIMER_MM_N, TIMER_MM_CHAIN = 8192, 8
+TIMER_EVENT_SLACK_MS = 0.01
+TIMER_UNSYNCED_SHARE = 0.5
+
+
+def ln_keys(prefix: str, ln: dict) -> dict:
+    """A LayerNorm leaf as torch names it."""
+    out = {prefix + ".weight": ln["scale"]}
+    if "bias" in ln:
+        out[prefix + ".bias"] = ln["bias"]
+    return out
+
+
+def linear_keys(prefix: str, lin: dict) -> dict:
+    """A linear leaf as torch names it: the weight (out, in)."""
+    out = {prefix + ".weight": lin["w"].T}
+    if "b" in lin:
+        out[prefix + ".bias"] = lin["b"]
+    return out
+
+
+def reference_vit(vit: dict) -> dict:
+    """The ViT as a raw open_clip checkpoint (``visual.*``)."""
+    pe = vit["patch_embed"]["w"]  # (3 * p * p, width)
+    p = int(round((pe.shape[0] // 3) ** 0.5))
+    sd = {"visual.conv1.weight": pe.T.reshape(pe.shape[1], 3, p, p),
+          "visual.class_embedding": vit["class_embedding"],
+          "visual.positional_embedding": vit["positional_embedding"],
+          **ln_keys("visual.ln_pre", vit["ln_pre"]),
+          **ln_keys("visual.ln_post", vit["ln_post"])}
+    for i, b in enumerate(vit["blocks"]):
+        rb = f"visual.transformer.resblocks.{i}."
+        sd.update(ln_keys(rb + "ln_1", b["ln_1"]))
+        sd.update(ln_keys(rb + "ln_2", b["ln_2"]))
+        sd[rb + "attn.in_proj_weight"] = b["qkv"]["w"].T
+        sd[rb + "attn.in_proj_bias"] = b["qkv"]["b"]
+        sd.update(linear_keys(rb + "attn.out_proj", b["out"]))
+        sd.update(linear_keys(rb + "mlp.c_fc", b["mlp_fc"]))
+        sd.update(linear_keys(rb + "mlp.c_proj", b["mlp_proj"]))
+    return sd
+
+
+def reference_mpt_shards(decoder: dict) -> list:
+    """The MPT decoder as an HF snapshot's state dict in two shards: wte
+    and the first half of the blocks, then the rest and ln_f."""
+    blocks = decoder["blocks"]
+    half = len(blocks) // 2
+    shards = [{"transformer.wte.weight": decoder["wte"]["w"]},
+              ln_keys("transformer.ln_f", decoder["ln_f"])]
+    for i, b in enumerate(blocks):
+        pre = f"transformer.blocks.{i}."
+        sd = shards[0 if i < half else 1]
+        sd.update(ln_keys(pre + "ln_1", b["ln_1"]))
+        sd.update(ln_keys(pre + "ln_2", b["ln_2"]))
+        sd.update(linear_keys(pre + "attn.Wqkv", b["wqkv"]))
+        sd.update(linear_keys(pre + "attn.out_proj", b["out_proj"]))
+        sd.update(linear_keys(pre + "mlp.mlp_up", b["mlp_up"]))
+        sd.update(linear_keys(pre + "mlp.mlp_down", b["mlp_down"]))
+    return shards
+
+
+def reference_head(prefix: str, head: dict) -> dict:
+    """A DeterministicDecoder: nn.LSTM names and the two MLP heads'
+    Linear layers at Sequential indices 0, 2, 4, ..."""
+    sd = {}
+    for k, lp in enumerate(head["rnn"]["layers"]):
+        sd[f"{prefix}rnn.weight_ih_l{k}"] = lp["wi"].T
+        sd[f"{prefix}rnn.weight_hh_l{k}"] = lp["wh"].T
+        sd[f"{prefix}rnn.bias_ih_l{k}"] = lp["bi"]
+        sd[f"{prefix}rnn.bias_hh_l{k}"] = lp["bh"]
+    for name in ("actions", "gripper"):
+        for j, lin in enumerate(head[name]["layers"]):
+            sd.update(linear_keys(f"{prefix}{name}.mlp.{2 * j}", lin))
+    return sd
+
+
+def reference_delta(params: dict, cfg) -> dict:
+    """The DeeR delta's state dict: the perceiver, wte, the gated x-attn
+    layers and the heads, named as the composed reference model names
+    them."""
+    per = params["perceiver"]
+    sd = {"perceiver.latents": per["latents"],
+          **ln_keys("perceiver.norm", per["norm"]),
+          "lang_encoder.transformer.wte.weight":
+              params["decoder"]["wte"]["w"]}
+    for i, layer in enumerate(per["layers"]):
+        a, f = f"perceiver.layers.{i}.0.", f"perceiver.layers.{i}.1."
+        sd.update(ln_keys(a + "norm_media", layer["norm_media"]))
+        sd.update(ln_keys(a + "norm_latents", layer["norm_latents"]))
+        for name in ("to_q", "to_kv", "to_out"):
+            sd.update(linear_keys(a + name, layer[name]))
+        sd.update(ln_keys(f + "0", layer["ff"]["ln"]))
+        sd.update(linear_keys(f + "1", layer["ff"]["fc1"]))
+        sd.update(linear_keys(f + "3", layer["ff"]["fc2"]))
+    for i, x in enumerate(params["decoder"]["xattn"]):
+        if x is None:
+            continue
+        pre = f"lang_encoder.transformer.blocks.{i}.gated_cross_attn_layer."
+        sd.update(ln_keys(pre + "attn.norm", x["norm"]))
+        for name in ("to_q", "to_kv", "to_out"):
+            sd.update(linear_keys(pre + "attn." + name, x[name]))
+        sd[pre + "attn_gate"] = x["attn_gate"]
+        sd[pre + "ff_gate"] = x["ff_gate"]
+        sd.update(ln_keys(pre + "ff.0", x["ff"]["ln"]))
+        sd.update(linear_keys(pre + "ff.1", x["ff"]["fc1"]))
+        sd.update(linear_keys(pre + "ff.3", x["ff"]["fc2"]))
+    sd.update(reference_head("lm_head.", params["lm_head"]))
+    sd.update(reference_head("extra_exit.", params["extra_exit"]))
+    for j, layer_id in enumerate(cfg.exit_layer_ids()):
+        sd.update(reference_head(f"lm_exit_modules.{j}.",
+                                 params["lm_exits"][str(layer_id)]))
+    return sd
+
+
+def write_safetensors(np, path: Path, tensors: dict) -> int:
+    """A .safetensors file of fp32 numpy arrays, written by hand: the
+    8-byte little-endian header length, the JSON header (dtype, shape,
+    data_offsets), the little-endian data.  Returns the bytes written."""
+    import struct
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, a in tensors.items():
+        n = a.size * 4
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)  # the format pads the header to 8
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)) + text)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, dtype="<f4").tobytes())
+    return 8 + len(text) + offset
+
+
+def distinct_leaves(torch, params: dict) -> None:
+    """Adds a seeded normal draw of ``CONVERT_LEAF_STD`` to every leaf of
+    ``params``, in place."""
+    from deer_vla_tpu_torch.ops.layers import tree_leaves_with_path
+    leaves = tree_leaves_with_path(params)
+    gen = torch.Generator(device=leaves[0][1].device).manual_seed(SEED + 2)
+    for _, t in leaves:
+        t.add_(torch.randn(t.shape, generator=gen, device=t.device,
+                           dtype=t.dtype), alpha=CONVERT_LEAF_STD)
+
+
+def write_reference_artifacts(torch, np, params: dict, cfg, out: Path,
+                              values) -> dict:
+    """``params`` (the tree of fp32 tensors, on the card) in the
+    reference's layouts: the ViT as an open_clip ``.pt``, the MPT blocks
+    and wte as an HF snapshot of two ``.safetensors`` shards, the
+    perceiver, x-attn, wte and heads as a DeeR delta ``.pth`` with the
+    readout keys and a ``values`` tensor.  Each tensor is laid out where
+    it lies (the transposes on the card) and copied to the host as it is
+    written.  Returns the files' paths and their bytes."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    def tensors(sd):
+        return {k: v.contiguous().cpu() for k, v in sd.items()}
+
+    files = {"clip": out / "open_clip_vit_l14.pt",
+             "mpt": out / "mpt_snapshot",
+             "deer": out / "deer_delta.pth"}
+    torch.save(tensors(reference_vit(params["vit"])), files["clip"])
+    files["mpt"].mkdir()
+    shards = reference_mpt_shards(params["decoder"])
+    for i, sd in enumerate(shards):
+        write_safetensors(np, files["mpt"] / f"model-0000{i + 1}-of-0000"
+                                             f"{len(shards)}.safetensors",
+                          {k: v.numpy() for k, v in tensors(sd).items()})
+    head = cfg.head
+    torch.save({"model_state_dict": tensors(reference_delta(params, cfg)),
+                "epoch": 3, "head_type": cfg.head_type,
+                "early_exit_layer": cfg.n_layers - 1,
+                "exit_interval": cfg.exit_interval,
+                "multi_exit": cfg.multi_exit, "share_exit": cfg.share_exit,
+                "mlp_layernorm": head.mlp_layernorm,
+                "lstm_layernorm": head.lstm_layernorm,
+                "mlp_num_hidden_layers": head.mlp_num_hidden_layers,
+                "lstm_num_layers": head.lstm_num_layers,
+                "pooling": head.pooling,
+                "values": torch.from_numpy(values)}, files["deer"])
+    sizes = {k: sum(f.stat().st_size for f in
+                    ([p] if p.is_file() else p.iterdir()))
+             for k, p in files.items()}
+    return {"files": {k: str(p) for k, p in files.items()}, "bytes": sizes}
+
+
+# cli/convert in a process of its own, which samples its own resident set
+# (/proc/self/statm) every 50 ms and prints the largest (the rusage of a
+# child also holds the image it was forked from, and the card's machine has
+# no VmHWM in /proc/self/status), and the seconds spent in its draw of the
+# init, its loads of the backbone sources and its checkpoint write
+CONVERT_MAIN = """
+import json, os, sys, threading, time
+import deer_vla_tpu_torch.models.flamingo as flamingo
+import deer_vla_tpu_torch.train.checkpoint as checkpoint
+import deer_vla_tpu_torch.utils.convert as convert
+from deer_vla_tpu_torch.cli.convert import main
+peak, page, spent = [0], os.sysconf("SC_PAGE_SIZE"), {}
+def sample():
+    try:
+        while True:
+            with open("/proc/self/statm") as f:
+                peak[0] = max(peak[0], int(f.read().split()[1]) * page)
+            time.sleep(0.05)
+    except OSError:
+        peak[0] = None
+def timed(mod, name):
+    real = getattr(mod, name)
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+    setattr(mod, name, call)
+for mod, name in ((flamingo, "init_deer"), (convert, "load_torch_checkpoint"),
+                  (checkpoint, "save_checkpoint")):
+    timed(mod, name)
+threading.Thread(target=sample, daemon=True).start()
+t0 = time.perf_counter()
+main(sys.argv[1:])
+spent["main"] = time.perf_counter() - t0
+print("PEAK_RSS_BYTES", peak[0], flush=True)
+print("SECONDS", json.dumps(spent), flush=True)
+"""
+
+
+def run_convert(files: dict, stem: Path, seed: int,
+                model: str = "deer_3b") -> dict:
+    """``cli/convert.main`` on the artifacts in a process of its own:
+    its seconds (the process's and its parts'), its output and its peak
+    RSS (None where the machine cannot say)."""
+    argv = ["--model", model, "--clip_checkpoint", files["clip"],
+            "--mpt_checkpoint", files["mpt"], "--deer_checkpoint",
+            files["deer"], "--seed", str(seed), "--out", str(stem)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CONVERT_MAIN] + argv,
+                          cwd=REPO, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    check(proc.returncode == 0,
+          f"convert_3b: cli/convert exited {proc.returncode}: {text[-2000:]}")
+    peak = re.search(r"PEAK_RSS_BYTES (\d+|None)", proc.stdout)
+    parts = re.search(r"SECONDS (\{.*\})", proc.stdout)
+    check(peak is not None and parts is not None,
+          f"convert_3b: no peak RSS or seconds in {text[-500:]}")
+    return {"argv": argv, "seconds": seconds, "log": text,
+            "parts_seconds": json.loads(parts.group(1)),
+            "peak_rss_gb": (None if peak.group(1) == "None"
+                            else int(peak.group(1)) / 1e9)}
+
+
+def phase_convert_3b(torch, np, cfg) -> dict:
+    """The seeded deer_3b tree (``build_weights``), every leaf made
+    distinct (``distinct_leaves``), written as the reference's artifacts
+    (``write_reference_artifacts``), converted by ``cli/convert`` with a
+    seed of its own for the leaves no source covers: every converted leaf
+    must be bit-equal to the written one, each source's audit at 0
+    unconsumed keys, the config the seeded model's and the values sidecar
+    the values written.  Then 8 B=1 steps of the converted and the written
+    trees, each through ``ScanDeerPolicy`` with K2, from the same inputs
+    and thresholds: exits and actions bit-equal, K1 and K2 launched on the
+    converted run."""
+    from deer_vla_tpu_torch.core.config import DeerConfig
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.ops.layers import (flat_key, tree_leaves_with_path,
+                                               tree_map)
+    from deer_vla_tpu_torch.train.checkpoint import (load_calibration_values,
+                                                     load_checkpoint)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    params = build_weights(torch, cfg)
+    distinct_leaves(torch, params)
+    t0 = time.perf_counter()
+    values = np.random.RandomState(SEED).uniform(
+        0, 1e-3, (cfg.num_exits, CONVERT_VALUES)).astype(np.float32)
+    written = write_reference_artifacts(torch, np, params, cfg, CONVERT_DIR,
+                                        values)
+    write_s = time.perf_counter() - t0
+    stem = CONVERT_DIR / "converted" / "deer"
+    conv = run_convert(written["files"], stem, seed=SEED + 1)
+    side = json.loads((stem.parent / "deer.json").read_text())
+    sources = side["meta"]["converted_from"]
+    check([s["role"] for s in sources] == ["clip_vit", "mpt_backbone",
+                                           "deer_delta"]
+          and all(s["unconsumed"] == 0 for s in sources),
+          f"convert_3b: sources {sources}")
+    ccfg = DeerConfig.from_json(json.dumps(side["config"]))
+    check(ccfg.to_json() == cfg.to_json(),
+          "convert_3b: the converted config is not the seeded model's")
+    t0 = time.perf_counter()
+    template = tree_map(torch.zeros_like, params)
+    conv_params, _, loaded = load_checkpoint(str(stem), template)
+    load_s = time.perf_counter() - t0
+    del template
+    leaves = tree_leaves_with_path(params)
+    got = dict((flat_key(p), t) for p, t in tree_leaves_with_path(
+        conv_params))
+    unequal = [flat_key(p) for p, t in leaves
+               if not torch.equal(got[flat_key(p)], t)]
+    check(loaded["meta"]["loaded_keys"] == len(leaves) and not unequal,
+          f"convert_3b: {loaded['meta']['loaded_keys']} of {len(leaves)} "
+          f"leaves loaded, unequal {unequal[:5]}")
+    sidecar = load_calibration_values(str(stem))
+    check(sidecar is not None and np.array_equal(sidecar, values),
+          "convert_3b: the values sidecar differs from the values written")
+    del got
+
+    counters = kernel_counters()
+    runs = {}
+    for name, tree in (("written", params), ("converted", conv_params)):
+        pol = ScanDeerPolicy(tree, cfg, indexed_mm=True)
+        n_exits = len(pol.exits)
+        for f in counters.values():
+            f.launches = 0
+        acts, exits, ms = [], [], []
+        for s in range(8):
+            pol.set_thresholds([SWEEP[s]] * n_exits)
+            t1 = time.perf_counter()
+            acts.append(pol.step(*make_policy_inputs(np, cfg, 1, 700 + s)))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            exits.append(pol.last_exit_layer)
+        runs[name] = {"actions": acts, "exit_layers": exits, "step_ms": ms,
+                      "launches": {n: f.launches
+                                   for n, f in counters.items()}}
+        del pol
+        torch.cuda.empty_cache()
+    want, converted = runs["written"], runs["converted"]
+    check(want["exit_layers"] == converted["exit_layers"]
+          and all(np.array_equal(a, b) for a, b in
+                  zip(want["actions"], converted["actions"])),
+          f"convert_3b: converted steps differ: exits "
+          f"{converted['exit_layers']} against {want['exit_layers']}")
+    launches = converted["launches"]
+    check(launches["flash_attention"] > 0 and launches["indexed_matmul"] > 0,
+          f"convert_3b: K1 / K2 not launched: {launches}")
+    out = {"phase": "convert_3b", "write_seconds": write_s,
+           "artifact_bytes": written["bytes"],
+           "convert_argv": conv["argv"], "convert_seconds": conv["seconds"],
+           "convert_parts_seconds": conv["parts_seconds"],
+           "convert_peak_rss_gb": conv["peak_rss_gb"],
+           "checkpoint_bytes": (stem.parent / "deer.ckpt").stat().st_size,
+           "load_seconds": load_s, "sources": sources,
+           "leaves": len(leaves), "leaves_bit_equal": len(leaves),
+           "exit_layers": converted["exit_layers"],
+           "step_ms": converted["step_ms"],
+           "written_step_ms": want["step_ms"], "launches": launches}
+    (OUT_DIR / "cli_convert.log").write_text(conv["log"])
+    emit(out)
+    del params, conv_params
+    shutil.rmtree(CONVERT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def batched_rollouts(calls: list):
+    """While open, each ``evaluate_policy_batched`` call is timed and
+    appended to ``calls`` with its env steps and its arguments."""
+    from deer_vla_tpu_torch.eval import batched_rollout
+    real = batched_rollout.evaluate_policy_batched
+
+    def timed(policy, envs, *args, **kw):
+        steps = sum(e.steps for e in envs)
+        t0 = time.perf_counter()
+        reports = real(policy, envs, *args, **kw)
+        calls.append({"seconds": time.perf_counter() - t0,
+                      "env_steps": sum(e.steps for e in envs) - steps,
+                      "policy": policy, "envs": envs, "args": args,
+                      "kw": kw})
+        return reports
+
+    batched_rollout.evaluate_policy_batched = timed
+    try:
+        yield calls
+    finally:
+        batched_rollout.evaluate_policy_batched = real
+
+
+def phase_bayes_opt_3b(torch, np) -> tuple:
+    """``cli/bayes_opt.main(BO_ARGV)`` in-process on the card, the kernel
+    counts set to 0 before and read after: it must print its optimum and a
+    ``BO eval`` line a candidate, with K1 and K2 launched; each GP round
+    (one batched rollout of ``BO_LANES`` lanes) is timed.  Then the last
+    round's engine, envs and sequences run ``evaluate_policy_batched``
+    with two candidates, the first-exit row and the full-depth row: each
+    candidate's exits must sit wholly at the first and the last exit.
+    Returns the phase's record and that engine (for phase profiling)."""
+    import io
+    from deer_vla_tpu_torch.cli import bayes_opt
+    from deer_vla_tpu_torch.eval import batched_rollout
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    calls, buf = [], io.StringIO()
+    t0 = time.perf_counter()
+    with batched_rollouts(calls), contextlib.redirect_stdout(buf):
+        result = bayes_opt.main(BO_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    text = buf.getvalue()
+    (OUT_DIR / "cli_bayes_opt.log").write_text(text)
+    evals = re.findall(r"BO eval .*", text)
+    check("Optimal thresholds:" in text and len(evals) >= 4
+          and len(calls) == 2 and np.isfinite(result.fun),
+          f"bayes_opt_3b: {len(evals)} BO eval lines, {len(calls)} rounds")
+    check(launches["flash_attention"] > 0 and launches["indexed_matmul"] > 0,
+          f"bayes_opt_3b: K1 / K2 not launched: {launches}")
+    last = calls[-1]
+    policy, envs = last["policy"], last["envs"]
+    sequences, annotations, oracle, tok = last["args"][:4]
+    exits = policy.exits
+    cands = [[1e8] * len(exits), [-1e8] * (len(exits) - 1) + [1e8]]
+    reports = batched_rollout.evaluate_policy_batched(
+        policy, envs, sequences, annotations, oracle, tok,
+        text_len=last["kw"]["text_len"], ep_len=last["kw"]["ep_len"],
+        n_layers=last["kw"]["n_layers"], candidates=cands)
+    hists = [np.add(r["success_exit_hist"], r["fail_exit_hist"])
+             for r in reports]
+    check(all(h.sum() > 0 for h in hists)
+          and hists[0][exits[0]] == hists[0].sum()
+          and hists[1][exits[-1]] == hists[1].sum(),
+          f"bayes_opt_3b: candidate exits {[h.tolist() for h in hists]}")
+    rounds = [{"seconds": c["seconds"], "env_steps": c["env_steps"],
+               "steps_per_s": c["env_steps"] / c["seconds"]} for c in calls]
+    out = {"phase": "bayes_opt_3b", "argv": BO_ARGV, "seconds": seconds,
+           "init_seconds": seconds - sum(r["seconds"] for r in rounds),
+           "rounds": rounds,
+           "round_seconds_median": statistics.median(
+               r["seconds"] for r in rounds),
+           "round_steps_per_s": sum(r["env_steps"] for r in rounds)
+           / sum(r["seconds"] for r in rounds),
+           "bo_evals": evals, "best_x": [float(x) for x in result.x],
+           "best_score": float(result.fun),
+           "candidate_exit_hists": [h.tolist() for h in hists],
+           "launches": launches}
+    emit(out)
+    return out, policy
+
+
+def phase_eval_ckpts(torch, np) -> dict:
+    """``cli/eval_ckpts --debug`` on the training phase's last checkpoint,
+    in-process on the card: a bf16 sweep at ratio 0.5 (K1, K2) on the
+    checkpoint's values sidecar, which must not calibrate, and an int8
+    sweep at ratio 1.0 (K1, K3 and no K2) with a cache of its own, which
+    must; kernel counts set to 0 before each; a second call of each skips
+    its log; every log ends in the parse contract and every report
+    parses."""
+    import io
+    from deer_vla_tpu_torch.cli import eval_ckpts
+    shutil.rmtree(SWEEP_LOG_DIR, ignore_errors=True)
+    counters = kernel_counters()
+    runs = {}
+    for name, ratio, extra in SWEEP_RUNS:
+        argv = ["--ckpt_dir", str(TRAIN_DIR), "--log_dir",
+                str(SWEEP_LOG_DIR), "--pattern", "deer_1.ckpt",
+                "--exit_ratio", ratio, "--debug", "--num_seq", "2", "--"] \
+            + SWEEP_EVAL_ARGS + extra
+        for f in counters.values():
+            f.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = eval_ckpts.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in counters.items()}
+        stem = SWEEP_LOG_DIR / f"deer_1_ratio{float(ratio)}"
+        tail = Path(f"{stem}.log").read_text().strip().splitlines()[-3:]
+        report = json.loads(Path(f"{stem}.json").read_text())
+        check(rc == 0 and "result:" in buf.getvalue()
+              and abs(float(tail[1]) - report["report"]["avg_seq_len"])
+              < 1e-5 and report["exit_ratio"] == float(ratio),
+              f"eval_ckpts {name}: rc {rc}, tail {tail}")
+        calibrated = "calibrated " in Path(f"{stem}.log").read_text()
+        check(calibrated == (name == "int8"),
+              f"eval_ckpts {name}: calibrated {calibrated}")
+        decoder = DECODER_KERNEL[None if name == "bf16" else name]
+        others = set(DECODER_KERNEL.values()) - {decoder}
+        check(launches["flash_attention"] > 0 and launches[decoder] > 0
+              and all(launches[k] == 0 for k in others),
+              f"eval_ckpts {name}: launches {launches}")
+        runs[name] = {"argv": argv, "seconds": seconds, "launches": launches,
+                      "calibrated": calibrated,
+                      "avg_seq_len": report["report"]["avg_seq_len"],
+                      "avg_exit_layer": report["report"]["avg_exit_layer"],
+                      "contract": tail}
+    for name, ratio, extra in SWEEP_RUNS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            eval_ckpts.main(runs[name]["argv"])
+        check("skip (done)" in buf.getvalue()
+              and "result:" not in buf.getvalue(),
+              f"eval_ckpts {name}: the second call ran again")
+    out = {"phase": "eval_ckpts", "runs": runs,
+           "logs": sorted(p.name for p in SWEEP_LOG_DIR.iterdir())}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def timer_on_device_work(torch) -> dict:
+    """``Timer`` around ``TIMER_MM_CHAIN`` bf16 products, which read
+    nothing back to the host, 5 times with ``sync_on`` and 5 without,
+    each beside CUDA events recorded around the same launches: the synced
+    reading must hold the events' time, the unsynced one must fall well
+    short of it (a Timer that ignored ``sync_on`` reads the launches
+    only)."""
+    from deer_vla_tpu_torch.utils.profiling import Timer
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a = (torch.randn(TIMER_MM_N, TIMER_MM_N, device="cuda", generator=gen)
+         / TIMER_MM_N ** 0.5).to(torch.bfloat16)
+
+    def chain():
+        x = a
+        for _ in range(TIMER_MM_CHAIN):
+            x = x @ a
+        return x
+
+    chain()  # warm the library's handles
+    rows = {"synced": [], "unsynced": []}
+    for _ in range(5):
+        for kind in rows:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with Timer(kind) as t:
+                start.record()
+                x = chain()
+                end.record()
+                if kind == "synced":
+                    t.sync_on = x
+            torch.cuda.synchronize()
+            rows[kind].append({"timer_ms": t.ms,
+                               "event_ms": start.elapsed_time(end)})
+    synced, unsynced = rows["synced"], rows["unsynced"]
+    check(all(r["timer_ms"] >= r["event_ms"] - TIMER_EVENT_SLACK_MS
+              for r in synced),
+          f"profiling: Timer(sync_on=) reads less than the events: {synced}")
+    share = statistics.median(r["timer_ms"] / r["event_ms"] for r in unsynced)
+    check(share < TIMER_UNSYNCED_SHARE,
+          f"profiling: an unsynced Timer reads {share} of the events")
+    return {"n": TIMER_MM_N, "chain": TIMER_MM_CHAIN, "synced": synced,
+            "unsynced": unsynced, "unsynced_share_median": share}
+
+
+def phase_profiling(torch, np, policy) -> dict:
+    """``utils/profiling`` on the card: ``timer_on_device_work``; then
+    around B=1 served steps of ``policy``, ``Timer(sync_on=)`` around
+    each step's device half (``run_batch``) against the host clock of the
+    same step (until the actions are on the host), within
+    ``TIMER_REL_TOL`` in the median of 5; ``trace()`` over one step
+    writes a Chrome trace with CUDA kernels in it; ``MetricLogger``
+    writes each step's times as JSONL."""
+    from deer_vla_tpu_torch.utils.profiling import MetricLogger, Timer, trace
+    cfg = policy.cfg
+    policy.set_thresholds([1e-4] * len(policy.exits))
+    policy.reset()
+
+    def inputs(s):
+        return make_policy_inputs(np, cfg, 1, 900 + s)
+
+    device_work = timer_on_device_work(torch)
+    for s in range(3):  # warm
+        policy.run_batch(*inputs(s))
+    torch.cuda.synchronize()
+    log_path = OUT_DIR / "profiling_metrics.jsonl"
+    log_path.unlink(missing_ok=True)
+    logger = MetricLogger(str(log_path))
+    rows = []
+    for s in range(5):
+        args = inputs(10 + s)
+        t0 = time.perf_counter()
+        with Timer("step") as t:
+            out = policy.run_batch(*args)
+            t.sync_on = out
+        host = [o.cpu() for o in out]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"step": s, "timer_ms": t.ms, "host_ms": host_ms,
+                     "exit_layer": int(host[2][0])})
+        logger.log(rows[-1])
+    logger.close()
+    timer = statistics.median(r["timer_ms"] for r in rows)
+    clock = statistics.median(r["host_ms"] for r in rows)
+    check(abs(timer - clock) <= TIMER_REL_TOL * clock,
+          f"profiling: Timer {timer} ms against the host clock {clock} ms")
+    logged = [json.loads(x) for x in log_path.read_text().splitlines()]
+    check(len(logged) == 5 and all("ts" in r for r in logged),
+          f"profiling: MetricLogger wrote {logged}")
+    trace_dir = OUT_DIR / "trace_profiling"
+    with trace(str(trace_dir)) as prof:
+        out = policy.run_batch(*inputs(20))
+        torch.cuda.synchronize()
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device_us = sum(e.get("dur", 0) for e in kernels)
+    check(kernels, "profiling: the trace holds no CUDA kernel")
+    out = {"phase": "profiling", "timer_on_device_work": device_work,
+           "timer_ms_median": timer,
+           "host_ms_median": clock, "steps": rows,
+           "trace": str(trace_dir / "trace.json"),
+           "trace_bytes": (trace_dir / "trace.json").stat().st_size,
+           "trace_kernels": len(kernels), "trace_device_ms": device_us / 1e3,
+           "top_ops": [{"name": a.key, "count": a.count}
+                       for a in sorted(prof.key_averages(),
+                                       key=lambda a: -a.count)[:5]]}
+    emit(out)
+    return out
+
+
+def drive_tooling(torch, np, cfg) -> list:
+    """The tooling phases, on the training phase's checkpoints (before
+    they are deleted): convert_3b, bayes_opt_3b, eval_ckpts, then
+    profiling on the search's engine."""
+    t0 = time.perf_counter()
+    results = [phase_convert_3b(torch, np, cfg)]
+    bo, policy = phase_bayes_opt_3b(torch, np)
+    results += [bo, phase_eval_ckpts(torch, np),
+                phase_profiling(torch, np, policy)]
+    del policy
+    torch.cuda.empty_cache()
+    emit({"phase": "tooling", "seconds": time.perf_counter() - t0})
+    return results
+
 def drive_deployment(torch, np, cfg, params, calib) -> list:
     """The deployment phases on the seeded deer_3b draw: serve_http in bf16
     (K1 and K2) and int8 (K3 in K2's place), serve_http_batched on the
@@ -4306,6 +5001,7 @@ def drive_paths(torch, np, cfg) -> tuple:
     paths = variants + list(rollouts.values()) + [
         phase_train(torch, np), phase_train_eval(torch, np),
         phase_serve_cli(torch, np)]
+    paths += drive_tooling(torch, np, cfg)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     paths += phase_train_variants(torch, np)
     paths += phase_train_heads(torch, np)

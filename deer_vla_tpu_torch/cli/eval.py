@@ -64,6 +64,7 @@ import torch
 from deer_vla_tpu_torch.core.config import (BF16, FP32, MODEL_REGISTRY,
                                             bc_llama, deer_3b)
 from deer_vla_tpu_torch.core.device import resolve_device
+from deer_vla_tpu_torch.utils.errors import record
 
 # the JAX registry's keys, and deer_3b under its own name too
 MODELS = dict(MODEL_REGISTRY, deer_3b=deer_3b)
@@ -169,7 +170,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "exact tower")
     p.add_argument("--value_cache", default="",
                    help="calibration values .npz sidecar stem (reused "
-                        "unless --recompute_values)")
+                        "unless --recompute_values); default: the "
+                        "--evaluate_from_checkpoint stem")
     p.add_argument("--recompute_values", action="store_true")
     p.add_argument("--calib_batches", type=int, default=8)
     p.add_argument("--calib_streamed", action="store_true",
@@ -415,8 +417,9 @@ def _clean(v):
 def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
                           dev) -> None:
     """Sets ``controller``'s thresholds: ``--thresholds`` as given, else
-    calibrated (values from ``--value_cache`` when it holds them for this
-    regime), the values written back to ``--value_cache``."""
+    calibrated (values from ``--value_cache``, by default the checkpoint's
+    sidecar, when it holds them for this regime), the values written back
+    there."""
     from deer_vla_tpu_torch.eval.calibrate import calibrate
     from deer_vla_tpu_torch.train.checkpoint import (load_calibration_info,
                                                      load_calibration_values,
@@ -426,7 +429,10 @@ def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
                  if e <= controller.effective_max])
         controller.set_threshold_values(args.thresholds[:n])
         return
-    cache = args.value_cache
+    # a checkpoint's own sidecar by default (JAX cli/eval.py:287): the
+    # values cli/convert exports from a DeeR checkpoint, or written back
+    # by the first calibration on it
+    cache = args.value_cache or args.evaluate_from_checkpoint
     folded = cfg.fusion_mode == "vit_concat" or cfg.window_size == 1
     if args.calib_warm > 0 and not folded:
         print(f"WARNING: --calib_warm={args.calib_warm} only applies to "
@@ -608,6 +614,7 @@ def load_annotations(args):
         return json.load(f)
 
 
+@record
 def main(argv=None, device: Optional[str] = None) -> dict:
     args = build_parser().parse_args(argv)
     check_served(args)

@@ -20,6 +20,8 @@ from __future__ import annotations
 import argparse
 import json
 
+from deer_vla_tpu_torch.utils.errors import record
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -38,6 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+@record
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     from deer_vla_tpu_torch.data.debug_data import TASKS

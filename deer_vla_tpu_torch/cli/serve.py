@@ -28,6 +28,8 @@ import dataclasses
 import json
 from typing import Optional
 
+from deer_vla_tpu_torch.utils.errors import record
+
 # JAX flags not served yet: (flag, ROADMAP.md item); a non-empty value
 # raises
 UNSERVED = (
@@ -181,6 +183,7 @@ def resolve_thresholds(args, policy) -> list:
     return [-1e30] * (len(exits) - 1) + [1e30]
 
 
+@record
 def main(argv=None, device: Optional[str] = None) -> int:
     args = build_parser().parse_args(argv)
     from deer_vla_tpu_torch.serving.server import make_server

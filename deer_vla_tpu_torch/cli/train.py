@@ -33,6 +33,7 @@ from typing import Optional
 
 from deer_vla_tpu_torch.core.config import (BF16, FP32, MODEL_REGISTRY,
                                             bc_llama)
+from deer_vla_tpu_torch.utils.errors import record
 
 MODELS = MODEL_REGISTRY
 
@@ -363,6 +364,7 @@ def build_trainer(argv=None, device: Optional[str] = None):
     return Trainer(cfg, tcfg, loader, log_fn=log_fn, device=dev), args
 
 
+@record
 def main(argv=None, device: Optional[str] = None):
     """Train as the flags say; returns the ``Trainer``."""
     trainer, args = build_trainer(argv, device)

@@ -23,8 +23,12 @@ subtask (``reset_streams``), the chain ends at its first failure, at most
 first exit layer, so it never lengthens the batch's layer loop.  A
 window-folded model ('vit_concat' / ``use_hist``) gets each lane's rolling
 W-frame window as W stream-major rows (``use_hist`` also the goal tiled a
-frame), a state model each lane's ``robot_obs`` rows.  Parallel threshold
-candidates (``candidates``) belong to ``cli/bayes_opt`` (ROADMAP.md M17).
+frame), a state model each lane's ``robot_obs`` rows.
+
+``candidates`` (the substrate of ``cli/bayes_opt --parallel``) evaluates K
+threshold rows in one rollout: the lanes split into K contiguous blocks,
+block k's lanes serve row k through the engine's per-stream threshold rows,
+every candidate runs all the sequences, and K reports come back.
 """
 
 from __future__ import annotations
@@ -73,13 +77,24 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
                             annotations, task_oracle, text_fn, *,
                             text_len: int = 32, ep_len: int = EP_LEN,
                             n_layers: Optional[int] = None,
-                            pipeline: int = 1, reset: bool = False,
-                            env_workers: int = 0) -> Dict:
+                            pipeline: int = 1,
+                            candidates: Optional[List] = None,
+                            reset: bool = False, env_workers: int = 0):
     """Run all ``sequences`` over ``len(envs)`` parallel streams of one
-    ``ScanDeerPolicy`` and summarize them as the sequential harness does.
-    ``pipeline`` is rounded down to a divisor of the lane count, so every
-    group has one batch size."""
+    ``ScanDeerPolicy`` (or a ``BatchedDiffusionSampler`` around one) and
+    summarize them as the sequential harness does.  ``pipeline`` is rounded
+    down to a divisor of the lane count, so every group has one batch size.
+    With ``candidates`` (K per-exit threshold lists; the lane count a
+    multiple of K) the result is a list of K reports, one a candidate, else
+    one report."""
     b = len(envs)
+    n_cand = len(candidates) if candidates else 1
+    if b % n_cand:
+        raise ValueError(f"{b} lanes not divisible by {n_cand} candidates")
+
+    def cand_of(lane: int) -> int:
+        return lane * n_cand // b
+
     cfg = policy.cfg
     dev = policy.device
     size = cfg.vit.image_size
@@ -96,15 +111,19 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
     gpol = [policy] + [copy.copy(policy) for _ in range(n_groups - 1)]
     for p in gpol:
         p.reset()
+    if candidates:
+        for g, p in enumerate(gpol):
+            p.set_thresholds_batch([candidates[cand_of(i)]
+                                    for i in lanes[g]])
     streams: List[_Stream] = [None] * b  # type: ignore[list-item]
     for g, ls in enumerate(lanes):
         for local, idx in enumerate(ls):
             streams[idx] = _Stream(idx, g, local)
-    pending = list(range(len(sequences)))
-    results: Dict[int, int] = {}
-    s_exits: List[int] = []
-    f_exits: List[int] = []
-    s_steps: List[int] = []
+    pending = [list(range(len(sequences))) for _ in range(n_cand)]
+    results: List[Dict[int, int]] = [{} for _ in range(n_cand)]
+    s_exits: List[List[int]] = [[] for _ in range(n_cand)]
+    f_exits: List[List[int]] = [[] for _ in range(n_cand)]
+    s_steps: List[List[int]] = [[] for _ in range(n_cand)]
     pad_id = getattr(text_fn, "pad_token_id", 0)
     pool = (ThreadPoolExecutor(max_workers=env_workers,
                                thread_name_prefix="deer-env")
@@ -120,10 +139,11 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
         gpol[st.group].reset_streams(np.arange(gb) == st.local)
 
     def assign(st: _Stream):
-        if not pending:
+        queue = pending[cand_of(st.idx)]
+        if not queue:
             st.active = False
             return
-        st.seq_i = pending.pop(0)
+        st.seq_i = queue.pop(0)
         st.initial_state, chain = sequences[st.seq_i]
         st.chain = list(chain)
         st.subtask_i = 0
@@ -133,7 +153,7 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
         st.active = True
 
     def finish_sequence(st: _Stream):
-        results[st.seq_i] = st.successes
+        results[cand_of(st.idx)][st.seq_i] = st.successes
         assign(st)
 
     for st in streams:
@@ -157,9 +177,11 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
     # the (B, n_layers) threshold rows, rebuilt from each group's base rows
     sps = int(policy.steps_per_stage or 1)
     nl_full = cfg.n_layers
-    base = policy.thresholds.cpu().numpy().astype(np.float32)
-    base_rows = [np.tile(base, (len(ls), 1)) if base.ndim == 1
-                 else base.copy() for ls in lanes]
+    base_rows = []
+    for p, ls in zip(gpol, lanes):
+        base = p.thresholds.cpu().numpy().astype(np.float32)
+        base_rows.append(np.tile(base, (len(ls), 1)) if base.ndim == 1
+                         else base.copy())
     park_row = policy.threshold_row(
         {e: (1e30 if e == policy.exits[0] else -1e30) for e in policy.exits})
     rows_dirty = [False] * n_groups
@@ -267,8 +289,8 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
                 if task_oracle.get_task_info_for_set(st.start_info, info,
                                                      {subtask}):
                     st.successes += 1
-                    s_exits.extend(st.exit_layers)
-                    s_steps.append(st.step)
+                    s_exits[cand_of(i)].extend(st.exit_layers)
+                    s_steps[cand_of(i)].append(st.step)
                     st.subtask_i += 1
                     if st.subtask_i >= len(st.chain):
                         finish_sequence(st)
@@ -279,7 +301,7 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
                         begin_subtask(st)
                     valid[i] = False
                 elif st.step >= ep_len:
-                    f_exits.extend(st.exit_layers)
+                    f_exits[cand_of(i)].extend(st.exit_layers)
                     finish_sequence(st)
                     valid[i] = False
 
@@ -303,15 +325,22 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
         if pool is not None:
             pool.shutdown(wait=True)
 
-    ordered = sorted(results)
-    rep = summarize([results[i] for i in ordered], s_exits, f_exits,
-                    s_steps, [], [sequences[i] for i in ordered],
-                    n_layers or cfg.n_layers)
+    waste_report = {}
     if waste["dispatches"]:
         d, a = waste["dispatches"], waste["active_steps"]
-        rep["batched_exit_waste"] = {
+        waste_report = {
             "dispatches": d,
             "avg_batch_max_exit": round(waste["max_sum"] / d + 1, 3),
             "avg_exit_layer": round(waste["exit_sum"] / a + 1, 3),
             "avg_wasted_layers_per_step": round(waste["waste_sum"] / a, 3)}
-    return rep
+    reports = []
+    for c in range(n_cand):
+        ordered = sorted(results[c])
+        report = summarize([results[c][i] for i in ordered], s_exits[c],
+                           f_exits[c], s_steps[c], [],
+                           [sequences[i] for i in ordered],
+                           n_layers or cfg.n_layers)
+        if waste_report:  # the lockstep waste of the whole batch
+            report["batched_exit_waste"] = waste_report
+        reports.append(report)
+    return reports if candidates else reports[0]

@@ -1,7 +1,7 @@
 """PyTorch port: it imports neither JAX nor the JAX package (nor flax,
-msgpack or optax, which the card's machine lacks), its entry points never
-drop to the CPU on their own, and its kernel modules import on a host with
-no CUDA compiler and no Triton."""
+msgpack, optax or safetensors, which the card's machine lacks), its entry
+points never drop to the CPU on their own, and its kernel modules import
+on a host with no CUDA compiler and no Triton."""
 
 import os
 import subprocess
@@ -44,6 +44,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'msgpack', 'optax',\n"
+        "                                    'safetensors',\n"
         "                                    'deer_vla_tpu'))\n"
         "print('BAD', bad)\n")
     out = run_python(code)
@@ -185,3 +186,35 @@ def test_serve_cli_without_device_raises_when_no_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--model", "tiny", "--thresholds", "0.1", "1e8",
                   "--oneshot_healthz"])
+
+
+def test_tooling_modules_are_walked():
+    """The tooling modules (ROADMAP M17) are in the import check above:
+    the threshold search, the conversion, the sweeps, the crash records
+    and the profiling utilities."""
+    mods = port_modules()
+    for m in ("cli.bayes_opt", "cli.convert", "cli.eval_ckpts",
+              "utils.gp_opt", "utils.convert", "utils.errors",
+              "utils.profiling"):
+        assert f"deer_vla_tpu_torch.{m}" in mods
+
+
+def test_bayes_opt_cli_without_device_raises_when_no_card(monkeypatch):
+    from deer_vla_tpu_torch.cli import bayes_opt as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DEER_ERROR_FILE", os.devnull)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--debug", "--num_seq", "1", "--n_calls", "1"])
+
+
+def test_eval_ckpts_cli_without_device_raises_when_no_card(monkeypatch,
+                                                          tmp_path):
+    from deer_vla_tpu_torch.cli import eval_ckpts as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DEER_ERROR_FILE", os.devnull)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--ckpt_dir", str(tmp_path), "--log_dir",
+                  str(tmp_path / "logs"), "--debug"])
+    assert not (tmp_path / "logs").exists()
