@@ -134,6 +134,23 @@ against CUDA events around device-bound products and an unsynced
 ``Timer`` short of them, against the host clock of a served step, a
 ``trace()`` under ``chiprun_out/chip_smoke/``, ``MetricLogger``'s JSONL).
 
+The vision-language suite (ROADMAP M16a) runs last: ``vl_generate_3b``
+(seeded deer_3b with its gates drawn, B=8, 10 new tokens: short VQA
+prompts on the recompute engine, then 2-shot interleaved prompts of 114-142
+tokens with 3 images a row on the cached and the recompute engine, their
+logits at the first decoded positions compared and their tokens' agreement
+reported; ms a token, peak memory, the device's busy time),
+``vl_blip_base`` (blip_base in bf16 through ``BlipEvalModel``: captions for
+8 synthetic 384 px images, a VQA answer scored), ``cli/vl_eval --debug``
+(blip_base captions; deer_3b 2-shot VQA with RICES demos) and
+``cli/cache_features --debug`` with a ``--cached_features`` run on its
+index, and ``vl_cross_check`` (2-layer deer_3b and 2-layer blip_base at
+full width, bf16 on the card against fp32 on the CPU).  Phase ``k1_vl``
+then holds K1 against its plain version on the inputs of every K1 call
+key these phases ran that no earlier phase checked (BLIP's 577-token ViT,
+the decoder's buffers with their ALiBi bias, the cross-attention with its
+media mask), timed beside its plain version and SDPA.
+
 Every phase prints one JSON line, with ``t_s`` the seconds since the
 script started; any failed check raises and the script
 exits non-zero.  The last line is
@@ -564,15 +581,19 @@ def k1_key(q, k, bias) -> tuple:
 
 
 @contextlib.contextmanager
-def k1_calls(seen: set):
+def k1_calls(seen: set, keep: dict = None):
     """While open, adds the ``k1_key`` of every K1 call the models make on
-    the card (they reach K1 through ``ops.attention``) to ``seen``."""
+    the card (they reach K1 through ``ops.attention``) to ``seen``, and
+    keeps each key's first inputs in ``keep`` when given."""
     from deer_vla_tpu_torch.ops import attention
     kernel = attention.flash_attention
 
     def logged(q, k, v, bias=None, scale=None):
         if q.is_cuda:
-            seen.add(k1_key(q, k, bias))
+            key = k1_key(q, k, bias)
+            seen.add(key)
+            if keep is not None and key not in keep:
+                keep[key] = (q, k, v, bias, scale)
         return kernel(q, k, v, bias=bias, scale=scale)
 
     attention.flash_attention = logged
@@ -2864,6 +2885,12 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
                            "(32 | 256, K) bf16, K x N in (4096, 12288), "
                            "(4096, 4096), (4096, 16384), (16384, 4096), "
                            "L = 12, B=1 | B=8")
+    out[0]["vl_shapes"] = [
+        {"shape": r["shape"], "sk": r["sk"], "bias": r["bias"],
+         "dtype": r["dtype"], "ms": r["kernel_ms"],
+         "plain_ms": r["reference_ms"], "library_ms": r["library_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "max_abs_err": r["max_abs_err"]} for r in summary["k1_vl"]]
     for row in out:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in path_launches.items()}
@@ -3232,10 +3259,14 @@ DDIM_STEPS = 10
 # the chain's start, is held to 1e-4
 UNET_TOL = {"unet_rel_l2": 1e-5, "plan_rel_l2": 1e-4}
 HEAD_TRAIN_DIR = REPO / "build" / "chip_smoke_heads"
+# the head families train deer_3b's widths at 4 of its 12 decoder layers
+# (exits 1 and 3): at 12 the gpt run's 7 heads of 403M fp32 parameters made
+# a 41.6 GB checkpoint and took 49.6 s on an H100 host
+HEAD_TRAIN_DEPTH = ["--max_layer", "4"]
 HEAD_TRAIN_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--batch_size_calvin",
                    str(TRAIN_BATCH), "--num_joint_epochs", "1",
                    "--num_exit_epochs", "0", "--joint_warmup_steps", "1",
-                   "--logging_steps", "1", "--from_scratch"]
+                   "--logging_steps", "1", "--from_scratch"] + HEAD_TRAIN_DEPTH
 HEAD_ROLLOUTS = (
     ("rollout_gpt", ["--head_type", "gpt"]),
     ("rollout_diffusion", ["--head_type", "diffusion", "--diff_steps",
@@ -3289,11 +3320,12 @@ def plan_inputs(torch, np, sampler, b: int, seed: int, device):
 
 def profiled_launches(torch, fn) -> dict:
     """CUDA kernels launched by one ``fn()`` and their busy time
-    (torch.profiler), beside its host-clock time."""
+    (torch.profiler, the device's activity only: the host's op events, a
+    few for each of the DDPM plan's 123,000 launches, cost more to collect
+    than the plan), beside its host-clock time."""
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3642,7 +3674,7 @@ def phase_train_heads(torch, np) -> list:
         released_gb(torch)
         eval_argv = (["--debug", "--model", "deer_3b",
                       "--evaluate_from_checkpoint", str(ckpt)]
-                     + ROLLOUT_ARGV[3:] + eval_flags)
+                     + ROLLOUT_ARGV[3:] + HEAD_TRAIN_DEPTH + eval_flags)
         out["runs"] = {"eval": phase_rollout(
             torch, np, f"train_heads_{name}_eval", eval_argv)}
         shutil.rmtree(run, ignore_errors=True)
@@ -4265,6 +4297,10 @@ CONVERT_LEAF_STD = 0.01
 # the DeeR dict's readouts (eval_calvin.py:455-476) at deer_3b's values and
 # its cached calibration values: (exits, samples)
 CONVERT_VALUES = 64
+# convert_3b's decoder depth: deer_3b's widths with 4 of its 12 layers (its
+# 12-layer tree, 7.6 GB of artifacts, took 83.8 s on an H100 host against
+# the script's 900 s; every layer converts by the same name map)
+CONVERT_DEPTH = 4
 # cli/bayes_opt at deer_3b: the initial cli/eval run (8 calibration batches,
 # 2 sequential rollout sequences), then 2 GP rounds of 2 candidates, each
 # round one batched rollout over 2 lanes a candidate
@@ -4904,8 +4940,9 @@ def drive_tooling(torch, np, cfg) -> list:
     """The tooling phases, on the training phase's checkpoints (before
     they are deleted): convert_3b, bayes_opt_3b, eval_ckpts, then
     profiling on the search's engine."""
+    from deer_vla_tpu_torch.core.config import deer_3b
     t0 = time.perf_counter()
-    results = [phase_convert_3b(torch, np, cfg)]
+    results = [phase_convert_3b(torch, np, deer_3b(max_layer=CONVERT_DEPTH))]
     bo, policy = phase_bayes_opt_3b(torch, np)
     results += [bo, phase_eval_ckpts(torch, np),
                 phase_profiling(torch, np, policy)]
@@ -5012,6 +5049,432 @@ def drive_paths(torch, np, cfg) -> tuple:
     return serve, quantized, calib, paths
 
 
+# ---------------------------------------------------------------------------
+# the vision-language evaluation suite (ROADMAP M16a)
+# ---------------------------------------------------------------------------
+
+VL_BATCH = 8
+VL_NEW_TOKENS = 10
+# the two engines on the card in bf16: the same prefill (K1 at a buffer of
+# 128 tokens or more), then recompute runs the whole buffer through K1 again
+# a token where the cached engine attends one row on the plain path; their
+# logits at the first two decoded positions are held to the bf16 step's
+# cross tolerance (CROSS_TOL_BF16's hidden_rel_l2), relative L2 (the second
+# position over the rows whose first tokens agree)
+VL_ENGINE_REL_L2 = 5e-2
+# 2-layer deer_3b and blip_base at full width, bf16 on the card against
+# fp32 on the CPU on the same weights: relative L2 of the hidden state,
+# the logits and the teacher-forced summed NLL (CROSS_TOL_BF16's)
+VL_CROSS_REL_L2 = 5e-2
+VL_CROSS_DEPTH = 2
+VL_DIR = REPO / "build" / "chip_smoke_vl"
+# a demo caption's words: two demos and the query make prompts of about 150
+# tokens, so that the decoder's buffer reaches K1
+VL_DEMO_WORDS = 64
+VL_CLI_RUNS = (
+    ("vl_eval_cli_blip_caption",
+     ["--task", "caption", "--debug", "--eval_model", "blip", "--model",
+      "base", "--num_samples", str(VL_BATCH)]),
+    ("vl_eval_cli_flamingo_vqa_fewshot_rices",
+     ["--task", "vqa", "--debug", "--model", "mpt_dolly_3b", "--fewshot",
+      "--rices", "--shots", "2", "--num_samples", str(VL_BATCH)]))
+
+
+def vl_words(np, n: int, seed: int) -> str:
+    r = np.random.RandomState(seed)
+    vocab = ("red", "block", "table", "robot", "arm", "drawer", "light",
+             "blue", "slider", "green", "button", "left", "right", "top",
+             "small", "large", "pink", "switch", "door", "cup")
+    return " ".join(vocab[i] for i in r.randint(0, len(vocab), n))
+
+
+def vl_images(np, n: int, hw: tuple, seed: int):
+    return np.random.RandomState(seed).randint(0, 256, (n,) + hw + (3,),
+                                               np.uint8)
+
+
+def vl_fewshot(np, model, b: int, seed: int, shots: int = 2):
+    """(prompts, vision): ``b`` rows of ``shots`` captioned demo images and
+    a query image, the prompts through ``build_fewshot_prompt``, each row
+    4 tokens shorter than the one before."""
+    prompts = [model.build_fewshot_prompt(
+        [model.get_caption_prompt(vl_words(np, VL_DEMO_WORDS - 2 * r,
+                                           seed + 10 * r + s))
+         for s in range(shots)], model.get_caption_prompt())
+        for r in range(b)]
+    imgs = vl_images(np, b * (shots + 1), (240, 320), seed)
+    k = shots + 1
+    vision = model.build_fewshot_vision(
+        [list(imgs[r * k:r * k + shots]) for r in range(b)],
+        [imgs[r * k + shots] for r in range(b)])
+    return prompts, vision
+
+
+def vl_generate(torch, model, engine: str, ids, mask, vision,
+                n_new: int = VL_NEW_TOKENS) -> dict:
+    """One greedy generation on ``engine`` after a warm-up call: its tokens,
+    step logits, host-clock ms (the call ends in a host copy), peak memory
+    and kernel launches; then one more under the profiler for the device's
+    busy time."""
+    from deer_vla_tpu_torch.eval.kv_decode import greedy_generate_cached
+    from deer_vla_tpu_torch.eval.vl_eval import greedy_generate
+    gen = greedy_generate_cached if engine == "kv_cache" else greedy_generate
+    gen(model.params, model.cfg, vision, ids, mask, max_new_tokens=2)
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    t0 = time.perf_counter()
+    out = gen(model.params, model.cfg, vision, ids, mask,
+              max_new_tokens=n_new, logits_out=steps)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profiled_launches(torch, lambda: gen(
+        model.params, model.cfg, vision, ids, mask, max_new_tokens=n_new))
+    return {"tokens": out, "steps": [s.float().cpu() for s in steps],
+            "ms": ms, "ms_per_token": ms / n_new, "peak_mem_gb": peak,
+            "launches": launches, "profile": prof,
+            "busy_ms_per_token": prof["device_busy_ms"] / n_new,
+            "idle_share": 1 - prof["device_busy_ms"]
+            / prof["profiled_wall_ms"]}
+
+
+def vl_summary(run: dict, b: int, s: int) -> dict:
+    return {"batch": b, "prompt_tokens": s, "new_tokens": VL_NEW_TOKENS,
+            **{k: run[k] for k in ("ms", "ms_per_token", "peak_mem_gb",
+                                   "launches", "busy_ms_per_token",
+                                   "idle_share", "profile")}}
+
+
+def phase_vl_generate(torch, np, cfg) -> dict:
+    """deer_3b (12 layers, d_model 2048, vocab 50,432; the gates drawn, as
+    ``build_weights`` draws them) generates 10 tokens for B=8 through
+    ``FlamingoEvalModel``'s prompts and the engines: short VQA prompts on
+    the recompute engine (a buffer below K1's 128 rows: K1 runs in the ViT
+    only), then 2-shot interleaved prompts of about 150 tokens (3 images a
+    row) on both engines, compared on the card."""
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    from deer_vla_tpu_torch.eval.eval_models import FlamingoEvalModel
+    from deer_vla_tpu_torch.ops.attention import KERNEL_MIN_SQ
+    t0 = time.perf_counter()
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
+    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+    model = FlamingoEvalModel(cfg, build_weights(torch, cfg), tok)
+    prompts = [model.get_vqa_prompt(
+        f"what is the {vl_words(np, 1 + i % 3, i)}?") for i in range(VL_BATCH)]
+    ids, mask = model.encode_prompts(prompts)
+    vision = model.preprocess(vl_images(np, VL_BATCH, (200, 200), SEED))
+    short = vl_generate(torch, model, "recompute", ids, mask, vision)
+    fs_prompts, fs_vision = vl_fewshot(np, model, VL_BATCH, SEED + 1)
+    fs_ids, fs_mask = model.encode_prompts(fs_prompts, raw=True)
+    check(fs_ids.shape[1] >= KERNEL_MIN_SQ,
+          f"few-shot prompts of {fs_ids.shape[1]} tokens do not reach K1")
+    runs = {e: vl_generate(torch, model, e, fs_ids, fs_mask, fs_vision)
+            for e in ("kv_cache", "recompute")}
+    rec, kv = runs["recompute"], runs["kv_cache"]
+    first = rel_l2(np, kv["steps"][0], rec["steps"][0])
+    agree0 = rec["tokens"][:, 0] == kv["tokens"][:, 0]
+    second = (rel_l2(np, kv["steps"][1][agree0], rec["steps"][1][agree0])
+              if agree0.any() else None)
+    out = {"phase": "vl_generate_3b", "config": "deer_3b",
+           "mpt": [cfg.n_layers, cfg.mpt.d_model, cfg.mpt.vocab_size],
+           "short_recompute": vl_summary(short, VL_BATCH, ids.shape[1]),
+           "fewshot": {e: vl_summary(r, VL_BATCH, fs_ids.shape[1])
+                       for e, r in runs.items()},
+           "engines_first_logits_rel_l2": first,
+           "engines_second_logits_rel_l2": second,
+           "rows_first_token_agree": int(agree0.sum()),
+           "token_agreement": float((rec["tokens"] == kv["tokens"]).mean()),
+           "tol_rel_l2": VL_ENGINE_REL_L2,
+           "kv_speedup": rec["ms"] / kv["ms"],
+           "seconds": time.perf_counter() - t0,
+           "launches": {k: short["launches"][k] + rec["launches"][k]
+                        + kv["launches"][k] for k in short["launches"]}}
+    emit(out)
+    for name, r in (("short", short), *runs.items()):
+        check(r["launches"]["flash_attention"] > 0,
+              f"vl_generate {name}: K1 did not launch: {r['launches']}")
+        check(all(bool(torch.isfinite(s).all()) for s in r["steps"]),
+              f"vl_generate {name}: non-finite logits")
+    check(first <= VL_ENGINE_REL_L2 and (second is None
+                                         or second <= VL_ENGINE_REL_L2),
+          f"vl_generate: the engines' logits {first} / {second}")
+    del model, vision, fs_vision, runs, rec, kv, short
+    released_gb(torch)
+    return out
+
+
+def phase_vl_blip(torch, np) -> dict:
+    """blip_base (ViT-B/16 at 384 px: 577 tokens through K1; a BERT-base
+    decoder) in bf16 through ``BlipEvalModel``: captions of 10 tokens for 8
+    synthetic 480 x 640 frames resized to 384 px, then a VQA answer scored
+    against 8 candidates."""
+    from deer_vla_tpu_torch.eval.eval_models import (BlipEvalModel,
+                                                     make_blip_tokenizer)
+    from deer_vla_tpu_torch.models.blip import blip_base, init_blip
+    cfg = blip_base()
+    t0 = time.perf_counter()
+    model = BlipEvalModel(cfg, init_blip(cfg, seed=SEED, device="cuda"),
+                          make_blip_tokenizer(cfg), torch.bfloat16)
+    init_s = time.perf_counter() - t0
+    images = vl_images(np, VL_BATCH, (480, 640), SEED + 2)
+    prompts = [model.get_caption_prompt()] * VL_BATCH
+    model.get_outputs(model.preprocess(images), prompts, 2)  # warm-up
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    vision = model.preprocess(images)
+    texts = model.get_outputs(vision, prompts, VL_NEW_TOKENS)
+    caption_ms = (time.perf_counter() - t1) * 1e3
+    caption_launches = {n: f.launches for n, f in counters.items()}
+    answers = vl_words(np, VL_BATCH, 5).split()
+    t1 = time.perf_counter()
+    scores = model.score_texts(vision[:1], answers,
+                               prompt=model.get_vqa_prompt("what is it?"))
+    score_ms = (time.perf_counter() - t1) * 1e3
+    launches = {n: f.launches for n, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profiled_launches(torch, lambda: model.get_outputs(
+        vision, prompts, VL_NEW_TOKENS))
+    out = {"phase": "vl_blip_base", "config": "blip_base",
+           "vision": [cfg.vision.layers, cfg.vision.width,
+                      cfg.vision.seq_len],
+           "text": [cfg.text.layers, cfg.text.width, cfg.text.vocab_size],
+           "compute": "bfloat16", "batch": VL_BATCH, "init_s": init_s,
+           "caption_ms": caption_ms,
+           "caption_ms_per_token": caption_ms / VL_NEW_TOKENS,
+           "score_ms": score_ms, "n_candidates": len(answers),
+           "captions": texts[:2], "scores": [float(s) for s in scores],
+           "profile": prof,
+           "busy_ms_per_token": prof["device_busy_ms"] / VL_NEW_TOKENS,
+           "idle_share": 1 - prof["device_busy_ms"]
+           / prof["profiled_wall_ms"],
+           "caption_launches": caption_launches, "launches": launches,
+           "peak_mem_gb": peak}
+    emit(out)
+    check(len(texts) == VL_BATCH and bool(np.isfinite(scores).all()),
+          f"vl_blip_base: {texts[:2]} {scores}")
+    # one vision pass for the captions and one for the scores, 12 layers
+    check(caption_launches["flash_attention"] == cfg.vision.layers
+          and launches["flash_attention"] == 2 * cfg.vision.layers,
+          f"vl_blip_base: K1 launches {launches}")
+    del model, vision
+    released_gb(torch)
+    return out
+
+
+def vl_cli_run(torch, phase: str, main, argv: list) -> dict:
+    """A VL CLI in-process on the card, the kernel counts set to 0 before
+    and read after; its last stdout line must be its result JSON."""
+    import io
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    text = buf.getvalue()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / f"{phase}.log").write_text(text)
+    check(json.loads(text.strip().splitlines()[-1]) == result,
+          f"{phase}: the last line is not the result: {text[-300:]}")
+    check(launches["flash_attention"] > 0,
+          f"{phase}: K1 not launched: {launches}")
+    out = {"phase": phase, "argv": argv, "seconds": seconds,
+           "result": result, "launches": launches}
+    emit(out)
+    released_gb(torch)
+    return out
+
+
+def phase_vl_eval_cli(torch) -> list:
+    """``cli/vl_eval --debug``: captions with blip_base, 2-shot VQA with
+    RICES demos on deer_3b; ``cli/cache_features --debug`` (blip_base)
+    writes an index that ``cli/vl_eval --rices --cached_features``
+    reads."""
+    from deer_vla_tpu_torch.cli import cache_features, vl_eval
+    runs = [vl_cli_run(torch, name, vl_eval.main, argv)
+            for name, argv in VL_CLI_RUNS]
+    VL_DIR.mkdir(parents=True, exist_ok=True)
+    feats = str(VL_DIR / "feats.npz")
+    blip = ["--eval_model", "blip", "--model", "base", "--debug",
+            "--num_samples", str(VL_BATCH)]
+    runs.append(vl_cli_run(torch, "vl_cache_features", cache_features.main,
+                           ["--task", "caption", "--output", feats] + blip))
+    runs.append(vl_cli_run(torch, "vl_eval_cli_cached_features",
+                           vl_eval.main, ["--task", "caption", "--rices",
+                                          "--cached_features", feats]
+                           + blip))
+    check(runs[-2]["result"]["n"] == VL_BATCH
+          and len(runs[-1]["result"]["rices_example"]) == 2,
+          f"vl_eval_cli: cached features {runs[-2:]}")
+    shutil.rmtree(VL_DIR, ignore_errors=True)
+    return runs
+
+
+def vl_cross_inputs(np, tok, cfg, b: int = 2):
+    """(ids, mask, target, vision) at deer_3b: 1-shot prompts (a buffer
+    past K1's 128 rows on the card), ragged, the query's caption scored."""
+    from deer_vla_tpu_torch.eval.vl_eval import continuation_target_mask
+    head = [f"<image>A photo of {vl_words(np, VL_DEMO_WORDS + 40, 40 + r)}"
+            "<|endofchunk|><image>A photo of" for r in range(b)]
+    texts = [h + " " + vl_words(np, 24 - 6 * r, r)
+             for r, h in enumerate(head)]
+    ids, mask = tok.encode_raw(texts, 160)
+    _, pmask = tok.encode_raw(head, 160)
+    target = continuation_target_mask(mask, pmask, trailing_specials=1)
+    hw = cfg.vit.image_size
+    vision = np.random.RandomState(7).randn(b, 2, 1, 3, hw, hw).astype(
+        np.float32)
+    return ids, mask, target, vision
+
+
+def phase_vl_cross_check(torch, np) -> dict:
+    """2-layer deer_3b and 2-layer blip_base at full width: bf16 on the
+    card against fp32 on the CPU, on the same weights (drawn on the card,
+    copied): the decoder's last hidden state, the logits and the
+    teacher-forced summed NLL, relative L2."""
+    from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.core.config import FP32, deer_3b
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    from deer_vla_tpu_torch.eval.vl_eval import summed_nll
+    from deer_vla_tpu_torch.models import blip as tblip
+    from deer_vla_tpu_torch.models.flamingo import encode_vision
+    from deer_vla_tpu_torch.models.mpt import decoder_forward, lm_logits
+    t0 = time.perf_counter()
+    out = {"phase": "vl_cross_check", "depth": VL_CROSS_DEPTH,
+           "tol_rel_l2": VL_CROSS_REL_L2}
+
+    cfg = deer_3b(max_layer=VL_CROSS_DEPTH)
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size)
+    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+    params = build_weights(torch, cfg)
+    ids, mask, target, vision = vl_cross_inputs(np, tok, cfg)
+
+    @torch.no_grad()
+    def flamingo(p, c, dev):
+        i, m, t = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                   for a in (ids, mask, target))
+        media = encode_vision(p, torch.from_numpy(vision).to(dev), None, c)
+        _, x = decoder_forward(p["decoder"], i, m, media, c)
+        logits = lm_logits(p["decoder"], x, c.dtypes.cdt, arch=c.mpt.arch)
+        nll = summed_nll(logits, i, t)
+        valid = m.bool()
+        return [a.float().cpu() for a in (x[valid], logits[valid], nll)]
+
+    card = flamingo(params, cfg, "cuda")
+    cpu_params = to_torch(params, "cpu")
+    del params
+    released_gb(torch)
+    ref = flamingo(cpu_params, dataclasses.replace(cfg, dtypes=FP32), "cpu")
+    del cpu_params
+    out["deer_3b"] = {"buffer": ids.shape[1], "tokens": int(mask.sum()),
+                      **{k: rel_l2(np, a, b) for k, a, b in zip(
+                          ("hidden_rel_l2", "logits_rel_l2", "nll_rel_l2"),
+                          card, ref)}}
+
+    base = tblip.blip_base()
+    bcfg = tblip.BlipConfig(
+        vision=dataclasses.replace(base.vision, layers=VL_CROSS_DEPTH),
+        text=dataclasses.replace(base.text, layers=VL_CROSS_DEPTH))
+    bparams = tblip.init_blip(bcfg, seed=SEED, device="cuda")
+    r = np.random.RandomState(8)
+    pix = r.randn(2, 3, 384, 384).astype(np.float32)
+    bids = r.randint(1000, 30000, (2, 24)).astype(np.int64)
+    bids[:, 0] = bcfg.text.bos_token_id
+    bmask = np.ones_like(bids)
+    bmask[1, 18:] = 0
+    btarget = (np.arange(24)[None] >= 6) & (bmask > 0)
+
+    @torch.no_grad()
+    def blip(p, dev, dt):
+        i, m, t = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                   for a in (bids, bmask, btarget))
+        enc = tblip.vision_forward(p, torch.from_numpy(pix).to(dev, dt),
+                                   bcfg.vision)
+        logits = tblip.text_decoder_forward(p, i, m, enc, bcfg.text)
+        nll = summed_nll(logits, i, t)
+        return [a.float().cpu() for a in (enc, logits[m.bool()], nll)]
+
+    card = blip(bparams, "cuda", torch.bfloat16)
+    ref = blip(to_torch(bparams, "cpu"), "cpu", torch.float32)
+    del bparams
+    out["blip_base"] = {k: rel_l2(np, a, b) for k, a, b in zip(
+        ("vision_rel_l2", "logits_rel_l2", "nll_rel_l2"), card, ref)}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    for model in ("deer_3b", "blip_base"):
+        for k, v in out[model].items():
+            if k.endswith("rel_l2"):
+                check(v <= VL_CROSS_REL_L2,
+                      f"vl_cross_check {model} {k} {v}")
+    released_gb(torch)
+    return out
+
+
+def drive_vl(torch, np, cfg) -> list:
+    """The VL phases (ROADMAP M16a): vl_generate_3b, vl_blip_base, the
+    CLIs, then the cross-checks."""
+    t0 = time.perf_counter()
+    paths = [phase_vl_generate(torch, np, cfg), phase_vl_blip(torch, np)]
+    paths += phase_vl_eval_cli(torch)
+    phase_vl_cross_check(torch, np)
+    emit({"phase": "vl", "seconds": time.perf_counter() - t0})
+    return paths
+
+
+def phase_k1_vl(torch, inputs: dict, checked: set) -> list:
+    """K1 against its plain version at each call key of the VL phases that
+    no earlier phase checked, on the first inputs the paths gave it
+    (``inputs``, kept by ``k1_calls``: BLIP's
+    577-token ViT, the decoder's buffers with their ALiBi + causal +
+    padding bias, the cross-attention over 3 images' latents with its
+    media mask), timed beside its plain version and SDPA.  The tolerance is
+    K1_TOL times max(1, max |plain output|): these activations are not of
+    unit scale."""
+    from deer_vla_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    rows = []
+    for key, (q, k, v, bias, scale) in sorted(inputs.items(),
+                                              key=lambda kv: str(kv[0])):
+        if key in checked:
+            continue
+        dt = str(q.dtype)[6:]
+        got = flash_attention(q, k, v, bias, scale)
+        ref = flash_attention_reference(q, k, v, bias, scale)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = K1_TOL[dt] * max(1.0, ref.float().abs().max().item())
+        check(bool(torch.isfinite(got).all()), f"K1 {key}: non-finite")
+        check(err <= tol, f"K1 {key}: max abs err {err} > {tol}")
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        # q, k, v and the output once, the bias's own elements once
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        if bias is not None:
+            nbytes += bias.numel() * bias.element_size()
+        rows.append({
+            "kernel": "flash_attention", "shape": list(q.shape), "sk": sk,
+            "dtype": dt, "strided": not q.is_contiguous(),
+            "bias": None if bias is None else list(bias.shape),
+            "max_abs_err": err, "tolerance": tol,
+            **bound(nbytes, 4 * b * h * sq * sk * d, dt),
+            **(k1_times(torch, q, k, v, scale) if bias is None
+               else k1_bias_times(torch, q, k, v, bias, scale))})
+        checked.add(key)
+    inputs.clear()
+    emit({"phase": "k1_vl", "cases": rows})
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5038,6 +5501,10 @@ def main() -> int:
         serve, quantized, calib, paths = drive_paths(torch, np, cfg)
         paths_9b, path_launches = drive_9b(torch, np)
         paths += paths_9b + drive_llama(torch, np)
+        vl_inputs = {}
+        with k1_calls(k1_seen, keep=vl_inputs):
+            paths += drive_vl(torch, np, cfg)
+    summary["k1_vl"] = phase_k1_vl(torch, vl_inputs, summary["k1_checked"])
     unchecked = k1_seen - summary["k1_checked"]
     emit({"phase": "k1_shapes", "driven": sorted(map(str, k1_seen)),
           "unchecked": sorted(map(str, unchecked))})

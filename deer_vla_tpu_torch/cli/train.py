@@ -40,19 +40,18 @@ MODELS = MODEL_REGISTRY
 # JAX flags not served yet: (flag, JAX default, argparse keywords, the
 # ROADMAP.md item that serves it).  A value other than the default raises.
 _FLAG = {"action": "store_true"}
+M16B = "M16b (vision-language co-training and pretraining)"
 UNSERVED = (
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
-    ("--cotrain", False, _FLAG, "M16 (vision-language co-training)"),
-    ("--cotrain_laion_shards", "", {}, "M16 (vision-language co-training)"),
-    ("--coco_image_dir", "", {}, "M16 (vision-language co-training)"),
-    ("--coco_ann", "", {}, "M16 (vision-language co-training)"),
-    ("--vqa_image_dir", "", {}, "M16 (vision-language co-training)"),
-    ("--vqa_questions", "", {}, "M16 (vision-language co-training)"),
-    ("--vqa_ann", "", {}, "M16 (vision-language co-training)"),
-    ("--vl_weight", 1.0, {"type": float},
-     "M16 (vision-language co-training)"),
-    ("--vl_batch_size", None, {"type": int},
-     "M16 (vision-language co-training)"),
+    ("--cotrain", False, _FLAG, M16B),
+    ("--cotrain_laion_shards", "", {}, M16B),
+    ("--coco_image_dir", "", {}, M16B),
+    ("--coco_ann", "", {}, M16B),
+    ("--vqa_image_dir", "", {}, M16B),
+    ("--vqa_questions", "", {}, M16B),
+    ("--vqa_ann", "", {}, M16B),
+    ("--vl_weight", 1.0, {"type": float}, M16B),
+    ("--vl_batch_size", None, {"type": int}, M16B),
     ("--coordinator", "", {}, "M15 (multi-host)"),
     ("--num_processes", 1, {"type": int}, "M15 (multi-host)"),
     ("--process_id", 0, {"type": int}, "M15 (multi-host)"),

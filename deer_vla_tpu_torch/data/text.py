@@ -13,6 +13,7 @@ which the port does not load yet.
 from __future__ import annotations
 
 import hashlib
+import re
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +53,35 @@ class HashTokenizer:
             input_ids[i, :len(s)] = s
             mask[i, :len(s)] = 1
         return input_ids, mask
+
+    def encode_raw(self, texts: Sequence[str], max_length: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Tokenize text that already holds inline ``<image>`` /
+        ``<|endofchunk|>`` markers (interleaved few-shot sequences,
+        open_flamingo/train/data.py:216-233): each piece's words, the
+        markers' ids, an ``<eos>`` last; padded to ``max_length``."""
+        seqs: List[List[int]] = []
+        for t in texts:
+            ids: List[int] = []
+            for piece in _MARKERS.split(t.strip()):
+                if piece == "<image>":
+                    ids.append(self.media_token_id)
+                elif piece == "<|endofchunk|>":
+                    ids.append(self.eoc_token_id)
+                else:
+                    ids += [self._word_id(w) for w in piece.split()]
+            ids.append(self.eos_token_id)
+            seqs.append(ids[:max_length])
+        input_ids = np.full((len(seqs), max_length), self.pad_token_id,
+                            np.int32)
+        mask = np.zeros((len(seqs), max_length), np.int32)
+        for i, s in enumerate(seqs):
+            input_ids[i, :len(s)] = s
+            mask[i, :len(s)] = 1
+        return input_ids, mask
+
+
+_MARKERS = re.compile(r"(<image>|<\|endofchunk\|>)")
 
 
 class HFTokenizer:

@@ -25,7 +25,7 @@ from deer_vla_tpu_torch.core.config import DeerConfig, MPTConfig
 from deer_vla_tpu_torch.models.gated_xattn import (gated_xattn_forward,
                                                    init_gated_xattn)
 from deer_vla_tpu_torch.models.llama import (init_llama_block, init_rmsnorm,
-                                             llama_block_forward)
+                                             llama_block_forward, rmsnorm)
 from deer_vla_tpu_torch.ops.alibi import causal_padding_bias, full_attn_bias
 from deer_vla_tpu_torch.ops.attention import (dot_attention, merge_heads,
                                               split_heads)
@@ -233,6 +233,22 @@ def decoder_forward(params: dict, input_ids: torch.Tensor,
         x = layer(params, i, x, media, media_locations, attn_bias, cfg)
         outs.append(x)
     return torch.stack(outs), x
+
+
+def lm_logits(params: dict, hidden: torch.Tensor, compute_dtype=None,
+              arch: str = "mpt") -> torch.Tensor:
+    """Vocabulary logits from the last layer's output (JAX mpt.py:254-272):
+    mpt applies ``ln_f`` and the tied ``wte`` transposed; llama its final
+    RMSNorm ``norm_f`` and the untied ``lm_head_w`` (flamingo_bc.py:
+    252-310).  The action path never calls it (its heads replaced the LM
+    head); text generation and scoring do.  A plain product, as in JAX."""
+    if arch == "llama" and "norm_f" in params:
+        return linear(params["lm_head_w"], rmsnorm(params["norm_f"], hidden))
+    h = layernorm(params["ln_f"], hidden)
+    w = params["wte"]["w"]
+    if compute_dtype is not None:
+        w = w.to(compute_dtype)
+    return h @ w.t().to(h.dtype)
 
 
 def decoder_segment_forward(params: dict, x: torch.Tensor,

@@ -6,7 +6,7 @@ need no gradient and get none.  ``grad_accum > 1`` splits the batch into
 that many microbatches along the trajectory dim, runs them one after the
 other and averages their gradients before the one update
 (train_utils.py:573-583).  The vision-language co-training step waits for
-ROADMAP.md M16.
+ROADMAP.md M16b (vision-language co-training and pretraining).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ newest checkpoint and restores the phase optimizer's state (:589-629).
 A diffusion model's action normalizer is fitted on the loader's actions
 before training (``fit_action_normalizer``).  With ``tcp_rel`` the labels
 are tool-center-point-frame actions (``prepare_batch``).  Co-training waits
-for ROADMAP.md M16.
+for ROADMAP.md M16b (vision-language co-training and pretraining).
 """
 
 from __future__ import annotations

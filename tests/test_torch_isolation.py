@@ -1,5 +1,6 @@
 """PyTorch port: it imports neither JAX nor the JAX package (nor flax,
-msgpack, optax or safetensors, which the card's machine lacks), its entry
+msgpack, optax, safetensors, PIL or transformers, which the card's machine
+lacks, at import time), its entry
 points never drop to the CPU on their own, and its kernel modules import
 on a host with no CUDA compiler and no Triton."""
 
@@ -35,7 +36,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("eval.scan_policy", "eval.policy", "eval.caching",
                  "eval.batched_policy", "eval.batched_rollout", "ops.tome",
                  "models.llama", "models.alt_heads", "models.diffusion",
-                 "models.normalizer", "eval.diffusion_policy"):
+                 "models.normalizer", "eval.diffusion_policy",
+                 "eval.vl_eval", "eval.kv_decode", "eval.eval_models",
+                 "models.blip", "data.vl_dataset", "cli.vl_eval",
+                 "cli.cache_features"):
         assert f"deer_vla_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -44,7 +48,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'msgpack', 'optax',\n"
-        "                                    'safetensors',\n"
+        "                                    'safetensors', 'PIL',\n"
+        "                                    'transformers',\n"
         "                                    'deer_vla_tpu'))\n"
         "print('BAD', bad)\n")
     out = run_python(code)
@@ -218,3 +223,41 @@ def test_eval_ckpts_cli_without_device_raises_when_no_card(monkeypatch,
         cli.main(["--ckpt_dir", str(tmp_path), "--log_dir",
                   str(tmp_path / "logs"), "--debug"])
     assert not (tmp_path / "logs").exists()
+
+
+@pytest.mark.parametrize("cli_name,argv", [
+    ("vl_eval", ["--task", "caption", "--debug", "--num_samples", "2"]),
+    ("vl_eval", ["--task", "caption", "--debug", "--eval_model", "blip"]),
+    ("cache_features", ["--debug", "--num_samples", "2", "--output",
+                        "feats.npz"])])
+def test_vl_clis_without_device_raise_when_no_card(monkeypatch, tmp_path,
+                                                   cli_name, argv):
+    """The vision-language CLIs (ROADMAP M16a) run on the card unless given
+    a device: with none, they raise before writing anything."""
+    import importlib
+    cli = importlib.import_module(f"deer_vla_tpu_torch.cli.{cli_name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DEER_ERROR_FILE", os.devnull)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    assert not any(tmp_path.iterdir())
+
+
+def test_vl_library_entry_points_raise_when_no_card(monkeypatch):
+    """The VL library's entry points that place weights take the card
+    unless given a device."""
+    from types import SimpleNamespace
+
+    from deer_vla_tpu_torch.eval.eval_models import make_eval_model
+    from deer_vla_tpu_torch.models.blip import blip_tiny, init_blip
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_blip(blip_tiny(), seed=0)
+    for family in ("flamingo", "blip"):
+        args = SimpleNamespace(eval_model=family, model="tiny", seed=0,
+                               evaluate_from_checkpoint="", max_layer=-1,
+                               precision="fp32", tokenizer_path="",
+                               decode_engine="auto")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_eval_model(args)

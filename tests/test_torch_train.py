@@ -964,14 +964,14 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--cotrain"], "M16"), (["--cotrain_laion_shards", "s"], "M16"),
-    (["--coco_image_dir", "d"], "M16"), (["--vqa_image_dir", "d"], "M16"),
-    (["--coco_ann", "a.json"], "M16"), (["--vqa_ann", "a.json"], "M16"),
-    (["--vl_weight", "0.5"], "M16"), (["--vl_batch_size", "2"], "M16"),
-    (["--process_id", "1"], "M15"), (["--vqa_questions", "q.json"], "M16"),
-    (["--tcp_rel", "--cotrain"], "M16"), (["--tokenizer_path", "x"], "M9"),
+    (["--cotrain"], "M16b"), (["--cotrain_laion_shards", "s"], "M16b"),
+    (["--coco_image_dir", "d"], "M16b"), (["--vqa_image_dir", "d"], "M16b"),
+    (["--coco_ann", "a.json"], "M16b"), (["--vqa_ann", "a.json"], "M16b"),
+    (["--vl_weight", "0.5"], "M16b"), (["--vl_batch_size", "2"], "M16b"),
+    (["--process_id", "1"], "M15"), (["--vqa_questions", "q.json"], "M16b"),
+    (["--tcp_rel", "--cotrain"], "M16b"), (["--tokenizer_path", "x"], "M9"),
     (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
-    (["--vl_weight", "2"], "M16")])
+    (["--vl_weight", "2"], "M16b")])
 def test_train_cli_unserved_flags_raise(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         train_cli.main(["--debug", "--model", "tiny"] + flag, device="cpu")
