@@ -151,6 +151,22 @@ key these phases ran that no earlier phase checked (BLIP's 577-token ViT,
 the decoder's buffers with their ALiBi bias, the cross-attention with its
 media mask), timed beside its plain version and SDPA.
 
+VL pretraining, co-training (ROADMAP M16b) and scale-out (M15) come after
+the VL suite, their K1 calls kept for ``k1_vl`` too: ``pretrain_3b``
+(``cli/pretrain --debug`` at deer_3b's 12 layers, LAION B=8 and MMC4 B=4 at
+224 px taking turns, 4 steps; frozen leaves bit-unchanged), ``cotrain_3b``
+(``cli/train --debug --cotrain`` at 4 decoder layers on that LAION shard,
+4 steps), ``pretrain_cross_check`` (the LM loss and its trainable
+gradients on a 2-layer deer_3b, bf16 on the card against fp32 on the CPU),
+``scale_out_serve`` (two child processes of this script sharing the card
+over gloo: ``ShardedBatchedPolicy`` at B=8, 4 streams a rank, 4 bf16 steps
+and an int8 one, the merged exits equal to the single-process step's) and
+``scale_out_train`` (two-process ``cli/train --coordinator --debug`` at 4
+decoder layers, 2 trajectories a rank: the ranks' trainable leaves
+bit-equal, rank 0 alone wrote the checkpoint, the first loss one
+process's over the 4 trajectories).  A child's K1 and K2-K4 shapes join
+the checks; a child that fails fails the script.
+
 Every phase prints one JSON line, with ``t_s`` the seconds since the
 script started; any failed check raises and the script
 exits non-zero.  The last line is
@@ -5432,8 +5448,9 @@ def drive_vl(torch, np, cfg) -> list:
 
 
 def phase_k1_vl(torch, inputs: dict, checked: set) -> list:
-    """K1 against its plain version at each call key of the VL phases that
-    no earlier phase checked, on the first inputs the paths gave it
+    """K1 against its plain version at each call key of the VL and the
+    pretraining phases that no earlier phase checked, on the first inputs
+    the paths gave it
     (``inputs``, kept by ``k1_calls``: BLIP's
     577-token ViT, the decoder's buffers with their ALiBi + causal +
     padding bias, the cross-attention over 3 images' latents with its
@@ -5475,7 +5492,623 @@ def phase_k1_vl(torch, inputs: dict, checked: set) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# VL pretraining and co-training (ROADMAP M16b), data-parallel scale-out
+# (M15)
+# ---------------------------------------------------------------------------
+
+PRETRAIN_DIR = REPO / "build" / "chip_smoke_pretrain"
+# cli/pretrain --debug at deer_3b's preset 12 layers: LAION B=8 (8 ViT
+# images a step) and MMC4 B=4 (4 x 6 image slots: 24 ViT images a step)
+# at 224 px, taking turns, 4 steps; a warmup of 1 step.  MMC4's text is cut
+# to 96 tokens: at 128 query rows or more the decoder's attention takes
+# K1, which has no backward (ROADMAP.md M11), so the default 256 raises
+# the kernel guard's error on the card
+PRETRAIN_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--max_layer", "12",
+                 "--batch_size_laion", "8", "--batch_size_mmc4", "4",
+                 "--max_tokens", "96", "--steps", "4", "--warmup_steps",
+                 "1", "--logging_steps", "1", "--run_name",
+                 str(PRETRAIN_DIR)]
+PRETRAIN_IMAGES = {"laion": 8, "mmc4": 4 * 6}
+# cli/train --debug --cotrain at deer_3b widths, 4 decoder layers: 2
+# trajectories of W=12 (24 two-camera ViT streams) and 6 caption images a
+# step from the LAION shard cli/pretrain --debug wrote (16 samples: the VL
+# stream starts over after 2 batches); one joint epoch of the
+# DebugBatcher's 4 batches
+COTRAIN_DIR = REPO / "build" / "chip_smoke_cotrain"
+COTRAIN_VL_BATCH = 6
+COTRAIN_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--max_layer", "4",
+                "--cotrain", "--cotrain_laion_shards",
+                str(PRETRAIN_DIR / "debug-laion-*.tar"), "--vl_batch_size",
+                str(COTRAIN_VL_BATCH), "--batch_size_calvin", "2",
+                "--num_joint_epochs", "1", "--num_exit_epochs", "0",
+                "--joint_warmup_steps", "1", "--logging_steps", "1",
+                "--from_scratch", "--run_name", str(COTRAIN_DIR)]
+# lm_loss and its trainable gradients, bf16 on the card against fp32 on the
+# CPU, 2-layer deer_3b at full width, 2 caption rows (2 ViT images): bf16
+# keeps 8 bits of mantissa; the loss within 2e-2 relative, the trainable
+# gradients together (one vector) within 5e-2 relative L2 (as the VL
+# cross-check's activations)
+PRETRAIN_CROSS_DEPTH = 2
+PRETRAIN_CROSS_TOL = {"loss_rel": 2e-2, "grads_rel_l2": 5e-2}
+# the two-rank phases: two processes on the one card over gloo (NCCL takes
+# one rank a device); each child's log goes to chiprun_out/chip_smoke/
+SCALE_DIR = REPO / "build" / "chip_smoke_scale_out"
+SCALE_RANKS = 2
+SCALE_CHILD_TIMEOUT_S = 300
+# sharded serving: B=8 streams, 4 a rank, 4 bf16 steps and 1 int8 step with
+# per-stream threshold rows (stream i at SWEEP[i]); the actions against the
+# single-process step_batch on the same card within the serve cross-checks'
+# bf16 tolerance
+SCALE_SERVE_B = 8
+SCALE_SERVE_STEPS = 4
+# two-process cli/train --coordinator --debug: deer_3b widths, 4 decoder
+# layers, 2 trajectories a rank (24 ViT streams), one joint epoch of 2
+# steps; the first loss against one process over the 4 trajectories,
+# within bf16 noise (as DIFWS_LOSS_REL)
+SCALE_TRAIN_BATCH = 2
+
+
+def scale_train_argv(batch: int, run: Path) -> list:
+    return ["--debug", "--model", "mpt_dolly_3b", "--max_layer", "4",
+            "--batch_size_calvin", str(batch), "--num_joint_epochs", "1",
+            "--num_exit_epochs", "0", "--joint_warmup_steps", "1",
+            "--logging_steps", "1", "--from_scratch", "--run_name",
+            str(run)]
+
+
+SCALE_TRAIN_STEPS = 2
+SCALE_TRAIN_LOSS_REL = 1e-2
+
+
+def reset_launches() -> dict:
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    return counters
+
+
+def launches_of(counters: dict) -> dict:
+    return {n: f.launches for n, f in counters.items()}
+
+
+@contextlib.contextmanager
+def timed_steps(module, name: str, times: list):
+    """While open, ``module.name`` (a step builder) builds steps whose every
+    call is timed, synchronised, into ``times``."""
+    import torch
+    real = getattr(module, name)
+
+    def build(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(*sa, **skw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*sa, **skw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return out
+        return timed
+
+    setattr(module, name, build)
+    try:
+        yield times
+    finally:
+        setattr(module, name, real)
+
+
+def phase_pretrain_3b(torch, np) -> dict:
+    """``cli/pretrain --debug`` in-process on the card (``PRETRAIN_ARGV``):
+    every loss finite, K1 24 times a step and K2-K4 never, the frozen
+    leaves bit for bit the seed's fresh draw, the trainable leaves with a
+    gradient moved."""
+    import io
+    from deer_vla_tpu_torch.cli import pretrain as cli
+    from deer_vla_tpu_torch.models.flamingo import init_deer, trainable_mask
+    from deer_vla_tpu_torch.ops.layers import (flat_key,
+                                               tree_leaves_with_path)
+    from deer_vla_tpu_torch.train import pretrain
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    counters = reset_launches()
+    held_gb = released_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    times, buf = [], io.StringIO()
+    t0 = time.perf_counter()
+    with timed_steps(pretrain, "make_pretrain_step", times), \
+            contextlib.redirect_stdout(buf):
+        params, last = cli.main(PRETRAIN_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = launches_of(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "cli_pretrain.log").write_text(buf.getvalue())
+    logs = [json.loads(x) for x in buf.getvalue().splitlines()
+            if x.startswith('{"step"')]
+    check(len(logs) == 4 and [d["source"] for d in logs]
+          == ["laion", "mmc4"] * 2, f"pretrain_3b: steps {logs}")
+    check(all(np.isfinite(d["lm_loss"]) for d in logs),
+          f"pretrain_3b: losses {[d['lm_loss'] for d in logs]}")
+    check(launches["flash_attention"] == 4 * VIT_LAYERS,
+          f"pretrain_3b: K1 launched {launches['flash_attention']} times")
+    check(all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+          f"pretrain_3b: K2-K4 launched: {launches}")
+    args = cli.build_parser().parse_args(PRETRAIN_ARGV)
+    cfg = cli.model_config(args)
+    final = flat_leaves(params)
+    with torch.no_grad():
+        start = flat_leaves(init_deer(cfg, seed=args.seed, device="cuda"))
+    mask = {flat_key(p): m for p, m in tree_leaves_with_path(
+        trainable_mask(params, cfg, "joint"))}
+    frozen_changed = [k for k, m in mask.items()
+                      if not m and not torch.equal(final[k], start[k])]
+    check(not frozen_changed, f"pretrain_3b: frozen leaves changed: "
+                              f"{frozen_changed[:5]}")
+    moved = sum(not torch.equal(final[k], start[k])
+                for k, m in mask.items() if m)
+    check(moved > 0, "pretrain_3b: no trainable leaf moved")
+    out = {"phase": "pretrain_3b", "argv": PRETRAIN_ARGV,
+           "images_a_step": PRETRAIN_IMAGES, "seconds": seconds,
+           "losses": [d["lm_loss"] for d in logs],
+           "sources": [d["source"] for d in logs],
+           "grad_norm_last": last["grad_norm"],
+           "step_s": times, "peak_memory_gb": peak_gb,
+           "allocated_before_gb": held_gb,
+           "trainable_leaves": sum(mask.values()),
+           "trainable_moved": moved,
+           "frozen_leaves": sum(not m for m in mask.values()),
+           "launches": launches}
+    emit(out)
+    del params, final, start
+    released_gb(torch)
+    return out
+
+
+def phase_cotrain_3b(torch, np) -> dict:
+    """``cli/train --debug --cotrain`` on the LAION shard phase pretrain_3b
+    wrote (``COTRAIN_ARGV``), built by the CLI and trained in-process
+    without writing checkpoints: the LM loss, the CALVIN loss (the combined
+    loss less ``vl_weight`` times the LM loss), K1 once for the two-camera
+    CALVIN frames and once for the VL images a step, K2-K4 never."""
+    import io
+    from deer_vla_tpu_torch.cli import train as cli
+    shutil.rmtree(COTRAIN_DIR, ignore_errors=True)
+    counters = reset_launches()
+    held_gb = released_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    steps, buf = [], io.StringIO()
+    t0 = time.perf_counter()
+    with train_updates(steps), contextlib.redirect_stdout(buf):
+        trainer, args = cli.build_trainer(COTRAIN_ARGV)
+        trainer.tcfg.save_every_epoch = False
+        trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = launches_of(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (OUT_DIR / "cli_train_cotrain.log").write_text(buf.getvalue())
+    logs = [json.loads(x) for x in buf.getvalue().splitlines()
+            if x.startswith('{"epoch"') and '"step"' in x]
+    check(len(logs) == len(steps) == 4, f"cotrain_3b: {len(logs)} steps")
+    lm = [d["lm_loss"] for d in logs]
+    calvin = [d["loss"] - args.vl_weight * d["lm_loss"] for d in logs]
+    check(all(np.isfinite(lm + calvin)), f"cotrain_3b: {lm} {calvin}")
+    check(launches["flash_attention"] == 2 * VIT_LAYERS * len(steps),
+          f"cotrain_3b: K1 launched {launches['flash_attention']} times")
+    check(all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+          f"cotrain_3b: K2-K4 launched: {launches}")
+    secs = step_intervals(steps)
+    out = {"phase": "cotrain_3b", "argv": COTRAIN_ARGV,
+           "seconds": seconds, "lm_loss": lm, "calvin_loss": calvin,
+           "lm_acc": [d["lm_acc"] for d in logs],
+           "vit_streams_a_step": 2 * trainer.cfg.window_size,
+           "vl_images_a_step": COTRAIN_VL_BATCH,
+           "step_s": secs, "step_s_median": statistics.median(secs),
+           "peak_memory_gb": peak_gb, "allocated_before_gb": held_gb,
+           "launches": launches}
+    emit(out)
+    del trainer
+    released_gb(torch)
+    return out
+
+
+def phase_pretrain_cross_check(torch, np) -> dict:
+    """``lm_loss`` and the gradients of the joint phase's trainable leaves,
+    bf16 on the card against fp32 on the CPU, on a 2-layer deer_3b at full
+    width (the same weights, drawn on the card and copied) and 2 caption
+    rows of 32 tokens with an answer mask (``PRETRAIN_CROSS_TOL``)."""
+    from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.core.config import FP32, deer_3b
+    from deer_vla_tpu_torch.data.text import HashTokenizer
+    from deer_vla_tpu_torch.models.flamingo import trainable_mask
+    from deer_vla_tpu_torch.ops.layers import (flat_key,
+                                               tree_leaves_with_path)
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    from deer_vla_tpu_torch.train.pretrain import lm_loss
+    t0 = time.perf_counter()
+    cfg = deer_3b(max_layer=PRETRAIN_CROSS_DEPTH)
+    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size)
+    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+    params = build_weights(torch, cfg)
+    keys = sorted(flat_key(p) for p, m in tree_leaves_with_path(
+        trainable_mask(params, cfg, "joint")) if m)
+    r = np.random.RandomState(9)
+    hw, s = cfg.vit.image_size, 32
+    image = r.randn(2, 1, 1, 3, hw, hw).astype(np.float32)
+    ids = r.randint(1, tok.eoc_token_id, (2, s)).astype(np.int64)
+    ids[:, 0] = tok.media_token_id
+    mask = np.ones((2, s), np.int64)
+    mask[1, 24:] = 0
+    answer = (np.arange(s)[None] >= 8).astype(np.int64).repeat(2, 0)
+
+    def run(p, c, dev):
+        flat = flat_leaves(p)
+        leaves = [flat[k] for k in keys]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        with torch.enable_grad():
+            loss, m = lm_loss(p, c, *(torch.from_numpy(a).to(dev) for a in
+                                       (image, ids, mask)),
+                              loss_mask=torch.from_numpy(answer).to(dev))
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        vec = torch.cat([(torch.zeros_like(leaf) if g is None else g)
+                         .float().reshape(-1).cpu()
+                         for leaf, g in zip(leaves, gs)])
+        return float(loss.detach()), int(m["tokens"]), vec
+
+    card = run(params, cfg, "cuda")
+    cpu_params = to_torch(params, "cpu")
+    del params
+    released_gb(torch)
+    ref = run(cpu_params, dataclasses.replace(cfg, dtypes=FP32), "cpu")
+    del cpu_params
+    loss_rel = abs(card[0] - ref[0]) / abs(ref[0])
+    grads_rel = float(torch.linalg.vector_norm((card[2] - ref[2]).double())
+                      / torch.linalg.vector_norm(ref[2].double()))
+    out = {"phase": "pretrain_cross_check", "depth": PRETRAIN_CROSS_DEPTH,
+           "tol": PRETRAIN_CROSS_TOL, "loss_card": card[0],
+           "loss_cpu": ref[0], "tokens": ref[1], "loss_rel": loss_rel,
+           "trainable_leaves": len(keys), "grad_elements": ref[2].numel(),
+           "grads_rel_l2": grads_rel,
+           "grad_norm_card": float(card[2].norm()),
+           "grad_norm_cpu": float(ref[2].norm()),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(card[1] == ref[1] > 0, f"pretrain_cross_check tokens {card[1]} "
+                                 f"{ref[1]}")
+    check(loss_rel <= PRETRAIN_CROSS_TOL["loss_rel"],
+          f"pretrain_cross_check loss {card[0]} against {ref[0]}")
+    check(grads_rel <= PRETRAIN_CROSS_TOL["grads_rel_l2"],
+          f"pretrain_cross_check gradients rel L2 {grads_rel}")
+    return out
+
+
+def run_children(name: str) -> list:
+    """``SCALE_RANKS`` processes of this script (``--child name rank
+    store``) on the card, joined through a file store; each must exit 0
+    with a CHILD_RESULT line.  Their results, in rank order."""
+    SCALE_DIR.mkdir(parents=True, exist_ok=True)
+    store = SCALE_DIR / f"{name}.store"
+    store.unlink(missing_ok=True)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for rank in range(SCALE_RANKS):
+        log = open(OUT_DIR / f"{name}_rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--child", name,
+             str(rank), str(store)], cwd=REPO, stdout=log,
+            stderr=subprocess.STDOUT, text=True), log))
+    results = []
+    try:
+        for rank, (p, log) in enumerate(procs):
+            try:
+                code = p.wait(timeout=SCALE_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                code = "timeout"
+            log.close()
+            text = (OUT_DIR / f"{name}_rank{rank}.log").read_text()
+            check(code == 0, f"{name} rank {rank} exited {code}: "
+                             f"{text[-2000:]}")
+            lines = [x for x in text.splitlines()
+                     if x.startswith("CHILD_RESULT ")]
+            check(len(lines) == 1, f"{name} rank {rank}: no result line")
+            res = json.loads(lines[0][len("CHILD_RESULT "):])
+            check(res.get("ok") is True, f"{name} rank {rank}: {res}")
+            results.append(res)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return results
+
+
+def child_serve(torch, np) -> dict:
+    """One rank of scale_out_serve: ``ShardedBatchedPolicy`` over a seeded
+    deer_3b ``ScanDeerPolicy`` (K2, and K3 in int8), B=8 streams with
+    per-stream threshold rows, then the single-process ``step_batch`` of
+    the same streams on the same engine for reference."""
+    from deer_vla_tpu_torch.core.config import deer_3b
+    from deer_vla_tpu_torch.eval import sharded_serving
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.eval.sharded_serving import ShardedBatchedPolicy
+    cfg = deer_3b()
+    params = build_weights(torch, cfg)
+    pols = {None: ScanDeerPolicy(params, cfg, indexed_mm=True),
+            "int8": ScanDeerPolicy(params, cfg, indexed_mm=True,
+                                   quantize="int8")}
+    del params
+    released_gb(torch)
+    exits = pols[None].exits
+    rows = [[SWEEP[i % len(SWEEP)]] * len(exits)
+            for i in range(SCALE_SERVE_B)]
+    inputs = [make_policy_inputs(np, cfg, SCALE_SERVE_B, seed=300 + t)
+              for t in range(SCALE_SERVE_STEPS)]
+    gather_s = []
+    real_gather = sharded_serving.gather_objects
+
+    def timed_gather(obj):
+        t = time.perf_counter()
+        out = real_gather(obj)
+        gather_s.append(time.perf_counter() - t)
+        return out
+
+    out = {"launches": {}, "step_ms": {}, "exits": {}, "max_abs_diff": {}}
+    k1, k2 = set(), set()
+    for mode, n_steps in ((None, SCALE_SERVE_STEPS), ("int8", 1)):
+        name = mode or "bf16"
+        pol = pols[mode]
+        sharded = ShardedBatchedPolicy(pol)
+        sharded.set_thresholds_batch(rows)
+        counters = reset_launches()
+        got, ms = [], []
+        sharded_serving.gather_objects = timed_gather
+        try:
+            with k1_calls(k1), k2_calls(k2):
+                for t in range(n_steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got.append(sharded.step_batch(*inputs[t]))
+                    ms.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            sharded_serving.gather_objects = real_gather
+        out["launches"][name] = launches_of(counters)
+        pol.reset()
+        pol.set_thresholds_batch(rows)
+        with k1_calls(k1), k2_calls(k2):
+            want = [pol.step_batch(*inputs[t]) for t in range(n_steps)]
+        out["step_ms"][name] = ms
+        out["exits"][name] = [e.tolist() for _, e in got]
+        out["max_abs_diff"][name] = max(
+            float(np.abs(a - wa).max()) for (a, _), (wa, _) in zip(got, want))
+        check(all(np.array_equal(e, we) for (_, e), (_, we)
+                  in zip(got, want)),
+              f"scale_out_serve {name}: exits {out['exits'][name]} against "
+              f"{[e.tolist() for _, e in want]}")
+        check(out["max_abs_diff"][name] <= CROSS_TOL_BF16["arm_max_abs"],
+              f"scale_out_serve {name}: actions differ by "
+              f"{out['max_abs_diff'][name]}")
+        check(sharded.last_exit_layer == max(out["exits"][name][-1]),
+              "scale_out_serve: last_exit_layer is not the global max")
+    out["gather_ms"] = [1e3 * s for s in gather_s]
+    out["k1"] = sorted(map(list_key, k1))
+    out["k2"] = sorted(map(list, k2))
+    return out
+
+
+def list_key(key) -> list:
+    """A ``k1_key`` as JSON lists."""
+    return [list(key[0]), key[1], key[2], key[3],
+            None if key[4] is None else list(key[4])]
+
+
+def tuple_key(key) -> tuple:
+    return (tuple(key[0]), key[1], key[2], key[3],
+            None if key[4] is None else tuple(key[4]))
+
+
+def trainable_digest(torch, trainer) -> str:
+    """sha256 over the bytes of every trainable leaf of the joint phase, in
+    key order."""
+    import hashlib
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    flat = flat_leaves(trainer.params)
+    h = hashlib.sha256()
+    for k in sorted(trainer._phases["joint"][0].trainable_keys()):
+        h.update(k.encode())
+        h.update(flat[k].detach().contiguous().reshape(-1)
+                 .view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def child_train(torch, np, rank: int, store: str) -> dict:
+    """One rank of scale_out_train: ``cli/train --coordinator`` as the CLI
+    builds it, 2 steps of its slice of the global batch; the all-reduce
+    timed (synchronised) apart."""
+    import io
+    from deer_vla_tpu_torch.cli import train as cli
+    real = torch.distributed.all_reduce
+    reduce_s = []
+
+    def timed_reduce(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+        return out
+
+    from deer_vla_tpu_torch.train import trainer as trainer_module
+    k1 = set()
+    steps, times, buf = [], [], io.StringIO()
+    counters = reset_launches()
+    torch.distributed.all_reduce = timed_reduce
+    try:
+        with train_updates(steps), k1_calls(k1), \
+                timed_steps(trainer_module, "make_train_step", times), \
+                contextlib.redirect_stdout(buf):
+            trainer, _ = cli.build_trainer(
+                scale_train_argv(SCALE_TRAIN_BATCH, SCALE_DIR / "run")
+                + ["--coordinator", "file://" + store, "--num_processes",
+                   str(SCALE_RANKS), "--process_id", str(rank)])
+            trainer.loader.num_batches = SCALE_TRAIN_STEPS
+            trainer.train()
+    finally:
+        torch.distributed.all_reduce = real
+    logs = [json.loads(x) for x in buf.getvalue().splitlines()
+            if x.startswith('{"epoch"') and '"step"' in x]
+    digest = trainable_digest(torch, trainer)
+    from deer_vla_tpu_torch.parallel import multihost
+    world = multihost.process_count()
+    multihost.shutdown()
+    return {"world": world, "local_losses": [s["loss"] for s in steps],
+            "logged": logs, "digest": digest, "step_s": times,
+            "allreduce_s": reduce_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches_of(counters),
+            "k1": sorted(map(list_key, k1))}
+
+
+def child_main(name: str, rank: int, store: str) -> int:
+    """A child of the two-rank phases: joins the group (serving: here;
+    training: through cli/train), runs, prints one CHILD_RESULT line."""
+    import torch
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    from deer_vla_tpu_torch.parallel import multihost
+    if name == "scale_out_serve":
+        multihost.initialize("file://" + store, SCALE_RANKS, rank,
+                             device="cuda")
+        res = child_serve(torch, np)
+        multihost.shutdown()
+    else:
+        res = child_train(torch, np, rank, store)
+    print("CHILD_RESULT " + json.dumps({"ok": True, "rank": rank, **res}),
+          flush=True)
+    return 0
+
+
+def phase_scale_out_serve(torch, np, k1_seen: set, k2_seen: set) -> dict:
+    """Two ranks on the one card over gloo, ``ShardedBatchedPolicy`` at
+    B=8 (``child_serve``): every rank's merged exits equal the
+    single-process step's, the ranks agree, the kernels ran."""
+    t0 = time.perf_counter()
+    res = run_children("scale_out_serve")
+    for r in res[1:]:
+        check(r["exits"] == res[0]["exits"], "scale_out_serve: the ranks' "
+                                             "exits differ")
+    launches = {}
+    for r in res:
+        for mode in r["launches"].values():
+            for n, c in mode.items():
+                launches[n] = launches.get(n, 0) + c
+        k1_seen.update(tuple_key(k) for k in r["k1"])
+        k2_seen.update(tuple(k) for k in r["k2"])
+    for r in res:
+        check(r["launches"]["bf16"]["indexed_matmul"] > 0
+              and r["launches"]["int8"]["indexed_matmul_q8"] > 0
+              and r["launches"]["int8"]["indexed_matmul"] == 0
+              and r["launches"]["bf16"]["flash_attention"] > 0,
+              f"scale_out_serve rank {r['rank']}: launches {r['launches']}")
+    out = {"phase": "scale_out_serve", "ranks": SCALE_RANKS,
+           "streams": SCALE_SERVE_B, "streams_a_rank":
+               SCALE_SERVE_B // SCALE_RANKS,
+           "seconds": time.perf_counter() - t0,
+           "step_ms": {r["rank"]: r["step_ms"] for r in res},
+           "gather_ms": {r["rank"]: r["gather_ms"] for r in res},
+           "exits": res[0]["exits"],
+           "max_abs_diff": {r["rank"]: r["max_abs_diff"] for r in res},
+           "tol_arm_max_abs": CROSS_TOL_BF16["arm_max_abs"],
+           "launches": launches,
+           "launches_by_rank": {r["rank"]: r["launches"] for r in res}}
+    emit(out)
+    return out
+
+
+def phase_scale_out_train(torch, np, k1_seen: set) -> dict:
+    """Two-process ``cli/train --coordinator --debug`` on the one card
+    (``child_train``): every trainable leaf bit-equal across the ranks
+    after the epoch, rank 0 alone wrote the checkpoint, and the first
+    step's loss is one process's over the same 4 trajectories (run here,
+    in-process, without a checkpoint)."""
+    import io
+    from deer_vla_tpu_torch.cli import train as cli
+    t0 = time.perf_counter()
+    shutil.rmtree(SCALE_DIR / "run", ignore_errors=True)
+    res = run_children("scale_out_train")
+    files = sorted(f.name for f in (SCALE_DIR / "run").iterdir())
+    check(files == ["deer_0.ckpt", "deer_0.json", "heartbeat.json"],
+          f"scale_out_train: run dir holds {files}")
+    check(all(r["world"] == SCALE_RANKS for r in res),
+          "scale_out_train: not a group of two")
+    check(len({r["digest"] for r in res}) == 1,
+          "scale_out_train: the ranks' trainable leaves differ")
+    losses = [d["loss"] for d in res[0]["logged"]]
+    check(len(losses) == SCALE_TRAIN_STEPS and np.isfinite(losses).all()
+          and all(len(r["step_s"]) == SCALE_TRAIN_STEPS for r in res),
+          f"scale_out_train: losses {losses}")
+    check(res[1]["logged"] == [], "scale_out_train: rank 1 logged")
+    for r in res:
+        k1_seen.update(tuple_key(k) for k in r["k1"])
+    # one process over the 4 trajectories: the first step's loss
+    steps, buf = [], io.StringIO()
+    with train_updates(steps), contextlib.redirect_stdout(buf):
+        trainer, _ = cli.build_trainer(scale_train_argv(
+            SCALE_RANKS * SCALE_TRAIN_BATCH, SCALE_DIR / "one"))
+        trainer.loader.num_batches = 1
+        trainer.tcfg.save_every_epoch = False
+        trainer.train()
+    del trainer
+    released_gb(torch)
+    one = losses[0]
+    want = steps[0]["loss"]
+    rel = abs(one - want) / abs(want)
+    # the second step's share: the first also builds the step and warms up
+    share = [r["allreduce_s"][-1] / r["step_s"][-1] for r in res]
+    out = {"phase": "scale_out_train", "ranks": SCALE_RANKS,
+           "trajectories_a_rank": SCALE_TRAIN_BATCH,
+           "argv": scale_train_argv(SCALE_TRAIN_BATCH, SCALE_DIR / "run"),
+           "seconds": time.perf_counter() - t0, "losses": losses,
+           "local_losses": {r["rank"]: r["local_losses"] for r in res},
+           "first_loss_two_ranks": one, "first_loss_one_process": want,
+           "first_loss_rel": rel, "tol_rel": SCALE_TRAIN_LOSS_REL,
+           "step_s": {r["rank"]: r["step_s"] for r in res},
+           "allreduce_s": {r["rank"]: r["allreduce_s"] for r in res},
+           "allreduce_share_last_step": share,
+           "peak_memory_gb": {r["rank"]: r["peak_memory_gb"] for r in res},
+           "checkpoint_files": files,
+           "launches": {n: sum(r["launches"][n] for r in res)
+                        for n in res[0]["launches"]}}
+    emit(out)
+    check(rel <= SCALE_TRAIN_LOSS_REL, f"scale_out_train: first loss "
+                                       f"{one} against {want}")
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    return out
+
+
+def drive_scale_out(torch, np, k1_seen: set, k2_seen: set) -> list:
+    """The VL pretraining and co-training phases (ROADMAP M16b) and the
+    two-rank phases (M15)."""
+    t0 = time.perf_counter()
+    paths = [phase_pretrain_3b(torch, np), phase_cotrain_3b(torch, np)]
+    phase_pretrain_cross_check(torch, np)
+    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    shutil.rmtree(COTRAIN_DIR, ignore_errors=True)
+    released_gb(torch)
+    paths += [phase_scale_out_serve(torch, np, k1_seen, k2_seen),
+              phase_scale_out_train(torch, np, k1_seen)]
+    emit({"phase": "scale_out", "seconds": time.perf_counter() - t0})
+    return paths
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--child"]:
+        return child_main(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -5504,6 +6137,7 @@ def main() -> int:
         vl_inputs = {}
         with k1_calls(k1_seen, keep=vl_inputs):
             paths += drive_vl(torch, np, cfg)
+            paths += drive_scale_out(torch, np, k1_seen, k2_seen)
     summary["k1_vl"] = phase_k1_vl(torch, vl_inputs, summary["k1_checked"])
     unchecked = k1_seen - summary["k1_checked"]
     emit({"phase": "k1_shapes", "driven": sorted(map(str, k1_seen)),

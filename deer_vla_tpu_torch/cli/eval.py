@@ -421,6 +421,7 @@ def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
     sidecar, when it holds them for this regime), the values written back
     there."""
     from deer_vla_tpu_torch.eval.calibrate import calibrate
+    from deer_vla_tpu_torch.parallel.multihost import all_gather_values
     from deer_vla_tpu_torch.train.checkpoint import (load_calibration_info,
                                                      load_calibration_values,
                                                      save_calibration_values)
@@ -473,7 +474,8 @@ def calibrated_thresholds(args, cfg, params, tok, controller, max_layer,
         threshold_type=args.threshold_type, values=values,
         max_batches=args.calib_batches, warm_prefix=args.calib_warm,
         streamed=args.calib_streamed,
-        gen=torch.Generator(device=dev).manual_seed(args.seed))
+        gen=torch.Generator(device=dev).manual_seed(args.seed),
+        all_gather=all_gather_values)
     if batches is not None:
         print(f"calibrated {values.shape[1]} samples in "
               f"{time.perf_counter() - t0:.3f} s")
@@ -628,10 +630,11 @@ def main(argv=None, device: Optional[str] = None) -> dict:
     from deer_vla_tpu_torch.eval.rollout import (CalvinPolicyAdapter,
                                                  DebugEnv, DebugTaskOracle,
                                                  evaluate_policy,
-                                                 make_debug_sequences,
-                                                 process_count)
+                                                 make_debug_sequences)
     from deer_vla_tpu_torch.models.value_net import (ExitController,
                                                      exit_probs)
+    from deer_vla_tpu_torch.parallel.multihost import (process_count,
+                                                       process_index)
 
     dev = resolve_device(device)
     cfg, params = load_model(args, dev)
@@ -690,7 +693,7 @@ def main(argv=None, device: Optional[str] = None) -> dict:
             CalvinPolicyAdapter(policy, tok, text_len=cfg.text_len,
                                 tcp_rel=args.tcp_rel), envs[0],
             sequences[:n_seq], annotations, oracle,
-            rank=torch.distributed.get_rank() if procs > 1 else 0,
+            rank=process_index(),
             world_size=procs, num_sequences=n_seq, ep_len=ep_len,
             replan=args.replan, reset=args.reset,
             flops_per_layer=per_layer[0] * 1e9, n_layers=cfg.n_layers,

@@ -18,9 +18,22 @@ serves them.  The vision, state and window variants are flags
 the head families (``--head_type fc|gpt|diffusion`` with ``--hidden_size``,
 ``--n_timesteps``, ``--n_obs_steps``, ``--diff_horizon``); all ride the
 sidecar config into evaluation.  A diffusion model's normalizer is fitted
-on the training batches and saved in its checkpoints.  The flags keep the JAX names; a JAX flag
-this CLI does not serve raises SystemExit naming the ROADMAP.md item that
-will serve it.
+on the training batches and saved in its checkpoints.
+
+``--cotrain`` adds the vision-language LM loss of a caption / VQA batch to
+every step (``--cotrain_laion_shards`` webdataset caption shards, else
+``--coco_image_dir`` / ``--coco_ann``, else ``--vqa_image_dir`` /
+``--vqa_questions`` / ``--vqa_ann``; ``--vl_weight``, ``--vl_batch_size``).
+``--coordinator HOST:PORT`` (or a ``file://`` URL) ``--num_processes N
+--process_id I`` joins a process group and trains data parallel:
+``--batch_size_calvin`` trajectories a process, the gradients averaged
+across processes, checkpoints written by process 0:
+
+    python -m deer_vla_tpu_torch.cli.train --debug --coordinator \
+        localhost:29500 --num_processes 2 --process_id 0 ...   (and 1)
+
+The flags keep the JAX names; a JAX flag this CLI does not serve raises
+SystemExit naming the ROADMAP.md item that will serve it.
 """
 
 from __future__ import annotations
@@ -39,22 +52,8 @@ MODELS = MODEL_REGISTRY
 
 # JAX flags not served yet: (flag, JAX default, argparse keywords, the
 # ROADMAP.md item that serves it).  A value other than the default raises.
-_FLAG = {"action": "store_true"}
-M16B = "M16b (vision-language co-training and pretraining)"
 UNSERVED = (
     ("--tokenizer_path", "", {}, "M9 (a transformers tokenizer)"),
-    ("--cotrain", False, _FLAG, M16B),
-    ("--cotrain_laion_shards", "", {}, M16B),
-    ("--coco_image_dir", "", {}, M16B),
-    ("--coco_ann", "", {}, M16B),
-    ("--vqa_image_dir", "", {}, M16B),
-    ("--vqa_questions", "", {}, M16B),
-    ("--vqa_ann", "", {}, M16B),
-    ("--vl_weight", 1.0, {"type": float}, M16B),
-    ("--vl_batch_size", None, {"type": int}, M16B),
-    ("--coordinator", "", {}, "M15 (multi-host)"),
-    ("--num_processes", 1, {"type": int}, "M15 (multi-host)"),
-    ("--process_id", 0, {"type": int}, "M15 (multi-host)"),
 )
 
 
@@ -185,6 +184,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "(labels converted with robot_obs)")
     p.add_argument("--debug", action="store_true",
                    help="DebugBatcher random batches, no dataset")
+    # vision-language co-training (train_calvin_post_strategy.py:296-302)
+    p.add_argument("--cotrain", action="store_true")
+    p.add_argument("--cotrain_laion_shards", default="",
+                   help="glob of LAION-style webdataset tars as the VL "
+                        "source (instead of --coco_ann)")
+    p.add_argument("--coco_image_dir", default="")
+    p.add_argument("--coco_ann", default="")
+    p.add_argument("--vqa_image_dir", default="")
+    p.add_argument("--vqa_questions", default="")
+    p.add_argument("--vqa_ann", default="")
+    p.add_argument("--vl_weight", type=float, default=1.0)
+    p.add_argument("--vl_batch_size", type=int, default=None)
+    # data parallel over a torch.distributed process group
+    p.add_argument("--coordinator", default="",
+                   help="HOST:PORT (or a tcp:// / file:// URL) of the "
+                        "process group")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
     for flag, default, kw, _ in UNSERVED:
         p.add_argument(flag, default=default, **kw)
     return p
@@ -198,6 +215,30 @@ def check_served(args) -> None:
     if not args.debug and not args.calvin_dataset:
         raise SystemExit("training needs --calvin_dataset DIR (a "
                          "CALVIN-format directory) or --debug")
+    check_processes(args)
+    k = args.gradient_accumulation_steps
+    if args.batch_size_calvin % k:
+        raise SystemExit(f"--batch_size_calvin {args.batch_size_calvin} is "
+                         f"not divisible by --gradient_accumulation_steps "
+                         f"{k}")
+    vbs = args.vl_batch_size or args.batch_size_calvin
+    if args.cotrain and vbs % k:
+        raise SystemExit(f"the VL batch {vbs} is not divisible by "
+                         f"--gradient_accumulation_steps {k}")
+
+
+def check_processes(args) -> None:
+    """``--num_processes`` / ``--process_id`` name a rank of the group that
+    ``--coordinator`` starts."""
+    if not args.coordinator:
+        if (args.num_processes, args.process_id) != (1, 0):
+            raise SystemExit("--num_processes / --process_id need "
+                             "--coordinator")
+        return
+    if args.num_processes < 1 or not \
+            0 <= args.process_id < args.num_processes:
+        raise SystemExit(f"--process_id {args.process_id} is not a rank of "
+                         f"--num_processes {args.num_processes}")
 
 
 def head_family_updates(head_type: str, window: int,
@@ -291,15 +332,17 @@ def make_model_config(args):
     return dataclasses.replace(cfg, **updates)
 
 
-def make_loader(args, cfg, tok):
+def make_loader(args, cfg, tok, rank: int = 0, world: int = 1):
     """The training batches: DebugBatcher's with ``--debug``, else the
     CALVIN loader over ``--calvin_dataset``/training as the JAX CLI builds
-    it (cli/train.py:303-324), as rank 0 of 1 process."""
+    it (cli/train.py:303-324); each as rank ``rank`` of ``world``
+    processes."""
     if args.debug:
         from deer_vla_tpu_torch.data.debug_data import DebugBatcher
         return DebugBatcher(cfg, tok, batch_size=args.batch_size_calvin,
                             num_batches=4, img_hw=cfg.vit.image_size,
-                            grip_hw=cfg.vit.image_size)
+                            grip_hw=cfg.vit.image_size, rank=rank,
+                            world_size=world)
     from deer_vla_tpu_torch.data.calvin import (CalvinDataConfig,
                                                 CalvinLoader,
                                                 DiskCalvinDataset)
@@ -317,8 +360,38 @@ def make_loader(args, cfg, tok):
         var_min_window=args.min_window_size,
         var_max_window=args.max_window_size)
     ds = DiskCalvinDataset(dcfg, validation=False)
-    return CalvinLoader(ds, tok, args.batch_size_calvin, rank=0,
-                        world_size=1, seed=args.seed, workers=args.workers)
+    return CalvinLoader(ds, tok, args.batch_size_calvin, rank=rank,
+                        world_size=world, seed=args.seed,
+                        workers=args.workers)
+
+
+def make_vl_loader(args, cfg, tok, rank: int = 0, world: int = 1):
+    """The co-training VL batches (JAX cli/train.py:351-377): LAION-style
+    shards split by rank, else COCO captions, else VQA questions."""
+    from deer_vla_tpu_torch.data.vl_dataset import (CaptionDataset,
+                                                    VLLoader, VQADataset)
+    vbs = args.vl_batch_size or args.batch_size_calvin
+    if args.cotrain_laion_shards:
+        import glob
+
+        from deer_vla_tpu_torch.data.webdataset import WebLoader, WebVLLoader
+        shards = sorted(glob.glob(args.cotrain_laion_shards))
+        if not shards:
+            raise SystemExit("--cotrain_laion_shards matched no files")
+        return WebVLLoader(WebLoader(
+            shards, tok, kind="laion", batch_size=vbs,
+            image_size=cfg.vit.image_size, rank=rank, world_size=world,
+            seed=args.seed))
+    if args.coco_ann:
+        ds = CaptionDataset(args.coco_image_dir, args.coco_ann,
+                            image_size=cfg.vit.image_size)
+    elif args.vqa_questions:
+        ds = VQADataset(args.vqa_image_dir, args.vqa_questions,
+                        args.vqa_ann, image_size=cfg.vit.image_size)
+    else:
+        raise SystemExit("--cotrain needs --coco_ann, --vqa_questions or "
+                         "--cotrain_laion_shards")
+    return VLLoader(ds, tok, vbs, seed=args.seed)
 
 
 def build_trainer(argv=None, device: Optional[str] = None):
@@ -327,15 +400,25 @@ def build_trainer(argv=None, device: Optional[str] = None):
     check_served(args)
     from deer_vla_tpu_torch.core.device import resolve_device
     from deer_vla_tpu_torch.data.text import HashTokenizer
+    from deer_vla_tpu_torch.parallel import multihost
     from deer_vla_tpu_torch.train.trainer import TrainConfig, Trainer
 
     dev = resolve_device(device)
+    if args.coordinator:
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device=str(dev))
+        if dev.type == "cuda":  # the card initialize gave this rank
+            import torch
+            dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = multihost.process_index(), multihost.process_count()
     cfg = make_model_config(args)
     tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size,
                         max_length=cfg.text_len)
     cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id,
                               eoc_token_id=tok.eoc_token_id)
-    loader = make_loader(args, cfg, tok)
+    loader = make_loader(args, cfg, tok, rank, world)
+    vl_loader = (make_vl_loader(args, cfg, tok, rank, world) if args.cotrain
+                 else None)
     tcfg = TrainConfig(
         run_dir=args.run_name,
         num_joint_epochs=args.num_joint_epochs,
@@ -348,7 +431,7 @@ def build_trainer(argv=None, device: Optional[str] = None):
         weight_decay=args.weight_decay, exit_lr_scale=args.exit_lr_scale,
         exit_decay=args.exit_decay,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
-        batch_size=args.batch_size_calvin, world_size=1,
+        batch_size=args.batch_size_calvin, world_size=world,
         rgb_pad=args.rgb_pad, gripper_pad=args.gripper_pad,
         traj_cons=args.traj_cons, real_data=args.real_data,
         bin_coef=args.bin_coef,
@@ -358,21 +441,31 @@ def build_trainer(argv=None, device: Optional[str] = None):
         ema_decay=args.ema_decay, tcp_rel=args.tcp_rel)
 
     def log_fn(d):
-        print(json.dumps(d, default=float), flush=True)
+        if rank == 0:
+            print(json.dumps(d, default=float), flush=True)
 
-    return Trainer(cfg, tcfg, loader, log_fn=log_fn, device=dev), args
+    return Trainer(cfg, tcfg, loader, log_fn=log_fn, device=dev,
+                   vl_loader=vl_loader, vl_weight=args.vl_weight), args
 
 
 @record
 def main(argv=None, device: Optional[str] = None):
-    """Train as the flags say; returns the ``Trainer``."""
-    trainer, args = build_trainer(argv, device)
-    if args.resume and not args.from_scratch:
-        start = trainer.maybe_resume()
-        if start:
-            print(f"resumed from epoch {start}")
-    metrics = trainer.train()
-    print(json.dumps({"final": metrics}, default=float))
+    """Train as the flags say; returns the ``Trainer``.  A process group
+    this call started is left at the end."""
+    from deer_vla_tpu_torch.parallel import multihost
+    had_group = multihost.is_initialized()
+    try:
+        trainer, args = build_trainer(argv, device)
+        if args.resume and not args.from_scratch:
+            start = trainer.maybe_resume()
+            if start:
+                print(f"resumed from epoch {start}")
+        metrics = trainer.train()
+        if trainer.rank == 0:
+            print(json.dumps({"final": metrics}, default=float))
+    finally:
+        if not had_group:
+            multihost.shutdown()
     return trainer
 
 

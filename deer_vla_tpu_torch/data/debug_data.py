@@ -34,11 +34,19 @@ INSTRUCTIONS = {
 
 
 class DebugBatcher:
-    """Yields random batches shaped like the CALVIN loader's output."""
+    """Yields random batches shaped like the CALVIN loader's output.  With
+    ``world_size`` > 1 it draws the global batch of ``batch_size *
+    world_size`` trajectories and yields rank ``rank``'s contiguous
+    ``batch_size`` of them, so that the ranks together see what one
+    process with the global batch sees."""
 
     def __init__(self, cfg: DeerConfig, text_fn: Callable,
                  batch_size: int = 2, num_batches: int = 4, img_hw: int = 64,
-                 grip_hw: int = 48, seed: int = 0):
+                 grip_hw: int = 48, seed: int = 0, rank: int = 0,
+                 world_size: int = 1):
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside [0, {world_size})")
+        self.rank, self.world = rank, world_size
         self.cfg = cfg
         self.text_fn = text_fn
         self.batch_size = batch_size
@@ -60,7 +68,9 @@ class DebugBatcher:
         # multi_step_action k > 1: (B, w, k, 7) labels restacked from a
         # (w + k - 1)-frame window, as the real collation emits them
         k = self.cfg.head.multi_step_action
-        bs = self.batch_size
+        bs = self.batch_size * self.world
+        mine = slice(self.rank * self.batch_size,
+                     (self.rank + 1) * self.batch_size)
         for _ in range(self.num_batches):
             texts = [INSTRUCTIONS[TASKS[r.randint(len(TASKS))]]
                      for _ in range(bs)]
@@ -70,7 +80,7 @@ class DebugBatcher:
             acts[..., 6] = np.sign(acts[..., 6]) + (acts[..., 6] == 0)
             if k != 1:
                 acts = np.stack([acts[:, i:i + k] for i in range(w)], axis=1)
-            yield {
+            batch = {
                 "rgb_static": r.randint(0, 256, (bs, w, self.img_hw,
                                                  self.img_hw, 3), np.uint8),
                 "rgb_gripper": r.randint(0, 256, (bs, w, self.grip_hw,
@@ -79,8 +89,10 @@ class DebugBatcher:
                 "robot_obs": with_gripper_state(
                     r.randn(bs, w, 15).astype(np.float32)),
                 "input_ids": ids, "attention_mask": mask,
-                "robot_obs_multi": np.zeros(1, np.float32),
             }
+            batch = {key: v[mine] for key, v in batch.items()}
+            batch["robot_obs_multi"] = np.zeros(1, np.float32)
+            yield batch
 
 
 def with_gripper_state(robot_obs: np.ndarray) -> np.ndarray:

@@ -19,7 +19,7 @@ taken here.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,10 +137,14 @@ def calibrate(params: dict, cfg: DeerConfig,
               values: Optional[np.ndarray] = None,
               max_batches: Optional[int] = None, warm_prefix: int = 0,
               streamed: bool = False, gen: Optional[torch.Generator] = None,
-              draws: Optional[List[Dict]] = None
+              draws: Optional[List[Dict]] = None,
+              all_gather: Optional[Callable[[np.ndarray], np.ndarray]] = None
               ) -> Tuple[Dict[int, float], np.ndarray]:
     """The set_threshold flow: ({exit: threshold}, values).  ``values``
-    skips the generation (the cached deltas)."""
+    skips the generation (the cached deltas).  ``all_gather`` joins the
+    generated values of every process (``parallel/multihost.
+    all_gather_values``, the reference's all_gather, value_net.py:
+    195-201), so that every process solves the same thresholds."""
     if values is None:
         esp = (streamed_sample_probs(cfg, exit_ratio, max_layer, exit_dist,
                                      model_name) if streamed else None)
@@ -148,6 +152,8 @@ def calibrate(params: dict, cfg: DeerConfig,
             params, cfg, batches, gen=gen, threshold_type=threshold_type,
             max_batches=max_batches, warm_prefix=warm_prefix,
             streamed=streamed, exit_sample_probs=esp, draws=draws)
+        if all_gather is not None:
+            values = all_gather(values)
     ml = max_layer if max_layer is not None else cfg.n_layers
     thresholds, _ = solve_thresholds(
         values, exit_ratio, list(cfg.all_exit_ids()), ml - 1,

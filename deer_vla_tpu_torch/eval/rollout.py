@@ -26,6 +26,8 @@ from deer_vla_tpu_torch.data.preprocess import (check_gripper_state,
 from deer_vla_tpu_torch.data.text import fixed_length
 from deer_vla_tpu_torch.eval.metrics import summarize
 from deer_vla_tpu_torch.eval.scan_policy import folded_window
+from deer_vla_tpu_torch.parallel.multihost import (gather_objects,
+                                                  process_count)
 from deer_vla_tpu_torch.utils.tcp import tcp_to_world_frame
 
 EP_LEN = 360
@@ -334,24 +336,6 @@ def evaluate_sequence(env, adapter, task_oracle, initial_state,
             f_exits.extend(exits)
             break
     return success_counter, s_exits, f_exits, s_steps, s_times
-
-
-def process_count() -> int:
-    """Processes of the torch.distributed group, 1 without one."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
-def gather_objects(obj) -> List:
-    """Every process's ``obj``, in rank order, on every process."""
-    n = process_count()
-    if n == 1:
-        return [obj]
-    out = [None] * n
-    torch.distributed.all_gather_object(out, obj)
-    return out
 
 
 def evaluate_policy(adapter: CalvinPolicyAdapter, env, sequences: List,

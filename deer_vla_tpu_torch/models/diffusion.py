@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deer_vla_tpu_torch.ops import draws
 from deer_vla_tpu_torch.ops.layers import init_linear, linear, uniform
 
 
@@ -447,9 +448,8 @@ def loss_draws(gen: torch.Generator, batch: int, shape,
                cfg: DiffusionConfig, device=None):
     """The loss's draws from ``gen``: timesteps (B,) in [0, n_timesteps)
     and standard-normal noise of ``shape``."""
-    t = torch.randint(0, cfg.n_timesteps, (batch,), generator=gen,
-                      device=gen.device)
-    noise = torch.randn(tuple(shape), generator=gen, device=gen.device)
+    t = draws.randint(gen, 0, cfg.n_timesteps, (batch,))
+    noise = draws.randn(gen, shape)
     if device is not None:
         t, noise = t.to(device), noise.to(device)
     return t, noise

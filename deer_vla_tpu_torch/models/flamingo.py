@@ -32,6 +32,7 @@ from deer_vla_tpu_torch.models.perceiver import (init_perceiver,
 from deer_vla_tpu_torch.models.vit import (init_vit, vit_forward,
                                            vit_forward_stacked,
                                            vit_forward_tome)
+from deer_vla_tpu_torch.ops import draws
 from deer_vla_tpu_torch.ops.dropout import Dropout
 from deer_vla_tpu_torch.ops.layers import (init_linear, linear, normal,
                                            tree_map, tree_map_with_path)
@@ -326,8 +327,7 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     rows = torch.arange(bsw, device=dev)
 
     def draw(low, high, shape):
-        return torch.randint(low, high, shape, generator=gen,
-                             device=gen.device).to(dev)
+        return draws.randint(gen, low, high, shape).to(dev)
 
     extra_head = params["lm_head"] if cfg.share_exit else params["extra_exit"]
     # sampling 1: an independent exit per (b, t)

@@ -14,6 +14,8 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from deer_vla_tpu_torch.ops import draws
+
 
 class Dropout:
     """``x -> where(keep, x / (1 - rate), 0)`` with ``keep`` drawn from
@@ -35,7 +37,6 @@ class Dropout:
                 raise ValueError(f"keep mask {tuple(keep.shape)} for an "
                                  f"activation {tuple(x.shape)}")
         else:
-            keep = (torch.rand(x.shape, generator=self.gen,
-                               device=self.gen.device) < 1.0 - rate)
+            keep = draws.rand(self.gen, x.shape) < 1.0 - rate
             keep = keep.to(x.device)
         return torch.where(keep.bool(), x / (1.0 - rate), 0.0)

@@ -20,11 +20,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from deer_vla_tpu_torch.ops import draws
 
-def draw_shifts(gen: torch.Generator, n: int, low: int, pad: int
+
+def draw_shifts(gen: draws.Source, n: int, low: int, pad: int
                 ) -> torch.Tensor:
-    return torch.randint(low, 2 * pad + 1, (n, 2), generator=gen,
-                         device=gen.device)
+    return draws.randint(gen, low, 2 * pad + 1, (n, 2))
 
 
 def shift_crop(x: torch.Tensor, pad: int, shifts: torch.Tensor

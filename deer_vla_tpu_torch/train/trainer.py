@@ -11,8 +11,16 @@ optimizers, train_calvin_post_strategy.py:535-585); auto-resume picks the
 newest checkpoint and restores the phase optimizer's state (:589-629).
 A diffusion model's action normalizer is fitted on the loader's actions
 before training (``fit_action_normalizer``).  With ``tcp_rel`` the labels
-are tool-center-point-frame actions (``prepare_batch``).  Co-training waits
-for ROADMAP.md M16b (vision-language co-training and pretraining).
+are tool-center-point-frame actions (``prepare_batch``).  With a
+``vl_loader`` every step also takes a caption / VQA batch into the LM loss
+(co-training, ``train_step.make_cotrain_step``); that loader starts over
+whenever it runs out.
+
+Under a ``torch.distributed`` group of more than one rank the trainer is
+data parallel: each rank's loader yields its slice of the global batch,
+the random draws are the global batch's (``ops.draws.RowShard``), the
+step averages the gradients across ranks, and rank 0 alone writes the
+checkpoints and the heartbeat.
 """
 
 from __future__ import annotations
@@ -27,15 +35,19 @@ import torch
 
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
-from deer_vla_tpu_torch.data.preprocess import (preprocess_train_frames,
+from deer_vla_tpu_torch.data.preprocess import (clip_preprocess,
+                                                preprocess_train_frames,
                                                 state_rows)
-from deer_vla_tpu_torch.data.text import window_text
+from deer_vla_tpu_torch.data.text import fixed_length, window_text
 from deer_vla_tpu_torch.models.normalizer import SingleFieldLinearNormalizer
 from deer_vla_tpu_torch.models.flamingo import (cast_frozen_to_bf16,
                                                 checkpoint_mask, init_deer,
                                                 trainable_mask)
+from deer_vla_tpu_torch.ops.draws import RowShard
 from deer_vla_tpu_torch.ops.layers import (flat_key, tree_leaves_with_path,
                                            tree_map_with_path)
+from deer_vla_tpu_torch.parallel.multihost import (process_count,
+                                                   process_index)
 from deer_vla_tpu_torch.train.checkpoint import (check_init,
                                                  find_latest_checkpoint,
                                                  init_record,
@@ -45,6 +57,7 @@ from deer_vla_tpu_torch.train.optimizer import (adaptive_lr, flat_leaves,
                                                 make_optimizer)
 from deer_vla_tpu_torch.train.train_step import (TrainState,
                                                  init_train_state,
+                                                 make_cotrain_step,
                                                  make_train_step)
 from deer_vla_tpu_torch.utils.heartbeat import Heartbeat
 from deer_vla_tpu_torch.utils.tcp import world_to_tcp_frame
@@ -137,6 +150,29 @@ def prepare_batch(raw: Dict[str, np.ndarray], cfg: DeerConfig,
     return batch
 
 
+def prepare_vl_batch(raw: Dict[str, np.ndarray], cfg: DeerConfig,
+                     device) -> Dict[str, torch.Tensor]:
+    """A caption / VQA loader batch (uint8 (B, H, W, 3) images) -> the LM
+    loss's batch on ``device``: images CLIP-preprocessed to (B, 1, 1, 3,
+    size, size), the text (and an answer mask) padded or cut to
+    ``cfg.text_len``."""
+    img = clip_preprocess(torch.as_tensor(np.asarray(raw["image"]),
+                                          device=device), cfg.vit.image_size)
+    ids, mask = fixed_length(raw["input_ids"], raw["attention_mask"],
+                             cfg.text_len, 0)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
+
+    out = {"image": img[:, None, None], "input_ids": dev(ids),
+           "attention_mask": dev(mask)}
+    if "answer_mask" in raw:
+        am, _ = fixed_length(raw["answer_mask"], raw["answer_mask"],
+                             cfg.text_len, 0)
+        out["answer_mask"] = dev(am)
+    return out
+
+
 def fit_action_normalizer(params: dict, loader, max_actions: int = 10000,
                           mode: str = "limits") -> dict:
     """The diffusion head's normalizer fitted on up to ``max_actions``
@@ -171,23 +207,34 @@ class Trainer:
     overlays.  In bf16 compute the frozen leaves are cast to bf16 (they
     need no fp32 master); a diffusion model's normalizer is then fitted on
     the loader's actions.  The liveness file is
-    <run_dir>/heartbeat.json."""
+    <run_dir>/heartbeat.json.  ``vl_loader`` (co-training) yields caption /
+    VQA batches for the LM loss, weighted ``vl_weight``.  In a process
+    group of more than one rank ``tcfg.world_size`` must be its size."""
 
     def __init__(self, cfg: DeerConfig, tcfg: TrainConfig, loader,
                  params: Optional[dict] = None,
                  log_fn: Optional[Callable[[Dict], None]] = None,
-                 device=None):
+                 device=None, vl_loader=None, vl_weight: float = 1.0):
         self.cfg = cfg
         self.tcfg = tcfg
         self.loader = loader
+        self.vl_loader = vl_loader
         self.log_fn = log_fn or (lambda d: None)
         self.device = resolve_device(device)
-        self.heartbeat = Heartbeat(os.path.join(tcfg.run_dir,
-                                                "heartbeat.json"))
+        self.rank, self.world = process_index(), process_count()
+        if self.world > 1 and tcfg.world_size != self.world:
+            raise ValueError(f"TrainConfig.world_size {tcfg.world_size} in "
+                             f"a process group of {self.world}")
+        self.heartbeat = Heartbeat(
+            os.path.join(tcfg.run_dir, "heartbeat.json")
+            if self.rank == 0 else None)
         # the training draws (shifts, layers, dropout) use a stream other
-        # than the init's
+        # than the init's; under data parallelism every rank draws the
+        # global batch's and keeps its rows
         self.gen = torch.Generator(device=self.device).manual_seed(
             tcfg.seed + 1)
+        self.draws = (RowShard(self.gen, self.rank, self.world)
+                      if self.world > 1 else self.gen)
         self.init_meta = None
         if params is None:
             params = init_deer(cfg, seed=tcfg.seed, device=self.device)
@@ -216,10 +263,12 @@ class Trainer:
                 scheduler=sched, weight_decay=tcfg.weight_decay,
                 exit_lr_scale=tcfg.exit_lr_scale, exit_decay=tcfg.exit_decay,
                 trainable=trainable_mask(params, cfg, phase))
-            step = make_train_step(
-                cfg, opt, phase=phase, bin_coef=bin_coef,
-                calvin_multiplier=tcfg.loss_multiplier_calvin,
-                grad_accum=tcfg.gradient_accumulation_steps)
+            kw = dict(phase=phase, bin_coef=bin_coef,
+                      calvin_multiplier=tcfg.loss_multiplier_calvin,
+                      grad_accum=tcfg.gradient_accumulation_steps)
+            step = (make_train_step(cfg, opt, **kw) if vl_loader is None
+                    else make_cotrain_step(cfg, opt, vl_weight=vl_weight,
+                                           **kw))
             self._phases[phase] = (opt, step)
         self.state: Optional[TrainState] = None
         self.start_epoch = 0
@@ -299,11 +348,22 @@ class Trainer:
                 cur_phase = phase
             self.loader.set_epoch(epoch)
             t0 = time.time()
+            vl_iter = None if self.vl_loader is None else iter(self.vl_loader)
             for it, raw in enumerate(self.loader):
-                batch = prepare_batch(raw, self.cfg, self.gen, tcfg,
+                batch = prepare_batch(raw, self.cfg, self.draws, tcfg,
                                       self.device)
-                self.state, metrics = self._step_fn(self.state, batch,
-                                                    self.gen)
+                if vl_iter is None:
+                    self.state, metrics = self._step_fn(self.state, batch,
+                                                        self.draws)
+                else:
+                    vl_raw = next(vl_iter, None)
+                    if vl_raw is None:  # the VL stream starts over
+                        vl_iter = iter(self.vl_loader)
+                        vl_raw = next(vl_iter)
+                    self.state, metrics = self._step_fn(
+                        self.state, batch,
+                        prepare_vl_batch(vl_raw, self.cfg, self.device),
+                        self.draws)
                 if self._ema_keys is not None:
                     self._ema_step()
                 self.heartbeat.beat(epoch=epoch, step=it, phase=phase)
@@ -328,7 +388,8 @@ class Trainer:
         """A delta checkpoint of the joint phase's trainable leaves, with
         the phase's optimizer state in the JAX package's optax layout; the
         meta holds the epoch, the phase, the seed and how the backbone was
-        drawn."""
+        drawn.  Under data parallelism rank 0 writes it and every rank
+        waits until it is written; the path is returned on every rank."""
         mask = checkpoint_mask(self.params, self.cfg)
         name = f"deer_{epoch}" if step is None else f"deer_{epoch}_it{step}"
         path = os.path.join(self.tcfg.run_dir, name)
@@ -341,12 +402,17 @@ class Trainer:
         if self.state is not None:
             opt_state = self._phases[phase][0].state_dict(
                 self.state.opt_state, self.params)
-        out = save_checkpoint(path, self.params, self.cfg, meta=meta,
-                              trainable_mask=mask, opt_state=opt_state)
-        if self._ema is not None:
-            save_checkpoint(path + "_ema", self._ema_params(), self.cfg,
-                            meta=dict(meta, ema_decay=self.tcfg.ema_decay),
-                            trainable_mask=mask)
+        out = path + ".ckpt"
+        if self.rank == 0:
+            out = save_checkpoint(path, self.params, self.cfg, meta=meta,
+                                  trainable_mask=mask, opt_state=opt_state)
+            if self._ema is not None:
+                save_checkpoint(path + "_ema", self._ema_params(), self.cfg,
+                                meta=dict(meta,
+                                          ema_decay=self.tcfg.ema_decay),
+                                trainable_mask=mask)
+        if self.world > 1:
+            torch.distributed.barrier()
         return out
 
 

@@ -261,3 +261,56 @@ def test_vl_library_entry_points_raise_when_no_card(monkeypatch):
                                decode_engine="auto")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_eval_model(args)
+
+
+def test_scale_out_and_pretraining_modules_are_walked():
+    """The scale-out (ROADMAP M15) and pretraining / co-training (M16b)
+    modules are in the import check above; importing webdataset imports
+    neither PIL nor scipy (a JPEG's PIL and the Hungarian assignment's
+    scipy load inside the functions that need them)."""
+    mods = port_modules()
+    for m in ("parallel.mesh", "parallel.multihost", "parallel.sharding",
+              "eval.sharded_serving", "data.webdataset", "train.pretrain",
+              "cli.pretrain", "ops.draws"):
+        assert f"deer_vla_tpu_torch.{m}" in mods
+    out = run_python(
+        "import sys\n"
+        "from deer_vla_tpu_torch.data import webdataset\n"
+        "from deer_vla_tpu_torch.cli import pretrain\n"
+        "print('LOADED', sorted(m for m in ('PIL', 'scipy') "
+        "if m in sys.modules))\n")
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+@pytest.mark.parametrize("cli_name,argv", [
+    ("pretrain", ["--debug", "--model", "tiny", "--steps", "1"]),
+    ("train", ["--debug", "--model", "tiny", "--cotrain",
+               "--cotrain_laion_shards", "x"])])
+def test_pretraining_clis_without_device_raise_when_no_card(
+        monkeypatch, tmp_path, cli_name, argv):
+    """cli/pretrain and co-training cli/train run on the card unless given
+    a device: with none, they raise before writing anything."""
+    import importlib
+    cli = importlib.import_module(f"deer_vla_tpu_torch.cli.{cli_name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DEER_ERROR_FILE", os.devnull)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv + ["--run_name", str(tmp_path / "run")])
+    assert not any(tmp_path.iterdir())
+
+
+def test_sharded_serving_without_device_raises_when_no_card(monkeypatch):
+    from deer_vla_tpu_torch.core.config import deer_tiny
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.eval.sharded_serving import ShardedBatchedPolicy
+    from deer_vla_tpu_torch.models.flamingo import init_deer
+
+    cfg = deer_tiny()
+    params = init_deer(cfg, seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedBatchedPolicy(ScanDeerPolicy(params, cfg))
+    pol = ShardedBatchedPolicy(ScanDeerPolicy(params, cfg, device="cpu"))
+    assert pol.device == torch.device("cpu") and pol.n_shards == 1

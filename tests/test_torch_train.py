@@ -963,17 +963,38 @@ def test_train_cli_then_eval_from_checkpoint(tmp_path, capsys):
     assert report["avg_seq_len"] >= 0
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--cotrain"], "M16b"), (["--cotrain_laion_shards", "s"], "M16b"),
-    (["--coco_image_dir", "d"], "M16b"), (["--vqa_image_dir", "d"], "M16b"),
-    (["--coco_ann", "a.json"], "M16b"), (["--vqa_ann", "a.json"], "M16b"),
-    (["--vl_weight", "0.5"], "M16b"), (["--vl_batch_size", "2"], "M16b"),
-    (["--process_id", "1"], "M15"), (["--vqa_questions", "q.json"], "M16b"),
-    (["--tcp_rel", "--cotrain"], "M16b"), (["--tokenizer_path", "x"], "M9"),
-    (["--coordinator", "h:1"], "M15"), (["--num_processes", "2"], "M15"),
-    (["--vl_weight", "2"], "M16b")])
-def test_train_cli_unserved_flags_raise(flag, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+@pytest.mark.parametrize("flag,error,match", [
+    (["--tokenizer_path", "x"], SystemExit, "ROADMAP.md M9"),
+    (["--cotrain"], SystemExit, "--cotrain needs --coco_ann"),
+    (["--cotrain", "--vl_weight", "0.5"], SystemExit, "--cotrain needs"),
+    (["--cotrain", "--coco_image_dir", "d"], SystemExit, "--cotrain needs"),
+    (["--cotrain", "--vqa_image_dir", "d", "--vqa_ann", "a.json"],
+     SystemExit, "--cotrain needs"),
+    (["--cotrain", "--cotrain_laion_shards", "/nonexistent/s-*.tar"],
+     SystemExit, "matched no files"),
+    (["--cotrain", "--coco_ann", "/nonexistent/ann.json"],
+     FileNotFoundError, "ann.json"),
+    (["--cotrain", "--vqa_questions", "/nonexistent/q.json"],
+     FileNotFoundError, "q.json"),
+    (["--tcp_rel", "--cotrain"], SystemExit, "--cotrain needs"),
+    (["--batch_size_calvin", "3", "--gradient_accumulation_steps", "2"],
+     SystemExit, "not divisible by --gradient_accumulation_steps 2"),
+    (["--cotrain", "--cotrain_laion_shards", "s", "--vl_batch_size", "3",
+      "--gradient_accumulation_steps", "2", "--batch_size_calvin", "2"],
+     SystemExit, "the VL batch 3 is not divisible"),
+    (["--process_id", "1"], SystemExit, "need --coordinator"),
+    (["--num_processes", "2"], SystemExit, "need --coordinator"),
+    (["--coordinator", "h:1", "--num_processes", "2", "--process_id", "2"],
+     SystemExit, "--process_id 2 is not a rank of --num_processes 2"),
+    (["--coordinator", "h:1", "--num_processes", "0"], SystemExit,
+     "not a rank of --num_processes 0")])
+def test_train_cli_unserved_flags_raise(flag, error, match):
+    """The CLI's refusals: --tokenizer_path (unserved, M9); --cotrain
+    without a VL source or with one that is not there (JAX
+    cli/train.py:358-375); a batch the microbatch split does not divide;
+    process flags without --coordinator or naming no rank of the
+    group."""
+    with pytest.raises(error, match=match):
         train_cli.main(["--debug", "--model", "tiny"] + flag, device="cpu")
 
 
