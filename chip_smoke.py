@@ -25,8 +25,8 @@ the card against the CPU at W=2, and ``cli/eval`` run in-process
 (calibrate, then DebugEnv rollouts of 2 sequences: bf16 sequential and over
 2 lanes, int8 and int4 sequential) with K1-K4 counted.  Then training:
 one fp32 deer_3b train step (B=1, W=2) on the card against the CPU, the
-guard that refuses a ViT gradient on the card (``--unfreeze_vit``: K1 has
-no backward), ``cli/train --debug`` in-process (deer_3b, batch 6, W=12: 1
+same step with ``--unfreeze_vit`` under a 2-layer decoder (the ViT trained
+through K1's backward, card against CPU), ``cli/train --debug`` in-process (deer_3b, batch 6, W=12: 1
 joint and 1 exit-only epoch of 4 steps, 144 ViT images a step through K1,
 K2-K4 not launched; frozen leaves bit-unchanged, trained leaves moved) and
 ``cli/eval --evaluate_from_checkpoint`` on its checkpoint.  Then the CALVIN
@@ -154,7 +154,9 @@ media mask), timed beside its plain version and SDPA.
 VL pretraining, co-training (ROADMAP M16b) and scale-out (M15) come after
 the VL suite, their K1 calls kept for ``k1_vl`` too: ``pretrain_3b``
 (``cli/pretrain --debug`` at deer_3b's 12 layers, LAION B=8 and MMC4 B=4 at
-224 px taking turns, 4 steps; frozen leaves bit-unchanged), ``cotrain_3b``
+224 px taking turns, 4 steps, MMC4 at its default 256 tokens, so the
+decoder's self- and cross-attention train through K1 and its backward;
+frozen leaves bit-unchanged), ``cotrain_3b``
 (``cli/train --debug --cotrain`` at 4 decoder layers on that LAION shard,
 4 steps), ``pretrain_cross_check`` (the LM loss and its trainable
 gradients on a 2-layer deer_3b, bf16 on the card against fp32 on the CPU),
@@ -165,7 +167,10 @@ and an int8 one, the merged exits equal to the single-process step's) and
 decoder layers, 2 trajectories a rank: the ranks' trainable leaves
 bit-equal, rank 0 alone wrote the checkpoint, the first loss one
 process's over the 4 trajectories).  A child's K1 and K2-K4 shapes join
-the checks; a child that fails fails the script.
+the checks; a child that fails fails the script.  Last, ``k1_backward``
+holds K1's backward (``csrc/flash_attention_bwd.cu``) against its plain
+version at every shape the paths ran it on (their first inputs kept),
+timed beside the plain version and SDPA's backward.
 
 Every phase prints one JSON line, with ``t_s`` the seconds since the
 script started; any failed check raises and the script
@@ -609,7 +614,7 @@ def k1_calls(seen: set, keep: dict = None):
             key = k1_key(q, k, bias)
             seen.add(key)
             if keep is not None and key not in keep:
-                keep[key] = (q, k, v, bias, scale)
+                keep[key] = detached(q, k, v, bias) + (scale,)
         return kernel(q, k, v, bias=bias, scale=scale)
 
     attention.flash_attention = logged
@@ -617,6 +622,49 @@ def k1_calls(seen: set, keep: dict = None):
         yield seen
     finally:
         attention.flash_attention = kernel
+
+
+def detached(*ts) -> tuple:
+    """``ts`` cut from the autograd graph (``None`` kept), so a kept input
+    holds no step's activations alive."""
+    return tuple(None if t is None else t.detach() for t in ts)
+
+
+def snapshot(*ts) -> tuple:
+    """Copies of ``ts`` with their strides (``None`` kept), cut from the
+    autograd graph: autograd may reuse an upstream gradient's buffer once
+    the backward that read it is done."""
+    return tuple(None if t is None else
+                 t.new_empty_strided(t.shape, t.stride()).copy_(t.detach())
+                 for t in ts)
+
+
+@contextlib.contextmanager
+def k1_backward_calls(keep: dict):
+    """While open, keeps the last inputs of each ``k1_key`` of every K1
+    backward that training runs on the card (the autograd function of
+    ``ops/kernels/flash_attention`` calls ``flash_attention_backward``),
+    copied, in ``keep``: the last, because the cross-attention's gates
+    start at zero, so its first upstream gradients are all zero.  The wrapper counts by its module name, so while
+    this is open its launches land on the logging wrapper, and go back to
+    it after."""
+    from deer_vla_tpu_torch.ops.kernels import flash_attention as fa
+    kernel = fa.flash_attention_backward
+
+    def logged(q, k, v, bias, out, dout, scale=None):
+        if q.is_cuda:
+            keep[k1_key(q, k, bias)] = snapshot(q, k, v, bias, out, dout) \
+                + (scale,)
+        return kernel(q, k, v, bias, out, dout, scale)
+
+    logged.__name__ = kernel.__name__
+    logged.launches = kernel.launches
+    fa.flash_attention_backward = logged
+    try:
+        yield keep
+    finally:
+        fa.flash_attention_backward = kernel
+        kernel.launches = logged.launches
 
 
 @contextlib.contextmanager
@@ -1181,11 +1229,14 @@ def build_weights(torch, cfg):
 
 
 def kernel_counters():
-    from deer_vla_tpu_torch.ops.kernels.flash_attention import flash_attention
+    """Each kernel wrapper by name: the object its ``launches`` count is on
+    (``k1_backward_calls``'s logging wrapper while that is open)."""
+    from deer_vla_tpu_torch.ops.kernels import flash_attention as fa
     from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
         indexed_matmul, indexed_matmul_q4, indexed_matmul_q8)
-    return {f.__name__: f for f in (flash_attention, indexed_matmul,
-                                    indexed_matmul_q8, indexed_matmul_q4)}
+    return {f.__name__: f for f in (
+        fa.flash_attention, fa.flash_attention_backward, indexed_matmul,
+        indexed_matmul_q8, indexed_matmul_q4)}
 
 
 # the decoder kernel each serving mode must launch (w8a8 modes: none, their
@@ -1957,15 +2008,31 @@ def train_step_parts(torch, params, cfg, batch, draws, snapshot: bool):
             {k: flat[k].float().cpu() for k in keys}, before)
 
 
-def phase_train_cross_check(torch, np, params, cpu_params) -> None:
+def phase_train_cross_check(torch, np, params, cpu_params,
+                            unfreeze_vit: bool = False) -> None:
     """deer_3b at W=2, one trajectory: a joint-phase train step in fp32 on
     the card against fp32 on the CPU (the same weights, batch and layer
     draws; no dropout): the loss, every trainable gradient and every
-    updated param."""
+    updated param.  With ``unfreeze_vit`` (phase ``train_unfreeze_vit``)
+    the ViT trains too, through K1 and K1's backward on the card: both
+    must launch, once a ViT layer.  The decoder's depth is ``params``'."""
     from deer_vla_tpu_torch.core.config import FP32, deer_3b
-    cfg2 = deer_3b(window_size=CALIB_CROSS_WINDOW, dtypes=FP32)
+    phase = "train_unfreeze_vit" if unfreeze_vit else "train_cross_check"
+    depth = len(params["decoder"]["blocks"])
+    cfg2 = dataclasses.replace(deer_3b(max_layer=depth,
+                                       window_size=CALIB_CROSS_WINDOW,
+                                       dtypes=FP32), unfreeze_vit=unfreeze_vit)
     cfg2, batch, draws = train_inputs(torch, cfg2, torch.device("cuda"))
+    counters = reset_launches()
     card = train_step_parts(torch, params, cfg2, batch, draws, True)
+    launches = launches_of(counters)
+    vit_keys = [k for k in card[1] if k.startswith("vit/")]
+    check(bool(vit_keys) == unfreeze_vit,
+          f"{phase}: {len(vit_keys)} ViT leaves trained")
+    check(launches["flash_attention"] == VIT_LAYERS
+          and launches["flash_attention_backward"]
+          == (VIT_LAYERS if unfreeze_vit else 0),
+          f"{phase}: K1 launches {launches}")
     t0 = time.perf_counter()
     cpu = train_step_parts(torch, cpu_params, cfg2,
                            {k: v.cpu() for k, v in batch.items()}, draws,
@@ -1992,7 +2059,8 @@ def phase_train_cross_check(torch, np, params, cpu_params) -> None:
             float(torch.linalg.vector_norm(want.double())), 1e-30)
     worst = max(grad_rel, key=grad_rel.get)
     moved = sum(not torch.equal(p, card[3][k]) for k, p in card[2].items())
-    emit({"phase": "train_cross_check", "config": "deer_3b W=2 B=1 fp32",
+    emit({"phase": phase, "config": f"deer_3b W=2 B=1 fp32, {depth} layers",
+          "launches": launches, "vit_leaves": len(vit_keys),
           "loss": {"card": card[0], "cpu": cpu[0], "rel": loss_rel},
           "grad_leaves": len(grad_rel), "grad_worst": [worst,
                                                        grad_rel[worst]],
@@ -2001,40 +2069,29 @@ def phase_train_cross_check(torch, np, params, cpu_params) -> None:
           "params_moved": moved,
           "tol_fp32": TRAIN_TOL_FP32, "cpu_seconds": cpu_s})
     check(np.isfinite(card[0]) and loss_rel <= TRAIN_TOL_FP32["loss_rel"],
-          f"train cross-check: loss {card[0]} vs {cpu[0]}")
+          f"{phase}: loss {card[0]} vs {cpu[0]}")
     check(grad_rel[worst] <= TRAIN_TOL_FP32["grad_rel_l2"],
-          f"train cross-check: grad {worst} rel {grad_rel[worst]}")
-    check(worst_param <= 1.0, f"train cross-check: params {worst_param}")
-    check(moved > 0, "train cross-check: no param moved")
+          f"{phase}: grad {worst} rel {grad_rel[worst]}")
+    check(worst_param <= 1.0, f"{phase}: params {worst_param}")
+    check(moved > 0, f"{phase}: no param moved")
 
 
-def phase_train_guard(torch, params) -> None:
-    """``--unfreeze_vit`` on the card: a train step must raise the kernel
-    guard's error (K1 has no backward), nothing else."""
-    from deer_vla_tpu_torch.core.config import FP32, deer_3b
-    from deer_vla_tpu_torch.models.flamingo import trainable_mask
-    from deer_vla_tpu_torch.train.optimizer import make_optimizer
-    from deer_vla_tpu_torch.train.train_step import (TrainState,
-                                                     make_train_step)
-    cfg2 = dataclasses.replace(deer_3b(window_size=CALIB_CROSS_WINDOW,
-                                       dtypes=FP32), unfreeze_vit=True)
-    cfg2, batch, draws = train_inputs(torch, cfg2, torch.device("cuda"))
-    opt = make_optimizer(params, cfg2, phase="joint", learning_rate=1e-4,
-                         warmup_steps=0, total_steps=1,
-                         trainable=trainable_mask(params, cfg2, "joint"))
-    check(any(k.startswith("vit/") for k in opt.trainable_keys()),
-          "train guard: the ViT is not trainable")
-    step = make_train_step(cfg2, opt)
-    want = "flash_attention: an input requires grad"
-    try:
-        step(TrainState(params, {}, 0), batch, draws=[draws])
-    except RuntimeError as err:
-        check(str(err).startswith(want), f"train guard: raised {err!r}")
-        emit({"phase": "train_guard", "raised": str(err)})
-    else:
-        check(False, "train guard: the step trained the ViT on the card")
-    check(not any(t.requires_grad for t in params["vit"]["blocks"][0]
-                  ["qkv"].values()), "train guard: grads left switched on")
+# --unfreeze_vit, card against CPU: the full-width ViT-L trained through K1's
+# backward in fp32, under a decoder cut to 2 of its 12 layers (the CPU's
+# fp32 step and update take most of the phase's time)
+UNFREEZE_DEPTH = 2
+
+
+def phase_train_unfreeze_vit(torch, np) -> None:
+    """``phase_train_cross_check`` with the ViT trained, on seeded deer_3b
+    weights of ``UNFREEZE_DEPTH`` decoder layers."""
+    from deer_vla_tpu_torch.bridge import to_torch
+    from deer_vla_tpu_torch.core.config import deer_3b
+    params = build_weights(torch, deer_3b(max_layer=UNFREEZE_DEPTH))
+    cpu_params = to_torch(params, "cpu")
+    phase_train_cross_check(torch, np, params, cpu_params, unfreeze_vit=True)
+    del params, cpu_params
+    released_gb(torch)
 
 
 @contextlib.contextmanager
@@ -2907,8 +2964,32 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
          "plain_ms": r["reference_ms"], "library_ms": r["library_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "max_abs_err": r["max_abs_err"]} for r in summary["k1_vl"]]
+    # K1's backward: the headline is the pretraining decoder's
+    # self-attention (the largest of its shapes), on its path's count
+    bwd = max(summary["k1_backward"], key=lambda r: r["flops"])
+    out.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "deer_vla_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "deer_vla_tpu/ops/pallas/flash_attention.py:109",
+        "replaces_note": "the gradient of K1, which the TPU kernel does not "
+                         "have (no custom_vjp)",
+        "launches": launches["flash_attention_backward"],
+        "max_abs_err": bwd["max_abs_err"], "tolerance": bwd["tolerance"],
+        "ms": bwd["kernel_ms"], "eager_ms": bwd["kernel_eager_ms"],
+        "plain_ms": bwd["reference_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+        "library": "torch.autograd.grad through "
+                   "scaled_dot_product_attention (eager)",
+        "bytes": bwd["bytes"], "flops": bwd["flops"],
+        "shape": f"q {bwd['shape']} {bwd['dtype']}, Sk {bwd['sk']}, bias "
+                 f"{bwd['bias']} (pretrain_3b's decoder at 256 tokens)",
+        "shapes": [{k: r[k] for k in (
+            "shape", "sk", "bias", "dtype", "kernel_ms", "kernel_eager_ms",
+            "reference_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for r in summary["k1_backward"]]})
     for row in out:
-        row["launches_by_path"] = {path: counts[row["name"]]
+        # None where a path's counts predate the kernel (K1's backward)
+        row["launches_by_path"] = {path: counts.get(row["name"])
                                    for path, counts in path_launches.items()}
     return {"kernels": out}
 
@@ -4999,7 +5080,8 @@ def drive_paths(torch, np, cfg) -> tuple:
     calibrate_variants), the head families (serve_heads,
     cross_check_heads, calibrate_heads), calibration with its cross-check,
     the deployment phases (the HTTP servers, per stream and batched, on
-    the calibrated thresholds), the train step's cross-check and guard,
+    the calibrated thresholds), the train step's cross-checks (frozen and
+    trained ViT),
     the cli/eval rollouts (the head families' and --tcp_rel's too), then
     cli/train, cli/eval and cli/serve on its checkpoint, and the same for a
     vit_concat state model (train_variants) and for the diffusion and gpt
@@ -5041,7 +5123,7 @@ def drive_paths(torch, np, cfg) -> tuple:
     phase_calibrate_cross_check(torch, np, cfg, params, cpu_params)
     phase_train_cross_check(torch, np, params, cpu_params)
     del cpu_params
-    phase_train_guard(torch, params)
+    phase_train_unfreeze_vit(torch, np)
     del params
     torch.cuda.empty_cache()
     rollouts = {name: phase_rollout(torch, np, name, ROLLOUT_ARGV + flags)
@@ -5492,6 +5574,78 @@ def phase_k1_vl(torch, inputs: dict, checked: set) -> list:
     return rows
 
 
+def phase_k1_backward(torch, inputs: dict) -> list:
+    """K1's backward (``flash_attention_backward``) against its plain
+    version at each call key the paths differentiated K1 at, on the last
+    inputs they gave it (``inputs``, kept by ``k1_backward_calls``) and on
+    the same q, k, v, bias and output with a seeded upstream gradient of
+    unit scale (the path's own can be tiny): dq, dk and dv each within
+    K1_TOL times max |plain gradient|.  Timed
+    beside its plain version and SDPA's backward (``torch.autograd.grad``
+    through ``scaled_dot_product_attention`` on the same q, k, v, bias and
+    upstream gradient, its forward outside the timing), each from CUDA
+    events around eager calls; the kernel also from CUDA-graph replays."""
+    from deer_vla_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference)
+    F = torch.nn.functional
+    check(bool(inputs), "k1_backward: no path ran K1's backward")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for key, (q, k, v, bias, out, dout, scale) in sorted(
+            inputs.items(), key=lambda kv: str(kv[0])):
+        dt = str(q.dtype)[6:]
+        unit = torch.randn(dout.shape, generator=gen, device="cuda").to(
+            dout.dtype)
+        errs, tols = {}, {}
+        for tag, do in (("path", dout), ("unit", unit)):
+            got = flash_attention_backward(q, k, v, bias, out, do, scale)
+            ref = flash_attention_backward_reference(q, k, v, bias, out, do,
+                                                     scale)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                n = f"{tag}_{name}"
+                errs[n] = (g.float() - r.float()).abs().max().item()
+                tols[n] = K1_TOL[dt] * r.float().abs().max().item()
+                check(bool(torch.isfinite(g).all()),
+                      f"K1 backward {key}: {n} non-finite")
+                check(errs[n] <= tols[n], f"K1 backward {key}: {n} max abs "
+                      f"err {errs[n]} > {tols[n]}")
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        # q, k, v, out, dout read once, dq, dk, dv written once, the bias's
+        # own elements read once; the five S x S x D products
+        nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+            * q.element_size()
+        if bias is not None:
+            nbytes += bias.numel() * bias.element_size()
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        mask = None if bias is None else bias.to(q.dtype)
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(qq, kk, vv,
+                                                     attn_mask=mask,
+                                                     scale=scale)
+        rows.append({
+            "kernel": "flash_attention_backward", "shape": list(q.shape),
+            "sk": sk, "dtype": dt, "strided": not q.is_contiguous(),
+            "bias": None if bias is None else list(bias.shape),
+            "max_abs_err": max(errs.values()), "max_abs_err_each": errs,
+            "tolerance": tols,
+            **bound(nbytes, 10 * b * h * sq * sk * d, dt),
+            "kernel_ms": graph_ms(torch, lambda: flash_attention_backward(
+                q, k, v, bias, out, dout, scale), 8),
+            "kernel_eager_ms": time_ms(torch, lambda: flash_attention_backward(
+                q, k, v, bias, out, dout, scale), 8),
+            "reference_ms": time_ms(
+                torch, lambda: flash_attention_backward_reference(
+                    q, k, v, bias, out, dout, scale), 4),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qq, kk, vv), dout, retain_graph=True), 8)})
+        del lib_out, qq, kk, vv
+    inputs.clear()
+    emit({"phase": "k1_backward", "cases": rows})
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # VL pretraining and co-training (ROADMAP M16b), data-parallel scale-out
 # (M15)
@@ -5500,13 +5654,12 @@ def phase_k1_vl(torch, inputs: dict, checked: set) -> list:
 PRETRAIN_DIR = REPO / "build" / "chip_smoke_pretrain"
 # cli/pretrain --debug at deer_3b's preset 12 layers: LAION B=8 (8 ViT
 # images a step) and MMC4 B=4 (4 x 6 image slots: 24 ViT images a step)
-# at 224 px, taking turns, 4 steps; a warmup of 1 step.  MMC4's text is cut
-# to 96 tokens: at 128 query rows or more the decoder's attention takes
-# K1, which has no backward (ROADMAP.md M11), so the default 256 raises
-# the kernel guard's error on the card
+# at 224 px, taking turns, 4 steps; a warmup of 1 step.  MMC4's text at
+# its default 256 tokens: from 128 query rows the decoder's self- and
+# cross-attention take K1, and train through K1's backward
 PRETRAIN_ARGV = ["--debug", "--model", "mpt_dolly_3b", "--max_layer", "12",
                  "--batch_size_laion", "8", "--batch_size_mmc4", "4",
-                 "--max_tokens", "96", "--steps", "4", "--warmup_steps",
+                 "--max_tokens", "256", "--steps", "4", "--warmup_steps",
                  "1", "--logging_steps", "1", "--run_name",
                  str(PRETRAIN_DIR)]
 PRETRAIN_IMAGES = {"laion": 8, "mmc4": 4 * 6}
@@ -5600,9 +5753,11 @@ def timed_steps(module, name: str, times: list):
 
 def phase_pretrain_3b(torch, np) -> dict:
     """``cli/pretrain --debug`` in-process on the card (``PRETRAIN_ARGV``):
-    every loss finite, K1 24 times a step and K2-K4 never, the frozen
-    leaves bit for bit the seed's fresh draw, the trainable leaves with a
-    gradient moved."""
+    every loss finite; K1 24 times a step for the ViT and, on MMC4's 256
+    tokens, once for each decoder layer's self-attention and each
+    cross-attention, each of those differentiated by K1's backward (the
+    ViT's calls are not); K2-K4 never; the frozen leaves bit for bit the
+    seed's fresh draw, the trainable leaves with a gradient moved."""
     import io
     from deer_vla_tpu_torch.cli import pretrain as cli
     from deer_vla_tpu_torch.models.flamingo import init_deer, trainable_mask
@@ -5630,12 +5785,19 @@ def phase_pretrain_3b(torch, np) -> dict:
           == ["laion", "mmc4"] * 2, f"pretrain_3b: steps {logs}")
     check(all(np.isfinite(d["lm_loss"]) for d in logs),
           f"pretrain_3b: losses {[d['lm_loss'] for d in logs]}")
-    check(launches["flash_attention"] == 4 * VIT_LAYERS,
-          f"pretrain_3b: K1 launched {launches['flash_attention']} times")
-    check(all(launches[n] == 0 for n in DECODER_KERNEL.values()),
-          f"pretrain_3b: K2-K4 launched: {launches}")
     args = cli.build_parser().parse_args(PRETRAIN_ARGV)
     cfg = cli.model_config(args)
+    # a decoder's attention calls a MMC4 step: its self-attention and its
+    # cross-attention layers (all query 256 text rows)
+    decoder_calls = cfg.mpt.n_layers + sum(
+        x is not None for x in params["decoder"]["xattn"])
+    check(launches["flash_attention"]
+          == 4 * VIT_LAYERS + 2 * decoder_calls
+          and launches["flash_attention_backward"] == 2 * decoder_calls,
+          f"pretrain_3b: K1 launches {launches}, {decoder_calls} decoder "
+          "attention calls a MMC4 step")
+    check(all(launches[n] == 0 for n in DECODER_KERNEL.values()),
+          f"pretrain_3b: K2-K4 launched: {launches}")
     final = flat_leaves(params)
     with torch.no_grad():
         start = flat_leaves(init_deer(cfg, seed=args.seed, device="cuda"))
@@ -6129,8 +6291,9 @@ def main() -> int:
     summary = phase_kernels(torch, vit_batches(cfg))
     summary.update(phase_kernels_9b(torch, summary["k2_checked"]))
 
-    k1_seen, k2_seen = set(), set()
-    with k1_calls(k1_seen), k2_calls(k2_seen):
+    k1_seen, k2_seen, bwd_inputs = set(), set(), {}
+    with k1_calls(k1_seen), k2_calls(k2_seen), \
+            k1_backward_calls(bwd_inputs):
         serve, quantized, calib, paths = drive_paths(torch, np, cfg)
         paths_9b, path_launches = drive_9b(torch, np)
         paths += paths_9b + drive_llama(torch, np)
@@ -6139,6 +6302,7 @@ def main() -> int:
             paths += drive_vl(torch, np, cfg)
             paths += drive_scale_out(torch, np, k1_seen, k2_seen)
     summary["k1_vl"] = phase_k1_vl(torch, vl_inputs, summary["k1_checked"])
+    summary["k1_backward"] = phase_k1_backward(torch, bwd_inputs)
     unchecked = k1_seen - summary["k1_checked"]
     emit({"phase": "k1_shapes", "driven": sorted(map(str, k1_seen)),
           "unchecked": sorted(map(str, unchecked))})
@@ -6166,6 +6330,8 @@ def main() -> int:
         quantized["int8"]["launches"]["indexed_matmul_q8"]
     launches["indexed_matmul_q4"] = \
         quantized["int4"]["launches"]["indexed_matmul_q4"]
+    launches["flash_attention_backward"] = \
+        path_launches["pretrain_3b"]["flash_attention_backward"]
     for name, phase in (("indexed_matmul", "serve_9b"),
                         ("indexed_matmul_q8", "serve_9b_int8"),
                         ("indexed_matmul_q4", "serve_9b_int4")):

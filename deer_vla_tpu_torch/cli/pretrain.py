@@ -7,11 +7,14 @@ the gated cross-attention, perceiver and embedding leaves.
 
 ``main(argv, device=None)`` trains on the card; ``device="cpu"`` runs the
 plain versions on the CPU.  ``--debug`` writes one synthetic LAION and one
-MMC4 shard into ``--run_name`` and trains on them.  The sources take turns
-step by step; a checkpoint ``pretrain_{epoch}.ckpt`` is written at each
-epoch's end.  ``--coordinator HOST:PORT --num_processes N --process_id I``
-trains data parallel: each process reads its own shards and the gradients
-are averaged across processes; process 0 writes the checkpoints.
+MMC4 shard a process into ``--run_name`` and trains on them.  The sources
+take turns step by step; a checkpoint ``pretrain_{epoch}.ckpt`` is written
+at each epoch's end.  ``--coordinator HOST:PORT --num_processes N
+--process_id I`` trains data parallel: each process reads its own shards
+and the gradients are averaged across processes; process 0 writes the
+checkpoints.  The filters drop different numbers of samples on each
+process, so every process takes a source's step only while every process
+has a batch of it: a source ends for all when it ends for one.
 
 The JAX CLI parses ``--laion_weight`` / ``--mmc4_weight`` and never uses
 them (ROADMAP.md, "Found in the reference"); this CLI computes what the JAX
@@ -104,19 +107,27 @@ def model_config(args):
     return make_model_config(ns)
 
 
-def debug_shards(args, cfg):
-    """One synthetic LAION and one MMC4 shard in ``--run_name``, two
-    batches each."""
+def debug_shards(args, cfg, world: int = 1):
+    """One synthetic LAION and one MMC4 shard a process in ``--run_name``,
+    two batches each, shard i drawn from seed i; process 0 writes them
+    all, the others wait for it."""
     from deer_vla_tpu_torch.data.webdataset import (
         write_synthetic_laion_shard, write_synthetic_mmc4_shard)
-    os.makedirs(args.run_name, exist_ok=True)
-    lp = os.path.join(args.run_name, "debug-laion-000.tar")
-    mp = os.path.join(args.run_name, "debug-mmc4-000.tar")
-    write_synthetic_laion_shard(lp, n=2 * args.batch_size_laion,
-                                hw=cfg.vit.image_size)
-    write_synthetic_mmc4_shard(mp, n=2 * args.batch_size_mmc4,
-                               hw=cfg.vit.image_size)
-    return [lp], [mp]
+    from deer_vla_tpu_torch.parallel import multihost
+    names = [(os.path.join(args.run_name, f"debug-laion-{i:03d}.tar"),
+              os.path.join(args.run_name, f"debug-mmc4-{i:03d}.tar"))
+             for i in range(world)]
+    if multihost.process_index() == 0:
+        os.makedirs(args.run_name, exist_ok=True)
+        for i, (lp, mp) in enumerate(names):
+            write_synthetic_laion_shard(lp, n=2 * args.batch_size_laion,
+                                        hw=cfg.vit.image_size, seed=i)
+            write_synthetic_mmc4_shard(mp, n=2 * args.batch_size_mmc4,
+                                       hw=cfg.vit.image_size, seed=i)
+    if world > 1:
+        import torch
+        torch.distributed.barrier()
+    return [lp for lp, _ in names], [mp for _, mp in names]
 
 
 @record
@@ -153,7 +164,7 @@ def main(argv=None, device: Optional[str] = None):
                                   eoc_token_id=tok.eoc_token_id)
         sim_threshold = args.mmc4_sim_threshold
         if args.debug:
-            laion_shards, mmc4_shards = debug_shards(args, cfg)
+            laion_shards, mmc4_shards = debug_shards(args, cfg, world)
             sim_threshold = 0.0
         else:
             laion_shards = (sorted(glob.glob(args.laion_shards))
@@ -197,14 +208,12 @@ def main(argv=None, device: Optional[str] = None):
             for _, ld in loaders:
                 ld.set_epoch(epoch)
             iters = [(kind, iter(ld)) for kind, ld in loaders]
-            active = True
-            while active and (args.steps == 0 or done < args.steps):
-                active = False
-                for kind, it in iters:
+            while iters and (args.steps == 0 or done < args.steps):
+                for kind, it in list(iters):
                     raw = next(it, None)
-                    if raw is None:
+                    if not multihost.all_ranks(raw is not None):
+                        iters.remove((kind, it))
                         continue
-                    active = True
                     batch = {"image": prepare_interleaved_batch(
                                  raw, cfg.vit.image_size, device=dev),
                              "input_ids": torch.as_tensor(

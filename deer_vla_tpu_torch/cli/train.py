@@ -86,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--freeze_sampler", action="store_true",
                    help="keep the perceiver resampler frozen")
     p.add_argument("--unfreeze_vit", action="store_true",
-                   help="train the ViT too (on the card this raises: K1 "
-                        "has no backward)")
+                   help="train the ViT too (on the card through K1 and "
+                        "its backward)")
     p.add_argument("--train_params", type=int, default=-1,
                    help=">=0: train only the last round(n/140) gated "
                         "x-attn layers (factory.py:214-222)")
@@ -367,7 +367,9 @@ def make_loader(args, cfg, tok, rank: int = 0, world: int = 1):
 
 def make_vl_loader(args, cfg, tok, rank: int = 0, world: int = 1):
     """The co-training VL batches (JAX cli/train.py:351-377): LAION-style
-    shards split by rank, else COCO captions, else VQA questions."""
+    shards, else COCO captions, else VQA questions, split by rank (JAX
+    gives every process the whole COCO / VQA batch; see ROADMAP.md,
+    "Found in the reference")."""
     from deer_vla_tpu_torch.data.vl_dataset import (CaptionDataset,
                                                     VLLoader, VQADataset)
     vbs = args.vl_batch_size or args.batch_size_calvin
@@ -391,7 +393,8 @@ def make_vl_loader(args, cfg, tok, rank: int = 0, world: int = 1):
     else:
         raise SystemExit("--cotrain needs --coco_ann, --vqa_questions or "
                          "--cotrain_laion_shards")
-    return VLLoader(ds, tok, vbs, seed=args.seed)
+    return VLLoader(ds, tok, vbs, seed=args.seed, rank=rank,
+                    world_size=world)
 
 
 def build_trainer(argv=None, device: Optional[str] = None):

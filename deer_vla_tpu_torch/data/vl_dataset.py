@@ -209,29 +209,39 @@ class KarpathyCaptionDataset:
 
 
 class VLLoader:
-    """Shuffled batch iterator over a caption / VQA dataset."""
+    """Shuffled batch iterator over a caption / VQA dataset.  With
+    ``world_size`` > 1 a global batch holds ``batch_size`` rows a process,
+    drawn from one shuffled order, and process ``rank`` takes its
+    contiguous ``batch_size`` of them."""
 
     def __init__(self, dataset, text_fn: Callable, batch_size: int,
-                 shuffle: bool = True, seed: int = 0, drop_last: bool = True):
+                 shuffle: bool = True, seed: int = 0, drop_last: bool = True,
+                 rank: int = 0, world_size: int = 1):
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside [0, {world_size})")
         self.ds = dataset
         self.text_fn = text_fn
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
         self.epoch = 0
 
     def set_epoch(self, e: int):
         self.epoch = e
 
     def __len__(self):
-        return len(self.ds) // self.batch_size
+        return len(self.ds) // (self.batch_size * self.world_size)
 
     def __iter__(self):
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        global_bs = self.batch_size * self.world_size
         for b in range(len(self)):
-            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            start = b * global_bs + self.rank * self.batch_size
+            idxs = order[start:start + self.batch_size]
             yield self.ds.collate([self.ds[int(i)] for i in idxs],
                                   self.text_fn)
 

@@ -18,8 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-SOURCES = ("flash_attention.cu", "indexed_matmul.cu",
-           "indexed_matmul_quant.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+           "indexed_matmul.cu", "indexed_matmul_quant.cu")
 HEADERS = ("hopper_mma.cuh",)  # included by the sources; part of the digest
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]

@@ -7,14 +7,17 @@ They replace the reference's collectives outside the model: the
 process group, or with a group of one, they are the identity.
 
 ``initialize`` is the counterpart of ``jax.distributed.initialize``: NCCL
-when every rank of the group has a card of its own on this host, gloo
-otherwise (NCCL refuses two ranks on one device).  Gloo reduces and
+when every rank on this host has a card of its own, gloo otherwise (NCCL
+refuses two ranks on one device).  The ranks on this host are those that
+torchrun's ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` name; without them every
+process of the group is taken to run on this host.  Gloo reduces and
 broadcasts CUDA tensors but gathers host tensors only, so the gathers here
 go through host tensors whatever the backend.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 from typing import Any, List, Optional
 
@@ -43,12 +46,22 @@ def process_index() -> int:
     return d.get_rank() if d is not None else 0
 
 
-def pick_backend(num_processes: int, device: Optional[str] = None) -> str:
-    """'nccl' when the processes run on cards and this host has a card a
-    rank, else 'gloo'."""
+def local_ranks(num_processes: int, process_id: int) -> tuple:
+    """(this process's index among the ranks on its host, how many ranks
+    run on its host): torchrun's ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``,
+    else the whole group on one host."""
+    env = os.environ
+    if "LOCAL_RANK" in env and "LOCAL_WORLD_SIZE" in env:
+        return int(env["LOCAL_RANK"]), int(env["LOCAL_WORLD_SIZE"])
+    return process_id, num_processes
+
+
+def pick_backend(local_world: int, device: Optional[str] = None) -> str:
+    """'nccl' when the processes run on cards and this host has a card for
+    each of its ``local_world`` ranks, else 'gloo'."""
     on_card = (device is None or torch.device(device).type == "cuda")
     if (on_card and torch.cuda.is_available()
-            and torch.cuda.device_count() >= num_processes):
+            and torch.cuda.device_count() >= local_world):
         return "nccl"
     return "gloo"
 
@@ -61,17 +74,20 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
                device: Optional[str] = None) -> str:
     """Join the process group at ``coordinator`` (``host:port``, or a
     ``tcp://`` / ``file://`` URL) as rank ``process_id`` of
-    ``num_processes``; returns the backend.  Under NCCL each rank takes
-    the card of its index."""
+    ``num_processes``; returns the backend.  On the card each rank takes
+    the card of its index on its host (``local_ranks``), modulo the
+    host's cards."""
     import datetime
 
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process_id {process_id} outside "
                          f"[0, {num_processes})")
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-    backend = pick_backend(num_processes, device)
-    if backend == "nccl":
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+    local_rank, local_world = local_ranks(num_processes, process_id)
+    backend = pick_backend(local_world, device)
+    if ((device is None or torch.device(device).type == "cuda")
+            and torch.cuda.is_available()):
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
     torch.distributed.init_process_group(
         backend, init_method=url, world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
@@ -82,6 +98,17 @@ def shutdown() -> None:
     """Leave the process group, if one is up."""
     if _dist() is not None:
         torch.distributed.destroy_process_group()
+
+
+def all_ranks(flag: bool) -> bool:
+    """Whether ``flag`` holds on every process (``flag`` itself without a
+    group or with a group of one)."""
+    if process_count() == 1:
+        return flag
+    dev = "cuda" if torch.distributed.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN)
+    return bool(t.item())
 
 
 def _all_gather_host(t: torch.Tensor) -> List[torch.Tensor]:

@@ -48,31 +48,22 @@ def lm_loss(params: dict, cfg: DeerConfig, vision_x: torch.Tensor,
     return loss, {"lm_loss": loss, "lm_acc": acc, "tokens": denom}
 
 
-def pretrain_grad_keys(params: dict, cfg: DeerConfig):
-    """The leaves the pretraining step differentiates: every float leaf
-    but the ViT's (cut from the graph unless ``cfg.unfreeze_vit``)."""
-    return [k for k, v in flat_leaves(params).items()
-            if v.is_floating_point()
-            and (cfg.unfreeze_vit or not k.startswith("vit/"))]
-
-
 def make_pretrain_step(cfg: DeerConfig, optimizer: GroupedAdamW):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     for interleaved or caption / VQA batches: {image (B, T, 1, 3, H, W),
-    input_ids, attention_mask, [gripper], [answer_mask]}.  The optimizer's
-    trainable leaves are updated in place.  ``grad_norm`` is the global
-    norm of every gradient the loss has, the frozen decoder's included (the
-    JAX package's ``optax.global_norm(grads)``); the clipping inside the
-    update sees the trainable ones only, as optax's masked chain does.
-    With a process group of more than one rank the gradients are averaged
-    across ranks first (``train_step.average_across_ranks``)."""
+    input_ids, attention_mask, [gripper], [answer_mask]}.  Only the
+    optimizer's trainable leaves are differentiated and updated (in
+    place), and ``grad_norm`` is their global norm, as the train step's.
+    The JAX package's ``grad_norm`` also counts the frozen decoder's
+    gradients, which it computes and drops (ROADMAP.md, "Found in the
+    reference").  With a process group of more than one rank the gradients
+    are averaged across ranks first (``train_step.average_across_ranks``)."""
     from deer_vla_tpu_torch.train.train_step import average_across_ranks
     keys = optimizer.trainable_keys()
 
     def step(params: dict, opt_state: dict, batch: Dict):
-        grad_keys = pretrain_grad_keys(params, cfg)
         flat = flat_leaves(params)
-        leaves = [flat[k] for k in grad_keys]
+        leaves = [flat[k] for k in keys]
         for leaf in leaves:
             leaf.requires_grad_(True)
         try:
@@ -86,16 +77,13 @@ def make_pretrain_step(cfg: DeerConfig, optimizer: GroupedAdamW):
         finally:
             for leaf in leaves:
                 leaf.requires_grad_(False)
-        grads = {k: g.float() for k, g in zip(grad_keys, gs)
-                 if g is not None}
+        grads = {k: (torch.zeros_like(flat[k], dtype=torch.float32)
+                     if g is None else g.float())
+                 for k, g in zip(keys, gs)}
         metrics = {k: v.detach() for k, v in metrics.items()}
         grads, metrics = average_across_ranks(grads, metrics)
-        for k in keys:
-            if k not in grads:
-                grads[k] = torch.zeros_like(flat[k])
-        gnorm = global_norm(grads)
-        optimizer.update(params, {k: grads[k] for k in keys}, opt_state)
-        metrics["grad_norm"] = gnorm
+        metrics["grad_norm"] = global_norm(grads)
+        optimizer.update(params, grads, opt_state)
         return params, opt_state, metrics
 
     return step

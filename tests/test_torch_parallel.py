@@ -465,3 +465,123 @@ def test_train_cli_two_processes_keep_the_ranks_equal(tmp_path, capsys):
     assert abs(logs[0]["loss"] - want[0]["loss"]) <= \
         STEP_LOSS_REL * abs(want[0]["loss"])
     assert logs[0]["step"] == want[0]["step"] == 0
+
+
+# two uneven LAION shards: 3 batches of 2 and 1 batch; whichever rank
+# takes the short one, both ranks take one LAION step and stop together
+UNEVEN_SHARDS = (6, 2)
+
+
+@pytest.mark.parametrize("data", ["debug", "uneven_shards"])
+def test_pretrain_cli_two_processes_keep_the_ranks_equal(tmp_path, data):
+    """Two-process cli/pretrain --coordinator on deer_tiny: the ranks take
+    the same steps and end bit-equal, rank 0 alone logs and writes the
+    checkpoint.  ``debug``: rank 0 writes one LAION and one MMC4 shard a
+    rank, the others wait for it (2 steps of each source a rank).
+    ``uneven_shards``: the ranks' shards hold 3 and 1 batches, so every
+    rank stops LAION after one step, where the short one runs out."""
+    from deer_vla_tpu_torch.data.webdataset import \
+        write_synthetic_laion_shard
+    run = tmp_path / "run"
+    argv = ["--model", "tiny", "--precision", "fp32", "--warmup_steps", "0",
+            "--logging_steps", "1", "--batch_size_laion", "2",
+            "--batch_size_mmc4", "2", "--max_tokens", "24", "--run_name",
+            str(run)]
+    if data == "debug":
+        argv.append("--debug")
+        want_steps = 4
+    else:
+        run.mkdir()
+        for i, n in enumerate(UNEVEN_SHARDS):
+            write_synthetic_laion_shard(str(run / f"laion-{i}.tar"), n=n,
+                                        hw=28, seed=i)
+        argv += ["--laion_shards", str(run / "laion-*.tar")]
+        want_steps = 1
+    res = run_ranks(tmp_path, f"""
+        import contextlib, io
+        from deer_vla_tpu_torch.cli.pretrain import main
+        from deer_vla_tpu_torch.train.optimizer import flat_leaves
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            params, _ = main({argv!r} + [
+                "--coordinator", "file://" + tmp + "/store2",
+                "--num_processes", "2", "--process_id", str(rank)],
+                device="cpu")
+        result = {{"stdout": out.getvalue(),
+                   "params": dict(flat_leaves(params))}}
+    """, init=False)
+    for k, v in res[0]["params"].items():
+        assert torch.equal(v, res[1]["params"][k]), k
+    assert res[1]["stdout"] == ""  # rank 0 logs
+    logs = [json.loads(line) for line in res[0]["stdout"].splitlines()
+            if line.startswith("{")]
+    assert logs[-1] == {"final_steps": want_steps}
+    written = sorted(p for p in os.listdir(run)
+                     if not p.endswith(".tar"))
+    assert written == ["pretrain_0.ckpt", "pretrain_0.json"]
+    if data == "debug":
+        assert sorted(p for p in os.listdir(run) if p.endswith(".tar")) == [
+            f"debug-{kind}-{i:03d}.tar" for kind in ("laion", "mmc4")
+            for i in range(2)]
+
+
+def test_pick_backend_counts_the_cards_of_this_host(monkeypatch):
+    """Two hosts of 4 cards and 8 processes: torchrun's LOCAL_RANK /
+    LOCAL_WORLD_SIZE say 4 ranks run here, so NCCL, each rank on its own
+    card; more local ranks than cards, or no card, take gloo.  Without
+    the variables the whole group counts as local."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert multihost.local_ranks(8, 7) == (3, 4)
+    assert multihost.pick_backend(4) == "nccl"
+    assert multihost.pick_backend(4, device="cpu") == "gloo"
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")
+    assert multihost.pick_backend(multihost.local_ranks(8, 7)[1]) == "gloo"
+    monkeypatch.delenv("LOCAL_RANK")
+    monkeypatch.delenv("LOCAL_WORLD_SIZE")
+    assert multihost.local_ranks(8, 5) == (5, 8)
+    assert multihost.local_ranks(4, 2) == (2, 4)
+    assert multihost.pick_backend(4) == "nccl"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert multihost.pick_backend(1) == "gloo"
+
+
+class RowDataset:
+    """n numbered rows; a batch is their numbers."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return i
+
+    @staticmethod
+    def collate(rows, text_fn):
+        return np.asarray(rows)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_vl_loader_ranks_split_one_global_batch(world):
+    """VLLoader's ranks, side by side, give one process's batches of
+    ``world`` times the rows, rows in rank order; each epoch's order is
+    the same on every rank."""
+    ds, bs = RowDataset(23), 3
+    from deer_vla_tpu_torch.data.vl_dataset import VLLoader
+    one = VLLoader(ds, None, bs * world, seed=7)
+    ranks = [VLLoader(ds, None, bs, seed=7, rank=r, world_size=world)
+             for r in range(world)]
+    for epoch in (0, 1):
+        for ld in [one] + ranks:
+            ld.set_epoch(epoch)
+        got = [np.concatenate(parts) for parts in zip(*ranks)]
+        want = list(one)
+        assert len(got) == len(want) == 23 // (bs * world)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="rank 2 outside"):
+        VLLoader(ds, None, bs, rank=2, world_size=2)

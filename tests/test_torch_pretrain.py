@@ -116,9 +116,9 @@ def assert_grads(got: dict, want: dict):
 @pytest.mark.parametrize("t,answer", [(3, True)])
 def test_pretrain_step_matches_jax(tiny, t, answer):
     """Two steps on three images a row with an answer mask: the LM loss,
-    accuracy and token count (``lm_loss``), grad_norm over every gradient
-    (the frozen
-    decoder's too, as JAX's optax.global_norm(grads)) and every gradient
+    accuracy and token count (``lm_loss``), grad_norm over the trainable
+    leaves' gradients (JAX's counts the frozen decoder's too: its norm is
+    taken here over JAX's gradients of the same leaves) and every gradient
     the optimizer takes; the frozen leaves bit-unchanged, the trainable
     ones moved."""
     jcfg, tcfg, _, params = tiny
@@ -143,8 +143,12 @@ def test_pretrain_step_matches_jax(tiny, t, answer):
         for k in ("lm_loss", "lm_acc", "tokens"):
             assert_rel(tm[k], jm[k], LOSS_REL)
         assert int(tm["tokens"]) > 0
-        assert_rel(tm["grad_norm"], jm["grad_norm"], GRAD_NORM_REL)
-        assert_grads(seen[-1], jax_flat(js[0]))
+        jg = jax_flat(js[0])
+        want = np.sqrt(sum(float(np.sum(np.square(jg[k], dtype=np.float64)))
+                           for k in trained if trained[k]))
+        assert_rel(tm["grad_norm"], want, GRAD_NORM_REL)
+        assert set(seen[-1]) == set(topt.trainable_keys())
+        assert_grads(seen[-1], jg)
         for k, v in torch_flat(tp).items():
             assert torch.equal(v, init[k]) != (trained[k] and k in seen[-1]
                                                and bool(seen[-1][k].any())), k
