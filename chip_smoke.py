@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``deer_vla_tpu_torch/csrc/`` and counts
 the tensor-core instructions (HMMA / HGMMA) in the SASS of the bf16 K1-K4
-kernels, and K3 / K4's type conversions, holds each kernel against its
+kernels and of K1's bf16 backward (which must have no atomics), and K3 /
+K4's type conversions, holds each kernel against its
 plain PyTorch version at the shapes the serving step gives it (K1 flash
 attention, also on the ViT's strided views of a fused qkv and at ragged and
 other head-dim shapes; K2 / K3 / K4 the bf16 / int8 / int4 layer-indexed
@@ -168,9 +169,16 @@ decoder layers, 2 trajectories a rank: the ranks' trainable leaves
 bit-equal, rank 0 alone wrote the checkpoint, the first loss one
 process's over the 4 trajectories).  A child's K1 and K2-K4 shapes join
 the checks; a child that fails fails the script.  Last, ``k1_backward``
-holds K1's backward (``csrc/flash_attention_bwd.cu``) against its plain
-version at every shape the paths ran it on (their first inputs kept),
-timed beside the plain version and SDPA's backward.
+holds K1's backward (``csrc/flash_attention_bwd.cu``: in bf16 the
+tensor-core dQ and dK / dV kernels reading the forward's saved row
+statistics) against its plain version at every shape the paths ran it on
+(their last inputs kept, the forward's statistics with them) and at a
+synthetic bf16 ViT call (``split_heads`` views of one fused qkv, q (4, 16,
+257, 64), no bias: what a bf16 ``--unfreeze_vit`` run gives it); checks
+that the forward with statistics gives the output of the forward without,
+bit for bit, and statistics within K1_TOL of the plain ones, and that two
+launches of the backward agree bit for bit; timed beside the plain version
+and SDPA's backward.
 
 Every phase prints one JSON line, with ``t_s`` the seconds since the
 script started; any failed check raises and the script
@@ -223,9 +231,13 @@ TENSOR_CORE_KERNELS = {
     "indexed_matmul_q8": (("indexed_matmul_quant_mma", "Int8Codes"),
                           ("indexed_matmul_quant_wgmma", "Int8Codes")),
     "indexed_matmul_q4": (("indexed_matmul_quant_mma", "Int4Codes"),
-                          ("indexed_matmul_quant_wgmma", "Int4Codes"))}
+                          ("indexed_matmul_quant_wgmma", "Int4Codes")),
+    "flash_attention_backward": (("attn_bwd_dq",), ("attn_bwd_dkdv",))}
 # SASS type conversions (integer <-> float, float <-> float)
 CONVERSION = re.compile(r"\b(?:I2F|I2FP|F2F|F2FP|F2I|I2I)\b")
+# SASS atomics (global and shared): K1's backward must have none, so that
+# two launches give the same bits
+ATOMIC = re.compile(r"\b(?:ATOM|ATOMG|ATOMS|RED|REDG)\b")
 
 # The step at deer_3b: full depth on the card in bf16 against fp32 on the
 # CPU.  bf16 keeps 8 bits of mantissa through 24 + 12 residual layers.
@@ -433,7 +445,8 @@ def phase_device(torch) -> str:
 
 def sass_counts(lib_path, out_dir=None) -> dict:
     """Per kernel function in the library's SASS (``cuobjdump -sass``, next
-    to nvcc): its HMMA / HGMMA instructions and its type conversions."""
+    to nvcc): its HMMA / HGMMA instructions, its type conversions and its
+    atomics."""
     from deer_vla_tpu_torch.ops.kernels import build
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
@@ -445,12 +458,15 @@ def sass_counts(lib_path, out_dir=None) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             current = line.split("Function :", 1)[1].strip()
-            counts.setdefault(current, {"tensor_core": 0, "conversions": 0})
+            counts.setdefault(current, {"tensor_core": 0, "conversions": 0,
+                                        "atomics": 0})
         elif current is not None:
             if "HMMA" in line or "HGMMA" in line:
                 counts[current]["tensor_core"] += 1
             if CONVERSION.search(line):
                 counts[current]["conversions"] += 1
+            if ATOMIC.search(line):
+                counts[current]["atomics"] += 1
     return counts
 
 
@@ -462,6 +478,7 @@ def kernel_sass(counts: dict, entries) -> dict:
     return {"instances": len(per_fn),
             "hmma_hgmma": sum(c["tensor_core"] for c in per_fn.values()),
             "conversions": sum(c["conversions"] for c in per_fn.values()),
+            "atomics": sum(c["atomics"] for c in per_fn.values()),
             "per_instance": per_fn}
 
 
@@ -481,6 +498,8 @@ def phase_build() -> dict:
         per_fn = tc[kernel]["per_instance"]
         check(bool(per_fn) and all(c["tensor_core"] for c in per_fn.values()),
               f"{kernel}: no tensor-core instructions in {per_fn}")
+    check(tc["flash_attention_backward"]["atomics"] == 0,
+          f"K1's backward has atomics: {tc['flash_attention_backward']}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": info["seconds"], "ptxas": usage,
           "tensor_core_sass": tc})
@@ -643,19 +662,20 @@ def snapshot(*ts) -> tuple:
 def k1_backward_calls(keep: dict):
     """While open, keeps the last inputs of each ``k1_key`` of every K1
     backward that training runs on the card (the autograd function of
-    ``ops/kernels/flash_attention`` calls ``flash_attention_backward``),
-    copied, in ``keep``: the last, because the cross-attention's gates
-    start at zero, so its first upstream gradients are all zero.  The wrapper counts by its module name, so while
-    this is open its launches land on the logging wrapper, and go back to
-    it after."""
+    ``ops/kernels/flash_attention`` calls ``flash_attention_backward`` with
+    the row statistics its forward saved), copied, in ``keep``: the last,
+    because the cross-attention's gates start at zero, so its first
+    upstream gradients are all zero.  The wrapper counts by its module
+    name, so while this is open its launches land on the logging wrapper,
+    and go back to it after."""
     from deer_vla_tpu_torch.ops.kernels import flash_attention as fa
     kernel = fa.flash_attention_backward
 
-    def logged(q, k, v, bias, out, dout, scale=None):
+    def logged(q, k, v, bias, out, dout, scale=None, stats=None):
         if q.is_cuda:
             keep[k1_key(q, k, bias)] = snapshot(q, k, v, bias, out, dout) \
-                + (scale,)
-        return kernel(q, k, v, bias, out, dout, scale)
+                + (scale,) + snapshot(stats)
+        return kernel(q, k, v, bias, out, dout, scale, stats)
 
     logged.__name__ = kernel.__name__
     logged.launches = kernel.launches
@@ -2983,10 +3003,13 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
         "bytes": bwd["bytes"], "flops": bwd["flops"],
         "shape": f"q {bwd['shape']} {bwd['dtype']}, Sk {bwd['sk']}, bias "
                  f"{bwd['bias']} (pretrain_3b's decoder at 256 tokens)",
+        "tensor_core_sass": tc["flash_attention_backward"]["hmma_hgmma"],
+        "atomics_sass": tc["flash_attention_backward"]["atomics"],
         "shapes": [{k: r[k] for k in (
-            "shape", "sk", "bias", "dtype", "kernel_ms", "kernel_eager_ms",
-            "reference_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err")} for r in summary["k1_backward"]]})
+            "shape", "sk", "bias", "dtype", "synthetic", "kernel_ms",
+            "kernel_eager_ms", "reference_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "stats_err")}
+            for r in summary["k1_backward"]]})
     for row in out:
         # None where a path's counts predate the kernel (K1's backward)
         row["launches_by_path"] = {path: counts.get(row["name"])
@@ -5574,34 +5597,101 @@ def phase_k1_vl(torch, inputs: dict, checked: set) -> list:
     return rows
 
 
+# the synthetic bf16 ViT call of K1's backward: split_heads views of one
+# fused qkv, as a bf16 --unfreeze_vit run hands them over
+K1_BWD_VIT = {"batch": 4, "heads": 16, "seq": 257, "head_dim": 64}
+
+
+def k1_backward_vit_case(torch) -> tuple:
+    """(q, k, v, None, out, dout, scale, stats) of the bf16 ViT call: q, k,
+    v views of one seeded (B, S, 3 * H * D) qkv, the forward's output and
+    statistics, a seeded upstream gradient."""
+    from deer_vla_tpu_torch.ops.attention import split_heads
+    from deer_vla_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+    b, h, s, d = (K1_BWD_VIT[n] for n in ("batch", "heads", "seq",
+                                          "head_dim"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (split_heads(x, h) for x in qkv.chunk(3, dim=-1))
+    scale = d ** -0.5
+    out, stats = flash_attention_with_stats(q, k, v, None, scale)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    return q, k, v, None, out, dout, scale, stats
+
+
+def stats_errors(stats, ref) -> dict:
+    """The largest error of saved row statistics against the plain ones,
+    each element relative to max(1, |plain m|) for m and to the plain 1 / l
+    for 1 / l."""
+    m, il = stats.float()
+    rm, ril = ref.float()
+    return {"m": ((m - rm).abs() / rm.abs().clamp(min=1)).max().item(),
+            "inv_l": ((il - ril).abs() / ril.abs()).max().item()}
+
+
 def phase_k1_backward(torch, inputs: dict) -> list:
     """K1's backward (``flash_attention_backward``) against its plain
     version at each call key the paths differentiated K1 at, on the last
-    inputs they gave it (``inputs``, kept by ``k1_backward_calls``) and on
-    the same q, k, v, bias and output with a seeded upstream gradient of
-    unit scale (the path's own can be tiny): dq, dk and dv each within
-    K1_TOL times max |plain gradient|.  Timed
-    beside its plain version and SDPA's backward (``torch.autograd.grad``
-    through ``scaled_dot_product_attention`` on the same q, k, v, bias and
-    upstream gradient, its forward outside the timing), each from CUDA
-    events around eager calls; the kernel also from CUDA-graph replays."""
+    inputs they gave it (``inputs``, kept by ``k1_backward_calls`` with the
+    statistics their forward saved) and at the synthetic bf16 ViT call
+    (``k1_backward_vit_case``), each on its own upstream gradient and on a
+    seeded one of unit scale (the path's own can be tiny): dq, dk and dv
+    each within K1_TOL times max |plain gradient|, the plain version
+    recomputing its statistics.  In bf16 also: the forward with statistics
+    gives the output of the forward without, bit for bit; its statistics
+    and those the path saved are within K1_TOL of the plain forward's
+    (``stats_errors``); two launches of the backward give the same bits.
+    Timed beside its plain version and SDPA's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention`` on the
+    same q, k, v, bias and upstream gradient, its forward outside the
+    timing), each from CUDA events around eager calls; the kernel also from
+    CUDA-graph replays.  The kernel is compared with SDPA eager against
+    eager (``kernel_eager_ms`` with ``library_ms``)."""
     from deer_vla_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_backward, flash_attention_backward_reference)
+        flash_attention, flash_attention_backward,
+        flash_attention_backward_reference, flash_attention_reference,
+        flash_attention_with_stats)
     F = torch.nn.functional
     check(bool(inputs), "k1_backward: no path ran K1's backward")
+    vit = k1_backward_vit_case(torch)
+    inputs[k1_key(vit[0], vit[1], None) + ("synthetic",)] = vit
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for key, (q, k, v, bias, out, dout, scale) in sorted(
+    for key, (q, k, v, bias, out, dout, scale, stats) in sorted(
             inputs.items(), key=lambda kv: str(kv[0])):
         dt = str(q.dtype)[6:]
+        check((stats is None) == (dt == "float32"),
+              f"K1 backward {key}: the forward saved statistics "
+              f"{None if stats is None else tuple(stats.shape)}")
+        stats_err = None
+        if stats is not None:
+            plain_out, plain_stats = flash_attention_reference(
+                q, k, v, bias, scale, with_stats=True)
+            got_out, got_stats = flash_attention_with_stats(q, k, v, bias,
+                                                            scale)
+            check(torch.equal(got_out, flash_attention(q, k, v, bias, scale)),
+                  f"K1 {key}: the forward with statistics changed its output")
+            stats_err = {"forward": stats_errors(got_stats, plain_stats),
+                         "path": stats_errors(stats, plain_stats)}
+            check(all(e <= K1_TOL[dt] for d in stats_err.values()
+                      for e in d.values()),
+                  f"K1 {key}: row statistics off the plain ones: {stats_err}")
+            del plain_out, got_out, got_stats
         unit = torch.randn(dout.shape, generator=gen, device="cuda").to(
             dout.dtype)
         errs, tols = {}, {}
         for tag, do in (("path", dout), ("unit", unit)):
-            got = flash_attention_backward(q, k, v, bias, out, do, scale)
+            got = flash_attention_backward(q, k, v, bias, out, do, scale,
+                                           stats)
+            again = flash_attention_backward(q, k, v, bias, out, do, scale,
+                                             stats)
             ref = flash_attention_backward_reference(q, k, v, bias, out, do,
                                                      scale)
             torch.cuda.synchronize()
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"K1 backward {key}: two launches differ ({tag})")
             for name, g, r in zip(("dq", "dk", "dv"), got, ref):
                 n = f"{tag}_{name}"
                 errs[n] = (g.float() - r.float()).abs().max().item()
@@ -5613,11 +5703,14 @@ def phase_k1_backward(torch, inputs: dict) -> list:
         b, h, sq, d = q.shape
         sk = k.shape[2]
         # q, k, v, out, dout read once, dq, dk, dv written once, the bias's
-        # own elements read once; the five S x S x D products
+        # own elements and the saved statistics read once; the five
+        # S x S x D products
         nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
             * q.element_size()
         if bias is not None:
             nbytes += bias.numel() * bias.element_size()
+        if stats is not None:
+            nbytes += stats.numel() * stats.element_size()
         qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         mask = None if bias is None else bias.to(q.dtype)
         with torch.enable_grad():
@@ -5628,13 +5721,14 @@ def phase_k1_backward(torch, inputs: dict) -> list:
             "kernel": "flash_attention_backward", "shape": list(q.shape),
             "sk": sk, "dtype": dt, "strided": not q.is_contiguous(),
             "bias": None if bias is None else list(bias.shape),
+            "synthetic": key[-1] == "synthetic",
             "max_abs_err": max(errs.values()), "max_abs_err_each": errs,
-            "tolerance": tols,
+            "tolerance": tols, "stats_err": stats_err,
             **bound(nbytes, 10 * b * h * sq * sk * d, dt),
             "kernel_ms": graph_ms(torch, lambda: flash_attention_backward(
-                q, k, v, bias, out, dout, scale), 8),
+                q, k, v, bias, out, dout, scale, stats), 8),
             "kernel_eager_ms": time_ms(torch, lambda: flash_attention_backward(
-                q, k, v, bias, out, dout, scale), 8),
+                q, k, v, bias, out, dout, scale, stats), 8),
             "reference_ms": time_ms(
                 torch, lambda: flash_attention_backward_reference(
                     q, k, v, bias, out, dout, scale), 4),

@@ -14,6 +14,19 @@
 // running, not the final, row max (the plain version rounds against the
 // final one): the outputs differ by about one bf16 rounding.
 //
+// Statistics for the backward (bf16 only): given an fp32 (2, B, H, Sq)
+// buffer, the kernel also writes each valid row's final max m of the
+// scaled, biased logits and 1 / l, l = sum_j exp(s_j - m), as two arrays,
+// after the quad reductions; the backward (flash_attention_bwd.cu) rebuilds
+// p = exp(s - m) / l from them instead of walking the keys for them.  Not a
+// log-sum-exp: at the -1e9 mask bias m + log l rounds to m in fp32, and a
+// row masked everywhere would get p = 1 a key.  The kernel's exponentials
+// are exp2(s log2 e - off), off = m log2 e rounded to fp32, so its sum is
+// 2^(m log2 e - off) l; 1 / l is written without that factor, which is up
+// to 2^64 on a row masked everywhere (there 1 / l = 1 / Sk, as the plain
+// version's).  Without the buffer (the serving path) the launch and its
+// output are the same as with it.
+//
 // bf16 path (the ViT's self-attention, (2B, 16, 257, 64) at B streams):
 // one block is one warpgroup, 4 warps x 16 query rows = 64 rows, on a
 // (ceil(Sq / 64), H, B) grid: 160 blocks at B = 1, 1,280 at B = 8.  The Q
@@ -87,6 +100,8 @@ struct TcArgs {
   const bf16* v;
   const void* bias;
   bf16* out;
+  float* stats;      // null, or (2, B, H, Sq): each row's max m and 1 / l
+  long long nrows;   // B * H * Sq
   int H, Sq, Sk;
   float scale;
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;  // element strides
@@ -258,6 +273,22 @@ flash_attention_bf16(const TcArgs a) {
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (a.stats != nullptr && t == 0) {  // the backward's softmax statistics
+    // every term of l carries 2^(m log2 e - off), the rounding of off =
+    // m * log2(e) (up to 2^64 at the -1e9 mask bias, where m stays put):
+    // take it out, so that 1 / l belongs to p = exp(s - m) / l
+    const long long row0 = ((long long)b * a.H + h) * a.Sq;
+    if (ra < a.Sq) {
+      a.stats[row0 + ra] = m0;
+      a.stats[a.nrows + row0 + ra] =
+          exp2f(fmaf(m0, LOG2E, -(m0 * LOG2E))) / l0;
+    }
+    if (rb < a.Sq) {
+      a.stats[row0 + rb] = m1;
+      a.stats[a.nrows + row0 + rb] =
+          exp2f(fmaf(m1, LOG2E, -(m1 * LOG2E))) / l1;
+    }
   }
   // stage the warp's 16 output rows in its own Q rows (only this warp read
   // them), then 16-byte stores through the output strides
@@ -486,9 +517,13 @@ int launch_f32_d(const F32Args& a, cudaStream_t stream) {
 // by the bf16 path only; the last dim of each has unit stride.  The bf16
 // path takes D in {64, 128}, rows 16-byte aligned; the fp32
 // path contiguous tensors with D % 4 == 0, D <= 256.  The Python wrapper
-// checks both.  Returns the first CUDA error of the launch, 0 if none.
+// checks both.  stats: null, or (bf16 only) an fp32 (2, B, H, Sq) buffer
+// that receives each row's final max m and 1 / l (l = sum_j exp(s_j - m))
+// for the backward; the launch and its output are the same either way.
+// Returns the first CUDA error of the launch, 0 if none.
 extern "C" int deer_flash_attention(const void* q, const void* k, const void* v,
-                                    const void* bias, void* out, int B, int H,
+                                    const void* bias, void* out, void* stats,
+                                    int B, int H,
                                     int Sq, int Sk, int D, float scale, int dtype,
                                     int bias_dtype, long long bsb, long long bsh,
                                     long long bsq, long long bsk,
@@ -498,6 +533,7 @@ extern "C" int deer_flash_attention(const void* q, const void* k, const void* v,
     const long long* s = strides;
     const TcArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), bias, static_cast<bf16*>(out),
+                   static_cast<float*>(stats), (long long)B * H * Sq,
                    H, Sq, Sk, scale,
                    s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
                    s[9], s[10], s[11], bsb, bsh, bsq, bsk};

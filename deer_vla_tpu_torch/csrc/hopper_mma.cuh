@@ -1,6 +1,6 @@
-// Building blocks shared by the bf16 kernels (K1, K2, K3, K4): cp.async
-// copies into shared memory, ldmatrix fragment loads, the bf16
-// tensor-core products mma.sync.m16n8k16 and wgmma with fp32
+// Building blocks shared by the bf16 kernels (K1, its backward, K2, K3,
+// K4): cp.async copies into shared memory, ldmatrix fragment loads, the
+// bf16 tensor-core products mma.sync.m16n8k16 and wgmma with fp32
 // accumulation, and the split-K reduction over a thread-block cluster.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
@@ -33,6 +33,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(n));
+}
+
+// the same for 4 bytes (through L1: cp.async.cg takes 16 bytes only), for
+// fp32 rows that need not be 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(smem)),
                "l"(gmem), "r"(n));
 }

@@ -19,7 +19,17 @@ through an autograd function whose backward is the kernel pair of
 version ``flash_attention_backward_reference``).  The TPU kernel has no
 backward; the port's decoder trains through K1 on text of 128 tokens or
 more, and ``--unfreeze_vit`` trains the ViT through it.  A bias that
-requires grad is refused: no model trains one.
+requires grad is refused: no model trains one.  In bf16 the forward saves
+each row's max m and 1 / l (``flash_attention_with_stats``: a (2, B, H, Sq)
+fp32 tensor) and the backward reads them instead of recomputing them: a dQ
+kernel (which also writes delta = rowsum(dout * out)) and a dK / dV kernel,
+both on the tensor cores (mma.sync over 64-row tiles in shared memory,
+cp.async rings, no atomics).  Its bound is bytes (12.5 us at the MMC4
+decoder call); what holds it back is mma.sync's issue rate over the seven
+products, the Q / dOut and K / V tiles re-read from L2 by every block, and
+one 4-warp block an SM when the bias tile is staged (the source's note).
+In fp32 (cross-checks only) the first, CUDA-core pair stays: it recomputes
+the statistics, and the forward saves none.
 
 In bf16 the kernel reads q, k and v through their (batch, head, seq)
 strides, so ``split_heads`` views of a fused qkv projection go in without a
@@ -48,11 +58,11 @@ TC_HEAD_DIMS = (64, 128)  # the bf16 kernel's instantiations
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 4
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
 _Strides12 = ctypes.c_longlong * 12
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + [ctypes.c_int] * 2
                  + [ctypes.c_longlong] * 4
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
@@ -79,22 +89,33 @@ def _check(q, k, v, bias):
     return bias
 
 
+def _logits(q, k, bias, scale):
+    """fp32 ``scale * q k^T + bias``."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    return s if bias is None else s + bias.float()
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               bias: Optional[torch.Tensor] = None,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              with_stats: bool = False):
     """The TPU kernel's math: fp32 logits, max-subtracted exp, P cast to
-    v.dtype before an fp32-accumulated P.V, division by the sum last."""
+    v.dtype before an fp32-accumulated P.V, division by the sum last.
+    With ``with_stats``, ``(out, stats)``: stats (2, B, H, Sq) fp32, each
+    row's max m of the logits and 1 / l, l = sum exp(logits - m)."""
     bias = _check(q, k, v, bias)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if bias is not None:
-        s = s + bias.float()
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    s = _logits(q, k, bias, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
     denom = p.sum(-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return (o / denom).to(q.dtype)
+    out = (o / denom).to(q.dtype)
+    if with_stats:
+        return out, torch.stack([m[..., 0], 1 / denom[..., 0]])
+    return out
 
 
 def kernel_head_dim(d: int) -> int:
@@ -135,8 +156,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def _forward(q, k, v, bias, scale):
-    """K1's launch; counts on ``flash_attention``."""
+def flash_attention_with_stats(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None,
+                               scale: Optional[float] = None) -> tuple:
+    """``(out, stats)``: K1's output and the row statistics the backward
+    reads, (2, B, H, Sq) fp32 (m and 1 / l); on the card the bf16 kernel
+    writes them in the same launch, and the fp32 kernel writes none (its
+    backward recomputes them: ``stats`` is None).  No autograd."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, scale,
+                                         with_stats=True)
+    return _forward(q, k, v, bias, scale, with_stats=True)
+
+
+def _forward(q, k, v, bias, scale, with_stats=False):
+    """K1's launch; counts on ``flash_attention``.  With ``with_stats``,
+    ``(out, stats)`` (stats None in fp32)."""
     bias = _check(q, k, v, bias)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -159,21 +197,25 @@ def _forward(q, k, v, bias, scale):
         out = buf.transpose(1, 2)
         strides = _Strides12(*(s for t in (q, k, v, out)
                                for s in t.stride()[:3]))
+        stats = torch.empty(2, b, h, sq, dtype=torch.float32,
+                            device=q.device) if with_stats else None
     else:
         if d % 4:
             raise ValueError(f"fp32 head dim {d} must be a multiple of 4")
         q, k, v = (t.contiguous() for t in (q, k, v))
         out = torch.empty_like(q)
-        strides = None
+        strides = stats = None
     err = function("deer_flash_attention", _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         b, h, sq, sk, out.shape[-1], float(scale), _DTYPE_CODE[q.dtype],
         bias_code, *bstr, strides,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    return out[..., :d] if out.shape[-1] != d else out
+    out = out[..., :d] if out.shape[-1] != d else out
+    return (out, stats) if with_stats else out
 
 
 def _bias_args(bias, q, b, h, sq, sk):
@@ -187,50 +229,62 @@ def _bias_args(bias, q, b, h, sq, sk):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward, ``flash_attention_backward`` backward; the bias takes
-    no gradient."""
+    """K1 forward, saving its row statistics, and
+    ``flash_attention_backward`` reading them; the bias takes no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        out = _forward(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v, bias, out)
+        out, stats = _forward(q, k, v, bias, scale, with_stats=True)
+        ctx.save_for_backward(q, k, v, bias, out, stats)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, out = ctx.saved_tensors
+        q, k, v, bias, out, stats = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, bias, out, dout,
-                                              ctx.scale)
+                                              ctx.scale, stats)
         return dq, dk, dv, None, None
 
 
-def _check_backward(q, k, v, bias, out, dout):
+def _check_backward(q, k, v, bias, out, dout, stats):
     bias = _check(q, k, v, bias)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} / dout "
                          f"{tuple(dout.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    want = (2,) + tuple(q.shape[:3])
+    if stats is not None and (tuple(stats.shape) != want
+                              or stats.dtype != torch.float32
+                              or stats.device != q.device):
+        raise ValueError(f"stats must be float32 {want} on {q.device}, got "
+                         f"{stats.dtype} {tuple(stats.shape)} on "
+                         f"{stats.device}")
     return bias
 
 
 def flash_attention_backward_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias: Optional[torch.Tensor], out: torch.Tensor, dout: torch.Tensor,
-        scale: Optional[float] = None) -> tuple:
+        scale: Optional[float] = None,
+        stats: Optional[torch.Tensor] = None) -> tuple:
     """(dq, dk, dv) of ``softmax(scale * q k^T + bias) v`` at ``out`` for
-    ``dout``, in the backward kernel's arithmetic: fp32 throughout, the
-    row max m and sum l recomputed, p = exp(s - m) / l kept in fp32, delta
-    = rowsum(dout * out); each gradient in its input's dtype."""
-    bias = _check_backward(q, k, v, bias, out, dout)
+    ``dout``, in the backward kernel's arithmetic: fp32 throughout, p =
+    exp(s - m) / l kept in fp32 from the forward's row max m and 1 / l
+    (``stats``, as ``flash_attention_with_stats`` gives them; recomputed
+    when None), delta = rowsum(dout * out); each gradient in its input's
+    dtype."""
+    bias = _check_backward(q, k, v, bias, out, dout, stats)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    if bias is not None:
-        s = s + bias.float()
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    p = e * (1 / e.sum(-1, keepdim=True))
+    s = _logits(qf, kf, bias, scale)
+    if stats is None:
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e * (1 / e.sum(-1, keepdim=True))
+    else:
+        p = torch.exp(s - stats[0, ..., None]) * stats[1, ..., None]
     delta = (dof * of).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
@@ -242,16 +296,21 @@ def flash_attention_backward_reference(
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, bias: Optional[torch.Tensor],
                              out: torch.Tensor, dout: torch.Tensor,
-                             scale: Optional[float] = None) -> tuple:
+                             scale: Optional[float] = None,
+                             stats: Optional[torch.Tensor] = None) -> tuple:
     """(dq, dk, dv), contiguous (B, H, S, D) in q's dtype, of K1 at its
-    output ``out`` for the upstream gradient ``dout``; the kernel pair of
-    ``csrc/flash_attention_bwd.cu`` for CUDA tensors (bf16 or fp32, D <=
-    256, any strides with a unit last one), the plain version for CPU
-    tensors."""
+    output ``out`` for the upstream gradient ``dout``, given the forward's
+    row statistics ``stats`` ((2, B, H, Sq) fp32, as
+    ``flash_attention_with_stats`` returns them).  For CUDA tensors the
+    kernel pair of ``csrc/flash_attention_bwd.cu``: bf16 (D a multiple of
+    16 up to 128, 16-byte aligned rows, else copied) on the tensor cores,
+    which needs ``stats``; fp32 (D <= 256, a unit last stride) on the CUDA
+    cores, which recomputes them and does not read given ones.  For CPU
+    tensors the plain version."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, bias, out, dout,
-                                                  scale)
-    bias = _check_backward(q, k, v, bias, out, dout)
+                                                  scale, stats)
+    bias = _check_backward(q, k, v, bias, out, dout, stats)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_backward: unsupported device "
                          f"{q.device}")
@@ -265,24 +324,42 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                         + "/".join(str(t.dtype) for t in ts))
     if any(t.device != q.device for t in ts):
         raise ValueError(f"q/k/v/out/dout must all be on {q.device}")
-    q, k, v, out, dout = (t if t.stride(3) == 1 else t.contiguous()
-                          for t in ts)
+    kd = d
+    if q.dtype == torch.bfloat16:
+        if stats is None:
+            raise ValueError("flash_attention_backward: the bf16 kernels read "
+                             "the forward's row statistics; pass stats "
+                             "(flash_attention_with_stats)")
+        kd = kernel_head_dim(d)
+        if kd != d:  # zero columns add nothing to s, dp or delta
+            ts = tuple(F.pad(t, (0, kd - d)) for t in ts)
+        ts = tuple(t if strided_ok(t) else t.contiguous() for t in ts)
+        stats = stats.contiguous()
+        scratch = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    else:
+        ts = tuple(t if t.stride(3) == 1 else t.contiguous() for t in ts)
+        stats = None
+        scratch = torch.empty(3, b, h, sq, dtype=torch.float32,
+                              device=q.device)
+    q, k, v, out, dout = ts
     bias_ptr, bias_code, bstr = _bias_args(bias, q, b, h, sq, sk)
-    dq = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device)
-    dk, dv = (torch.empty(b, h, sk, d, dtype=q.dtype, device=q.device)
+    dq = torch.empty(b, h, sq, kd, dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty(b, h, sk, kd, dtype=q.dtype, device=q.device)
               for _ in range(2))
-    stats = torch.empty(3, b, h, sq, dtype=torch.float32, device=q.device)
-    strides = _Strides15(*(s for t in (q, k, v, out, dout)
-                           for s in t.stride()[:3]))
+    strides = _Strides15(*(s for t in ts for s in t.stride()[:3]))
     err = function("deer_flash_attention_bwd", _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), bias_ptr, dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(), b, h, sq, sk, d, float(scale), _DTYPE_CODE[q.dtype], bias_code, *bstr,
-        strides, torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), None if stats is None else stats.data_ptr(),
+        scratch.data_ptr(), b, h, sq, sk, kd, float(scale),
+        _DTYPE_CODE[q.dtype], bias_code, *bstr, strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_backward launch failed: CUDA "
                            f"error {err}")
     flash_attention_backward.launches += 1
+    if kd != d:
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 
