@@ -19,15 +19,20 @@ dynamic exits, in bf16 and quantized to int8 and int4 (the decoder through
 K3 / K4), and 4 eight-stream steps in each w8a8 mode.  Last, one full-depth
 step is compared with the same weights run in fp32 on the CPU through the
 plain versions, unquantized and (after checking that the card and the CPU
-quantize to the same bits) in int8 and int4.  Then the evaluation path:
+quantize to the same bits) in int8 and int4, the quantized ones and every
+later deer_3b cross-check against the CPU (variants, heads, the train
+step) on the draw's first ``CROSS_DEPTH`` = 4 decoder and
+``CROSS_VIT_DEPTH`` = 8 ViT layers.  Then the evaluation
+path:
 deer_3b calibration (2 debug batches of 2 trajectories, W=12: 48 ViT
 images through K1 a batch) in both regimes, its fp32 forward and deltas on
 the card against the CPU at W=2, and ``cli/eval`` run in-process
 (calibrate, then DebugEnv rollouts of 2 sequences: bf16 sequential and over
 2 lanes, int8 and int4 sequential) with K1-K4 counted.  Then training:
-one fp32 deer_3b train step (B=1, W=2) on the card against the CPU, the
-same step with ``--unfreeze_vit`` under a 2-layer decoder (the ViT trained
-through K1's backward, card against CPU), ``cli/train --debug`` in-process (deer_3b, batch 6, W=12: 1
+one fp32 deer_3b train step (B=1, W=2, 4 layers) on the card against the
+CPU, the same step with ``--unfreeze_vit`` under a 2-layer decoder and the
+ViT's first 8 layers (the ViT trained through K1's backward, card against
+CPU), ``cli/train --debug`` in-process (deer_3b, batch 6, W=12: 1
 joint and 1 exit-only epoch of 4 steps, 144 ViT images a step through K1,
 K2-K4 not launched; frozen leaves bit-unchanged, trained leaves moved) and
 ``cli/eval --evaluate_from_checkpoint`` on its checkpoint.  Then the CALVIN
@@ -37,7 +42,8 @@ npz reader against ``np.load`` bit for bit and both timed, with the
 loader's batches a second (``calvin_data``); ``cli/train --calvin_dataset``
 at JAX's defaults (B=6, W=12, rgb_pad 10, gripper_pad 4), 1 joint and 1
 exit-only epoch of 4 batches, one checkpoint (``train_calvin``); ``--dif_ws``
-at W=24 (288 ViT images a step) without remat, with ``--remat`` and with
+at W=24 (288 ViT images a step, 4 decoder layers) without remat, with
+``--remat`` and with
 ``--remat_policy dots``, losses against each other and peak memory
 (``train_calvin_difws``); ``cli/eval --calvin_dataset`` on that checkpoint,
 which calibrates on the validation split, writes the values sidecar and
@@ -86,8 +92,23 @@ preset depth of 12 layers: K2 / K3 / K4 at its four products (K = 4096 /
 against the bound and cuBLAS, bit-identical across launches and graph
 replays, every block config (``kernels_9b``); then served in every mode
 (8 B=1 and 4 B=8 steps), ``DeerPolicy`` against the scan engine, a
-full-depth step against fp32 on the CPU, K3 / K4 against their plain
-products in fp32, calibration and ``cli/eval --debug --model mpt_9b``.
+step of its first 4 layers against fp32 on the CPU, K3 / K4 against their
+plain products in fp32, calibration and ``cli/eval --debug --model
+mpt_9b``.  Then weight placement (ROADMAP M15b), four child processes
+sharing the card over gloo in one spawn: ``tp_serve_9b`` (deer_9b at full
+width and depth, tp=4: each rank draws the whole tree in its turn, keeps
+its shards (``shard_params``) and frees it, then serves bf16, int8 and
+int4 at B=1 and B=8 through K2 / K3 / K4 on its local stacks; each step's
+threshold rows sit a factor 2 from the one-process engine's deltas on the
+side that gives a chosen exit, and the exits must equal that engine's, the
+actions within CROSS_TOL_BF16, every rank's exits the same) and
+``tp_train`` (fsdp=2 x tp=2 at deer_9b's width cut to 2 decoder and 8 ViT
+layers, fp32, W=2, two joint-phase steps: the first loss within 1e-5 relative and its
+grad_norm within 1e-4 of one process's over the same global batch, the
+gathered leaves within tests/test_torch_train.py's update tolerance,
+frozen leaves bit-unchanged, a rank's Adam moments of a leaf split on both
+axes a quarter of it); ``kernels_9b`` holds K2-K4 at one rank's local
+stacks (``deer_9b_tp4``) too.
 Then bc_llama (the llama decoder, d_model 4096, 32 layers) in bf16 and
 int8 (K2-K4 never launch: they compute the MPT block's products), a
 bf16 step against fp32 on the card, and ``cli/eval --debug --model
@@ -116,7 +137,8 @@ sidecar phase train_eval writes beside it, ``serve_cli`` (``main
 --oneshot_healthz`` with --thresholds, ``build_core`` with the sidecar).
 
 The tooling (ROADMAP M17) runs on the training phase's checkpoints before
-they are deleted: ``convert_3b`` (the seeded deer_3b tree, every leaf
+they are deleted: ``convert_3b`` (the seeded deer_3b tree at 2 layers,
+every leaf
 given a draw of its own, written as the reference's artifacts in
 ``build/chip_smoke_convert/``: an open_clip ViT ``.pt``, an HF MPT snapshot
 of two ``.safetensors`` shards written by this script, a DeeR delta
@@ -164,7 +186,7 @@ gradients on a 2-layer deer_3b, bf16 on the card against fp32 on the CPU),
 ``scale_out_serve`` (two child processes of this script sharing the card
 over gloo: ``ShardedBatchedPolicy`` at B=8, 4 streams a rank, 4 bf16 steps
 and an int8 one, the merged exits equal to the single-process step's) and
-``scale_out_train`` (two-process ``cli/train --coordinator --debug`` at 4
+``scale_out_train`` (two-process ``cli/train --coordinator --debug`` at 2
 decoder layers, 2 trajectories a rank: the ranks' trainable leaves
 bit-equal, rank 0 alone wrote the checkpoint, the first loss one
 process's over the 4 trajectories).  A child's K1 and K2-K4 shapes join
@@ -337,6 +359,8 @@ DIFWS_ARGV = ["--model", "mpt_dolly_3b", "--calvin_dataset", str(CALVIN_DIR),
               "--num_joint_epochs", "1", "--num_exit_epochs", "0",
               "--joint_warmup_steps", "1", "--logging_steps", "1",
               "--data_percent", "0.1", "--workers", "1", "--from_scratch",
+              # 4 decoder layers: the ViT's 288 images a step are the same
+              "--max_layer", "4",
               "--run_name", str(CALVIN_DIR / "run_difws")]
 DIFWS_STEPS = 5
 DIFWS_RUNS = (("none", []), ("full", ["--remat"]),
@@ -482,9 +506,29 @@ def kernel_sass(counts: dict, entries) -> dict:
             "per_instance": per_fn}
 
 
-def phase_build() -> dict:
+def start_build():
+    """The kernels' nvcc build (``build.build_library``) in a thread, so
+    that it runs while the device starts up; ``phase_build`` joins it."""
+    import threading
+    from deer_vla_tpu_torch.ops.kernels import build
+    failed = []
+
+    def run():
+        try:
+            build.build_library()
+        except Exception as e:  # raised again by phase_build's own call
+            failed.append(e)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread
+
+
+def phase_build(builder=None) -> dict:
     from deer_vla_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
+    if builder is not None:
+        builder.join()
     build.library()
     info = build.build_info()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -604,7 +648,9 @@ def vit_batches(cfg) -> dict:
     folded = cfg.window_size
     return {"bfloat16": sorted({1, 8, calib, train, difws, folded,
                                 8 * folded, BO_LANES, *rollout_streams()}),
-            "float32": sorted({1, CALIB_CROSS_WINDOW, folded}),
+            # tp_train's one-process reference: its global batch's frames
+            "float32": sorted({1, CALIB_CROSS_WINDOW, folded,
+                               TP_TRAIN_BATCH * CALIB_CROSS_WINDOW}),
             "calib": calib, "train": train, "difws": difws,
             "folded": folded,
             # one-camera passes (two_way, sep_resampler, the static camera
@@ -782,7 +828,11 @@ DECODER_PRODUCTS = {
     "deer_3b": (("wqkv", 2048, 6144), ("out_proj", 2048, 2048),
                 ("mlp_up", 2048, 8192), ("mlp_down", 8192, 2048)),
     "deer_9b": (("wqkv", 4096, 12288), ("out_proj", 4096, 4096),
-                ("mlp_up", 4096, 16384), ("mlp_down", 16384, 4096))}
+                ("mlp_up", 4096, 16384), ("mlp_down", 16384, 4096)),
+    # one rank's local stacks of deer_9b at tp=4 (phase tp_serve_9b): the
+    # column products' N and the row products' K a quarter
+    "deer_9b_tp4": (("wqkv", 4096, 3072), ("out_proj", 1024, 4096),
+                    ("mlp_up", 4096, 4096), ("mlp_down", 4096, 4096))}
 # (streams, x dtype) of the indexed-matmul cases, by model: M = 32 text rows
 # a stream (a text row a frame under use_hist).  deer_9b: the serve phase's B=1 and B=8, and B=1 in fp32 (the
 # cross-checks' fp32 steps)
@@ -792,7 +842,8 @@ INDEXED_CASES = {
                 (8, "bfloat16"), (32, "bfloat16"), (1, "float32"),
                 # use_hist's W=12 text rows a stream at B=1 and B=8
                 (12, "bfloat16"), (96, "bfloat16")),
-    "deer_9b": ((1, "bfloat16"), (8, "bfloat16"), (1, "float32"))}
+    "deer_9b": ((1, "bfloat16"), (8, "bfloat16"), (1, "float32")),
+    "deer_9b_tp4": ((1, "bfloat16"), (8, "bfloat16"))}
 
 # row counts at which each of K2's block configs is checked and timed: 1-4
 # and 8 streams (96 rows fill a 128-row block partly)
@@ -1018,6 +1069,17 @@ def phase_kernels_9b(torch, checked: set) -> dict:
         out[kernel + "_9b_configs"] = phase_configs(torch, idxs, kernel,
                                                     checked, "deer_9b")
         torch.cuda.empty_cache()
+    # one tp=4 rank's local stacks (tp_serve_9b launches K2-K4 on them)
+    tp_rows = k2_layer_cases(torch, idxs, "deer_9b_tp4", checked)
+    out["indexed_matmul_9b_tp4"] = layer_summary(tp_rows)
+    out["indexed_matmul_9b_tp4_b8"] = layer_summary(tp_rows, m=256)
+    emit({"phase": "kernels_9b_tp4", "model": "deer_9b_tp4",
+          "cases": tp_rows})
+    out.update({k.replace("_b8", "_9b_tp4_b8") if k.endswith("_b8")
+                else k + "_9b_tp4": v
+                for k, v in phase_kernels_quantized(
+                    torch, idxs, checked, "deer_9b_tp4").items()})
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1210,7 +1272,7 @@ def phase_kernels_quantized(torch, idxs, checked: set,
                     lambda i: x @ wd[dts][i], idxs, checked))
             del wd
     emit({"phase": "kernels_quantized"
-          + ("_9b" if model == "deer_9b" else ""), "model": model,
+          + ("" if model == "deer_3b" else model[4:]), "model": model,
           "library": "x @ Wd[idx], Wd dequantized to x.dtype beforehand "
                      "(cuBLAS)",
           "cases": rows["indexed_matmul_q8"] + rows["indexed_matmul_q4"]})
@@ -1246,6 +1308,39 @@ def build_weights(torch, cfg):
         x["attn_gate"].uniform_(-0.5, 0.5, generator=gen)
         x["ff_gate"].uniform_(-0.5, 0.5, generator=gen)
     return params
+
+
+# the depths of the deer_3b cross-checks against fp32 on the CPU after the
+# main one (quantized, variants, heads, the train step): the same draw's
+# first decoder layers (cross-attention on each, exits [1, 3]) and ViT
+# layers (the CPU's fp32 ViT over a W=12 window held the folded ones)
+CROSS_DEPTH = 4
+CROSS_VIT_DEPTH = 8
+
+
+def cut_depth(cfg, n_layers: int, vit_layers: int = None):
+    """``cfg`` with its decoder cut to ``n_layers`` (the exits follow) and
+    its ViT to ``vit_layers`` when given."""
+    cfg = dataclasses.replace(cfg, mpt=dataclasses.replace(
+        cfg.mpt, n_layers=n_layers))
+    if vit_layers is not None:
+        cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
+            cfg.vit, layers=vit_layers))
+    return cfg
+
+
+def first_layers(params: dict, cfg) -> dict:
+    """The tree of ``params`` cut to ``cfg``'s depths: its first decoder
+    layers (blocks, cross-attention) and ViT blocks, and the exit heads of
+    the exits left; the same tensors, no copy."""
+    n = cfg.n_layers
+    dec = dict(params["decoder"], blocks=params["decoder"]["blocks"][:n],
+               xattn=params["decoder"]["xattn"][:n])
+    vit = dict(params["vit"], blocks=params["vit"]["blocks"][:cfg.vit.layers])
+    keep = {str(i) for i in cfg.exit_layer_ids()}
+    return dict(params, decoder=dec, vit=vit,
+                lm_exits={k: v for k, v in params["lm_exits"].items()
+                          if k in keep})
 
 
 def kernel_counters():
@@ -2035,13 +2130,17 @@ def phase_train_cross_check(torch, np, params, cpu_params,
     draws; no dropout): the loss, every trainable gradient and every
     updated param.  With ``unfreeze_vit`` (phase ``train_unfreeze_vit``)
     the ViT trains too, through K1 and K1's backward on the card: both
-    must launch, once a ViT layer.  The decoder's depth is ``params``'."""
+    must launch, once a ViT layer.  The decoder's and the ViT's depths are
+    ``params``'."""
     from deer_vla_tpu_torch.core.config import FP32, deer_3b
     phase = "train_unfreeze_vit" if unfreeze_vit else "train_cross_check"
     depth = len(params["decoder"]["blocks"])
-    cfg2 = dataclasses.replace(deer_3b(max_layer=depth,
-                                       window_size=CALIB_CROSS_WINDOW,
-                                       dtypes=FP32), unfreeze_vit=unfreeze_vit)
+    vit_depth = len(params["vit"]["blocks"])
+    cfg2 = deer_3b(max_layer=depth, window_size=CALIB_CROSS_WINDOW,
+                   dtypes=FP32)
+    cfg2 = dataclasses.replace(cfg2, unfreeze_vit=unfreeze_vit,
+                               vit=dataclasses.replace(cfg2.vit,
+                                                       layers=vit_depth))
     cfg2, batch, draws = train_inputs(torch, cfg2, torch.device("cuda"))
     counters = reset_launches()
     card = train_step_parts(torch, params, cfg2, batch, draws, True)
@@ -2049,9 +2148,9 @@ def phase_train_cross_check(torch, np, params, cpu_params,
     vit_keys = [k for k in card[1] if k.startswith("vit/")]
     check(bool(vit_keys) == unfreeze_vit,
           f"{phase}: {len(vit_keys)} ViT leaves trained")
-    check(launches["flash_attention"] == VIT_LAYERS
+    check(launches["flash_attention"] == vit_depth
           and launches["flash_attention_backward"]
-          == (VIT_LAYERS if unfreeze_vit else 0),
+          == (vit_depth if unfreeze_vit else 0),
           f"{phase}: K1 launches {launches}")
     t0 = time.perf_counter()
     cpu = train_step_parts(torch, cpu_params, cfg2,
@@ -2079,7 +2178,8 @@ def phase_train_cross_check(torch, np, params, cpu_params,
             float(torch.linalg.vector_norm(want.double())), 1e-30)
     worst = max(grad_rel, key=grad_rel.get)
     moved = sum(not torch.equal(p, card[3][k]) for k, p in card[2].items())
-    emit({"phase": phase, "config": f"deer_3b W=2 B=1 fp32, {depth} layers",
+    emit({"phase": phase, "config": f"deer_3b W=2 B=1 fp32, {depth} "
+                                    f"layers, a {vit_depth}-layer ViT",
           "launches": launches, "vit_leaves": len(vit_keys),
           "loss": {"card": card[0], "cpu": cpu[0], "rel": loss_rel},
           "grad_leaves": len(grad_rel), "grad_worst": [worst,
@@ -2097,17 +2197,21 @@ def phase_train_cross_check(torch, np, params, cpu_params,
 
 
 # --unfreeze_vit, card against CPU: the full-width ViT-L trained through K1's
-# backward in fp32, under a decoder cut to 2 of its 12 layers (the CPU's
-# fp32 step and update take most of the phase's time)
+# backward in fp32, under a decoder cut to 2 of its 12 layers, the ViT cut
+# to 8 of its 24 (the CPU's fp32 step and update take most of the phase's
+# time)
 UNFREEZE_DEPTH = 2
+UNFREEZE_VIT_DEPTH = 8
 
 
 def phase_train_unfreeze_vit(torch, np) -> None:
     """``phase_train_cross_check`` with the ViT trained, on seeded deer_3b
-    weights of ``UNFREEZE_DEPTH`` decoder layers."""
+    weights of ``UNFREEZE_DEPTH`` decoder layers and the ViT's first
+    ``UNFREEZE_VIT_DEPTH``."""
     from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.core.config import deer_3b
     params = build_weights(torch, deer_3b(max_layer=UNFREEZE_DEPTH))
+    params["vit"]["blocks"] = params["vit"]["blocks"][:UNFREEZE_VIT_DEPTH]
     cpu_params = to_torch(params, "cpu")
     phase_train_cross_check(torch, np, params, cpu_params, unfreeze_vit=True)
     del params, cpu_params
@@ -2121,8 +2225,8 @@ def on_update(hook):
     from deer_vla_tpu_torch.train import train_step
     real = train_step._apply_update
 
-    def wrapped(optimizer, state, grads, loss, metrics):
-        out = real(optimizer, state, grads, loss, metrics)
+    def wrapped(optimizer, state, grads, loss, metrics, *rest):
+        out = real(optimizer, state, grads, loss, metrics, *rest)
         hook(grads, loss, out[1])
         return out
 
@@ -2769,13 +2873,21 @@ def calibrate_launches(calib: dict) -> dict:
             for name in kernel_counters()}
 
 
+# cross_check_9b's depth: deer_9b's first 4 layers (cross-attention on
+# layer 3, the exit at 3)
+CROSS_DEPTH_9B = 4
+
+
 def drive_9b(torch, np) -> tuple:
     """deer_9b at full width and its preset depth (12 layers, d_model
     4096, exits [3, 7, 11]) from seeded weights: ``ScanDeerPolicy`` with K2
     in every serving mode, ``DeerPolicy`` against the scan engine's plain
-    products, a full-depth step against fp32 on the CPU (the weights are
-    14.4 GB in fp32; the host has the room), K3 / K4 against their plain
-    products, calibration, then ``cli/eval --debug --model mpt_9b``."""
+    products, a full-depth step of the draw's first ``CROSS_DEPTH_9B``
+    layers against fp32 on the CPU, K3 / K4 against their plain products,
+    calibration, then ``cli/eval --debug --model mpt_9b``.  Before the
+    cross-checks, tp_serve_9b's one-process reference
+    (``tp_serve_reference``), which ``phase_tp`` holds the four ranks
+    to."""
     from deer_vla_tpu_torch.bridge import to_torch
     from deer_vla_tpu_torch.core.config import deer_9b
     from deer_vla_tpu_torch.eval.policy import DeerPolicy
@@ -2790,18 +2902,23 @@ def drive_9b(torch, np) -> tuple:
                                       serve["stacked_bytes"],
                                       config="deer_9b", sweep=SWEEP_9B,
                                       prefix="serve_9b")
+    tp_ref = tp_serve_reference(torch, np, cfg, params, pol)
     deer = DeerPolicy(params, cfg, controller=ExitController(
         exit_id_list=list(cfg.all_exit_ids()), max_layer=cfg.n_layers))
     scan_plain = ScanDeerPolicy(params, cfg)
     bucketed = phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve,
                                     name="serve_9b_bucketed",
                                     config="deer_9b", sweep=SWEEP_9B)
-    del deer, scan_plain
+    del deer, scan_plain, pol
     torch.cuda.empty_cache()
-    cpu_params = to_torch(params, "cpu")
-    phase_cross_check(torch, np, cfg, params, cpu_params, pol,
+    # against fp32 on the CPU: the draw's first CROSS_DEPTH_9B layers
+    cfg_cut = cut_depth(cfg, CROSS_DEPTH_9B)
+    params_cut = first_layers(params, cfg_cut)
+    cpu_params = to_torch(params_cut, "cpu")
+    pol = ScanDeerPolicy(params_cut, cfg_cut, indexed_mm=True)
+    phase_cross_check(torch, np, cfg_cut, params_cut, cpu_params, pol,
                       name="cross_check_9b")
-    del cpu_params, pol
+    del cpu_params, pol, params_cut
     gc.collect()
     torch.cuda.empty_cache()
     phase_cross_check_plain_quantized(torch, np, cfg, params,
@@ -2812,7 +2929,7 @@ def drive_9b(torch, np) -> tuple:
     released_gb(torch)
     rollout = phase_rollout(torch, np, "rollout_9b", ROLLOUT_9B_ARGV)
     return ([serve, bucketed, rollout] + list(quantized.values()),
-            {"calibrate_9b": calibrate_launches(calib)})
+            {"calibrate_9b": calibrate_launches(calib)}, tp_ref)
 
 
 def drive_llama(torch, np) -> list:
@@ -2974,6 +3091,17 @@ def kernels_line(summary: dict, launches: dict, tc: dict,
                         "bound_by", "max_abs_err"):
                 row[f"{key}_{tag}"] = k[key]
         row["launches_9b"] = launches[row["name"] + "_9b"]
+        for tag in ("9b_tp4", "9b_tp4_b8"):
+            k = summary[row["name"] + "_" + tag]
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "max_abs_err"):
+                row[f"{key}_{tag}"] = k[key]
+        # the four ranks' launches on tp_serve_9b's path, in its mode
+        row["launches_9b_tp4"] = launches[row["name"] + "_9b_tp4"]
+        row["shape_9b_tp4"] = ("one tp=4 rank's local stacks of a deer_9b "
+                               "layer, x (32 | 256, K) bf16, K x N in "
+                               "(4096, 3072), (1024, 4096), (4096, 4096), "
+                               "(4096, 4096), L = 12, B=1 | B=8")
         row["shape_9b"] = ("one deer_9b decoder layer's four products, x "
                            "(32 | 256, K) bf16, K x N in (4096, 12288), "
                            "(4096, 4096), (4096, 16384), (16384, 4096), "
@@ -4417,10 +4545,11 @@ CONVERT_LEAF_STD = 0.01
 # the DeeR dict's readouts (eval_calvin.py:455-476) at deer_3b's values and
 # its cached calibration values: (exits, samples)
 CONVERT_VALUES = 64
-# convert_3b's decoder depth: deer_3b's widths with 4 of its 12 layers (its
+# convert_3b's decoder depth: deer_3b's widths with 2 of its 12 layers (its
 # 12-layer tree, 7.6 GB of artifacts, took 83.8 s on an H100 host against
-# the script's 900 s; every layer converts by the same name map)
-CONVERT_DEPTH = 4
+# the script's 900 s, 4 layers 35.1 s; every layer converts by the same
+# name map)
+CONVERT_DEPTH = 2
 # cli/bayes_opt at deer_3b: the initial cli/eval run (8 calibration batches,
 # 2 sequential rollout sequences), then 2 GP rounds of 2 candidates, each
 # round one batched rollout over 2 lanes a candidate
@@ -5133,19 +5262,25 @@ def drive_paths(torch, np, cfg) -> tuple:
     torch.cuda.empty_cache()
     variants.append(phase_serve_tome(torch, np, cfg, params, cpu_params))
     torch.cuda.empty_cache()
-    phase_cross_check_quantized(torch, np, cfg, params, cpu_params)
+    # the cross-checks against fp32 on the CPU past the main one run the
+    # same draw cut to CROSS_DEPTH / CROSS_VIT_DEPTH layers (the CPU's fp32
+    # step is most of their time)
+    cfg_cut = cut_depth(cfg, CROSS_DEPTH, CROSS_VIT_DEPTH)
+    params_cut = first_layers(params, cfg_cut)
+    cpu_cut = first_layers(cpu_params, cfg_cut)
+    phase_cross_check_quantized(torch, np, cfg_cut, params_cut, cpu_cut)
     variants += phase_serve_variants(torch, np, cfg, params, serve)
-    phase_cross_check_variants(torch, np, cfg, params, cpu_params)
+    phase_cross_check_variants(torch, np, cfg_cut, params_cut, cpu_cut)
     variants += phase_serve_folded(torch, np, cfg, params)
     variants.append(phase_calibrate_variants(torch, np, cfg, params))
     variants += phase_serve_heads(torch, np, cfg, params, serve)
-    phase_cross_check_heads(torch, np, cfg, params, cpu_params)
+    phase_cross_check_heads(torch, np, cfg_cut, params_cut, cpu_cut)
     variants.append(phase_calibrate_heads(torch, np, cfg, params))
     calib = phase_calibrate(torch, np, cfg, params)
     variants += drive_deployment(torch, np, cfg, params, calib)
     phase_calibrate_cross_check(torch, np, cfg, params, cpu_params)
-    phase_train_cross_check(torch, np, params, cpu_params)
-    del cpu_params
+    phase_train_cross_check(torch, np, params_cut, cpu_cut)
+    del cpu_params, cpu_cut, params_cut
     phase_train_unfreeze_vit(torch, np)
     del params
     torch.cuda.empty_cache()
@@ -5789,7 +5924,7 @@ SCALE_CHILD_TIMEOUT_S = 300
 # bf16 tolerance
 SCALE_SERVE_B = 8
 SCALE_SERVE_STEPS = 4
-# two-process cli/train --coordinator --debug: deer_3b widths, 4 decoder
+# two-process cli/train --coordinator --debug: deer_3b widths, 2 decoder
 # layers, 2 trajectories a rank (24 ViT streams), one joint epoch of 2
 # steps; the first loss against one process over the 4 trajectories,
 # within bf16 noise (as DIFWS_LOSS_REL)
@@ -5797,7 +5932,7 @@ SCALE_TRAIN_BATCH = 2
 
 
 def scale_train_argv(batch: int, run: Path) -> list:
-    return ["--debug", "--model", "mpt_dolly_3b", "--max_layer", "4",
+    return ["--debug", "--model", "mpt_dolly_3b", "--max_layer", "2",
             "--batch_size_calvin", str(batch), "--num_joint_epochs", "1",
             "--num_exit_epochs", "0", "--joint_warmup_steps", "1",
             "--logging_steps", "1", "--from_scratch", "--run_name",
@@ -6041,16 +6176,18 @@ def phase_pretrain_cross_check(torch, np) -> dict:
     return out
 
 
-def run_children(name: str) -> list:
-    """``SCALE_RANKS`` processes of this script (``--child name rank
-    store``) on the card, joined through a file store; each must exit 0
-    with a CHILD_RESULT line.  Their results, in rank order."""
+def run_children(name: str, ranks: int = SCALE_RANKS,
+                 timeout_s: float = SCALE_CHILD_TIMEOUT_S) -> list:
+    """``ranks`` processes of this script (``--child name rank store``) on
+    the card, joined through a file store; each must exit 0 with a
+    CHILD_RESULT line within ``timeout_s``.  Their results, in rank
+    order."""
     SCALE_DIR.mkdir(parents=True, exist_ok=True)
     store = SCALE_DIR / f"{name}.store"
     store.unlink(missing_ok=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for rank in range(SCALE_RANKS):
+    for rank in range(ranks):
         log = open(OUT_DIR / f"{name}_rank{rank}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, str(REPO / "chip_smoke.py"), "--child", name,
@@ -6060,7 +6197,7 @@ def run_children(name: str) -> list:
     try:
         for rank, (p, log) in enumerate(procs):
             try:
-                code = p.wait(timeout=SCALE_CHILD_TIMEOUT_S)
+                code = p.wait(timeout=timeout_s)
             except subprocess.TimeoutExpired:
                 code = "timeout"
             log.close()
@@ -6242,6 +6379,12 @@ def child_main(name: str, rank: int, store: str) -> int:
                              device="cuda")
         res = child_serve(torch, np)
         multihost.shutdown()
+    elif name == "tp":
+        multihost.initialize("file://" + store, TP_RANKS, rank,
+                             device="cuda")
+        res = {"serve": child_tp_serve(torch, np, rank),
+               "train": child_tp_train(torch, np, rank)}
+        multihost.shutdown()
     else:
         res = child_train(torch, np, rank, store)
     print("CHILD_RESULT " + json.dumps({"ok": True, "rank": rank, **res}),
@@ -6362,6 +6505,474 @@ def drive_scale_out(torch, np, k1_seen: set, k2_seen: set) -> list:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# weight placement (ROADMAP M15b): four ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4
+TP_DIR = REPO / "build" / "chip_smoke_tp"
+TP_CHILD_TIMEOUT_S = 480
+# tp_serve_9b: deer_9b at full width and depth, tp=4, in each mode; 3 B=1
+# steps (targets the exits in turn) and 2 B=8 steps (targets rotating over
+# the streams), the carry threaded
+TP_SERVE_MODES = (None, "int8", "int4")
+TP_SERVE_B1_STEPS = 3
+TP_SERVE_B8_STEPS = 2
+# a threshold sits this factor from the one-process run's delta, above it
+# at the target exit and below it at the exits before: tp reorders the
+# bf16 sums, and a delta at its threshold could flip an exit
+TP_MARGIN = 2.0
+# tp_train: fsdp=2 x tp=2 at deer_9b's width cut to 2 decoder layers (as
+# tests/test_9b_sharded.py cuts it) and 8 ViT layers (the frozen ViT's
+# shards are gathered through the host every step), W=2, one trajectory a
+# data shard, fp32 (the tolerances are tests/test_torch_tensor_parallel.py's),
+# 2 steps
+TP_TRAIN_DEPTH = 2
+TP_TRAIN_VIT_DEPTH = 8
+TP_TRAIN_MESH = (1, 2, 2)
+TP_TRAIN_BATCH = 2
+TP_TRAIN_STEPS = 2
+TP_TRAIN_LR = 1e-4
+TP_TRAIN_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4,
+                "param_rel_l2": 1e-5, "update_rel_l2": 1e-4}
+
+
+def tp_train_config():
+    from deer_vla_tpu_torch.core.config import FP32, deer_9b
+    return cut_depth(deer_9b(max_layer=TP_TRAIN_DEPTH, exit_interval=2,
+                             window_size=CALIB_CROSS_WINDOW, dtypes=FP32),
+                     TP_TRAIN_DEPTH, TP_TRAIN_VIT_DEPTH)
+
+
+@contextlib.contextmanager
+def recorded_deltas(out: list):
+    """While open, every exit test's (B,) delta of the scan engine is
+    appended to ``out``, on the host, in the order the tests run."""
+    from deer_vla_tpu_torch.eval import scan_policy
+    real = scan_policy.get_delta
+
+    def logged(a, b, kind):
+        d = real(a, b, kind)
+        out.append(d.float().cpu().numpy())
+        return d
+
+    scan_policy.get_delta = logged
+    try:
+        yield out
+    finally:
+        scan_policy.get_delta = real
+
+
+def full_depth_deltas(torch, np, pol, inputs, b: int):
+    """(B, exits) deltas of a full-depth run of ``inputs`` from the
+    engine's carry; the carry is left as it was."""
+    from deer_vla_tpu_torch.ops.layers import tree_map
+    saved = (None if pol.carry is None
+             else tree_map(lambda t: t.clone(), pol.carry))
+    pol.set_thresholds([-1.0] * (len(pol.exits) - 1) + [1e8])
+    seen = []
+    with recorded_deltas(seen):
+        if b == 1:
+            pol.step(*inputs)
+        else:
+            pol.step_batch(*inputs)
+    pol.carry = saved
+    return np.stack(seen, 1)
+
+
+def target_row(deltas, target: int, exits: list) -> list:
+    """Per-exit thresholds that take ``target``: a factor ``TP_MARGIN``
+    below each earlier exit's delta, above the target's."""
+    row = []
+    for j, e in enumerate(exits):
+        if e < target:
+            row.append(float(deltas[j]) / TP_MARGIN)
+        elif e == target and e != exits[-1]:
+            row.append(float(deltas[j]) * TP_MARGIN)
+        else:  # after the target, and the last exit (always taken)
+            row.append(1e8)
+    return row
+
+
+def tp_serve_plan(np, cfg) -> list:
+    """The steps of tp_serve_9b: (streams, input seed, target exit of each
+    stream), the B=1 steps first."""
+    exits = list(cfg.all_exit_ids())
+    plan = [(1, 700 + s, [exits[s % len(exits)]])
+            for s in range(TP_SERVE_B1_STEPS)]
+    plan += [(8, 800 + s, [exits[(i + s) % len(exits)] for i in range(8)])
+             for s in range(TP_SERVE_B8_STEPS)]
+    return plan
+
+
+def tp_serve_steps(torch, np, cfg, pol, rows_of) -> dict:
+    """Runs ``tp_serve_plan`` on ``pol`` (carry threaded, reset before the
+    B=1 and the B=8 steps): ``rows_of(j, pol, inputs, b)`` gives step j's
+    per-stream threshold rows.  Actions, exits, step times and the ratio
+    of each evaluated delta to its threshold (the nearest is the margin
+    left)."""
+    out = {"actions": [], "exits": [], "rows": [], "step_ms": [],
+           "ratios": []}
+    last_b = None
+    for j, (b, seed, _) in enumerate(tp_serve_plan(np, cfg)):
+        if b != last_b:
+            pol.reset()
+            last_b = b
+        inputs = make_policy_inputs(np, cfg, b, seed)
+        rows = rows_of(j, pol, inputs, b)
+        pol.set_thresholds_batch(rows)
+        seen = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_deltas(seen):
+            if b == 1:
+                act = pol.step(*inputs)[None]
+                ex = [pol.last_exit_layer]
+            else:
+                act, ex = pol.step_batch(*inputs)
+                ex = ex.tolist()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        for k, d in enumerate(seen):
+            th = np.asarray([r[k] for r in rows])
+            live = th < 1e7
+            out["ratios"] += (d[live] / th[live]).tolist()
+        out["actions"].append(np.asarray(act, np.float64).tolist())
+        out["exits"].append(list(ex))
+        out["rows"].append(rows)
+    return out
+
+
+def tp_serve_reference(torch, np, cfg, params, pol_bf16) -> dict:
+    """The one-process deer_9b engine on the plan, by mode: each step's
+    rows set from its own full-depth deltas (``target_row``), and each
+    stream must take its target."""
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    t0 = time.perf_counter()
+    plan = tp_serve_plan(np, cfg)
+    out = {}
+    for mode in TP_SERVE_MODES:
+        pol = (pol_bf16 if mode is None else
+               ScanDeerPolicy(params, cfg, indexed_mm=True, quantize=mode))
+
+        def rows_of(j, p, inputs, b):
+            d = full_depth_deltas(torch, np, p, inputs, b)
+            return [target_row(d[i], plan[j][2][i], list(p.exits))
+                    for i in range(b)]
+
+        res = tp_serve_steps(torch, np, cfg, pol, rows_of)
+        check(res["exits"] == [t for _, _, t in plan],
+              f"tp reference {mode}: exits {res['exits']} are not the "
+              f"targets {[t for _, _, t in plan]}")
+        out[mode or "bf16"] = res
+        if mode is not None:
+            del pol
+            torch.cuda.empty_cache()
+    pol_bf16.reset()
+    emit({"phase": "tp_serve_9b_reference", "config": "deer_9b",
+          "seconds": time.perf_counter() - t0,
+          "exits": {m: r["exits"] for m, r in out.items()},
+          "nearest_delta_over_threshold": {
+              m: [max([x for x in r["ratios"] if x <= 1], default=None),
+                  min([x for x in r["ratios"] if x > 1], default=None)]
+              for m, r in out.items()}})
+    return out
+
+
+def child_tp_serve(torch, np, rank: int) -> dict:
+    """One rank of tp_serve_9b: the whole deer_9b tree drawn in turns
+    (one rank at a time holds it: draw, keep this rank's tp shards, free),
+    then a tp=4 ``ScanDeerPolicy`` on the shards in each mode, replaying
+    the reference's rows; the exit layers checked across the ranks every
+    step (``check_tp_exits``)."""
+    from deer_vla_tpu_torch.core.config import deer_9b
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.ops.quant import tree_bytes
+    from deer_vla_tpu_torch.parallel.mesh import Mesh, axis_groups
+    from deer_vla_tpu_torch.parallel.sharding import shard_params
+    cfg = deer_9b()
+    ref = json.loads((TP_DIR / "serve_rows.json").read_text())
+    mesh = Mesh(1, 1, TP_RANKS)
+    groups = axis_groups(mesh, rank)
+    t0 = time.perf_counter()
+    local = None
+    for turn in range(TP_RANKS):
+        if turn == rank:
+            whole = build_weights(torch, cfg)
+            local, _ = shard_params(whole, mesh, rank, fsdp=False, tp=True)
+            del whole
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    out = {"draw_s": time.perf_counter() - t0,
+           "local_gb": tree_bytes(local) / 1e9, "modes": {}}
+    k1, k2 = set(), set()
+    for mode in TP_SERVE_MODES:
+        name = mode or "bf16"
+        t1 = time.perf_counter()
+        pol = ScanDeerPolicy(local, cfg, indexed_mm=True, quantize=mode,
+                             tp=groups["tp"], check_tp_exits=True)
+        build_s = time.perf_counter() - t1
+        counters = reset_launches()
+        with k1_calls(k1), k2_calls(k2):
+            res = tp_serve_steps(torch, np, cfg, pol,
+                                 lambda j, p, i, b: ref[name][j])
+        res["launches"] = launches_of(counters)
+        res["build_s"] = build_s
+        out["modes"][name] = res
+        del pol
+        torch.cuda.empty_cache()
+    del local
+    out["k1"] = sorted(map(list_key, k1))
+    out["k2"] = sorted(map(list, k2))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_train_inputs(torch, cfg):
+    """The global batch (``TP_TRAIN_BATCH`` trajectories, no random shift)
+    on the card and fixed layer draws."""
+    from deer_vla_tpu_torch.train.trainer import TrainConfig, prepare_batch
+    cfg, batches = calib_debug_batches(cfg, TP_TRAIN_BATCH, 1)
+    batch = prepare_batch(batches[0], cfg, None,
+                          TrainConfig(rgb_pad=0, gripper_pad=0),
+                          torch.device("cuda"))
+    exits = cfg.all_exit_ids()
+    w = cfg.window_size
+    draws = {"rand_layer_ids": torch.tensor(
+                 [[exits[(i + r) % len(exits)] for i in range(w)]
+                  for r in range(TP_TRAIN_BATCH)]),
+             "switch_layer_ids": torch.full((TP_TRAIN_BATCH, w),
+                                            exits[-1])}
+    return cfg, batch, draws
+
+
+def tp_train_setup(torch, cfg, params):
+    from deer_vla_tpu_torch.models.flamingo import trainable_mask
+    from deer_vla_tpu_torch.train.optimizer import make_optimizer
+    return make_optimizer(params, cfg, phase="joint",
+                          learning_rate=TP_TRAIN_LR, warmup_steps=0,
+                          total_steps=TP_TRAIN_STEPS,
+                          trainable=trainable_mask(params, cfg, "joint"))
+
+
+def tp_train_reference(torch, np) -> dict:
+    """One process's ``TP_TRAIN_STEPS`` steps over the global batch on the
+    card: losses, grad norms, the trainable leaves before and after (kept
+    on the card); the batch and draws written for the ranks."""
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    from deer_vla_tpu_torch.train.train_step import (init_train_state,
+                                                     make_train_step)
+    t0 = time.perf_counter()
+    cfg = tp_train_config()
+    params = build_weights(torch, cfg)
+    cfg, batch, draws = tp_train_inputs(torch, cfg)
+    opt = tp_train_setup(torch, cfg, params)
+    keys = opt.trainable_keys()
+    flat = flat_leaves(params)
+    before = {k: flat[k].clone() for k in keys}
+    state = init_train_state(params, opt)
+    step = make_train_step(cfg, opt)
+    losses, norms = [], []
+    for _ in range(TP_TRAIN_STEPS):
+        state, m = step(state, batch, draws=[draws])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    after = {k: flat[k] for k in keys}
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                "draws": draws, "media_token_id": cfg.media_token_id},
+               TP_DIR / "train_inputs.pt")
+    del params, state, opt, flat
+    released_gb(torch)
+    return {"losses": losses, "grad_norms": norms, "before": before,
+            "after": after, "seconds": time.perf_counter() - t0}
+
+
+def child_tp_train(torch, np, rank: int) -> dict:
+    """One rank of tp_train: fsdp=2 x tp=2 over this rank's shards of the
+    seeded tree (``shard_params``), its data shard of the global batch, the
+    masters and Adam moments sharded (ZeRO-3); after the steps the tree
+    gathered (``gather_params``): frozen leaves bit for bit the draw, and
+    rank 0 writes the trained leaves for the parent's comparison."""
+    from deer_vla_tpu_torch.models.flamingo import trainable_mask
+    from deer_vla_tpu_torch.parallel.mesh import Mesh, axis_groups
+    from deer_vla_tpu_torch.parallel.sharding import (Layout, gather_params,
+                                                      placements_by_path,
+                                                      shard_params)
+    from deer_vla_tpu_torch.ops.layers import (flat_key,
+                                               tree_leaves_with_path)
+    from deer_vla_tpu_torch.train.optimizer import flat_leaves
+    from deer_vla_tpu_torch.train.train_step import (init_train_state,
+                                                     make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = tp_train_config()
+    whole = build_weights(torch, cfg)
+    mesh = Mesh(*TP_TRAIN_MESH)
+    groups = axis_groups(mesh, rank)
+    local, specs = shard_params(whole, mesh, rank, fsdp=True, tp=True)
+    layout = Layout(mesh, rank, specs, groups)
+    inputs = torch.load(TP_DIR / "train_inputs.pt", weights_only=False)
+    cfg = dataclasses.replace(cfg, media_token_id=inputs["media_token_id"])
+    i, w = mesh.data_index(rank), cfg.window_size
+    per_window = {"labels"}
+    rows = {k: (v[i:i + 1] if k in per_window else v[i * w:(i + 1) * w])
+            .cuda() for k, v in inputs["batch"].items()}
+    draws = {k: v[i:i + 1] for k, v in inputs["draws"].items()}
+    opt = tp_train_setup(torch, cfg, local)
+    state = init_train_state(local, opt)
+    step = make_train_step(cfg, opt, layout=layout)
+    losses, norms, step_s = [], [], []
+    for _ in range(TP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, rows, draws=[draws])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    full = flat_leaves(gather_params(state.params, specs, mesh, groups))
+    start = flat_leaves(whole)
+    mask = {flat_key(p): m for p, m in
+            tree_leaves_with_path(trainable_mask(whole, cfg, "joint"))}
+    frozen_same = all(torch.equal(full[k], start[k])
+                      for k, m in mask.items() if not m)
+    by_key = {flat_key(p): s for p, s in placements_by_path(specs).items()}
+    split = [k for k in opt.trainable_keys()
+             if "fsdp" in by_key[k] and "tp" in by_key[k]]
+    quarter = all(state.opt_state["mu"][k].numel() * TP_RANKS
+                  == start[k].numel()
+                  and state.opt_state["nu"][k].numel() * TP_RANKS
+                  == start[k].numel() for k in split)
+    if rank == 0:
+        torch.save({k: full[k].cpu() for k in opt.trainable_keys()},
+                   TP_DIR / "trained.pt")
+    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+            "frozen_bit_unchanged": frozen_same,
+            "frozen_leaves": sum(not m for m in mask.values()),
+            "split_trainable_leaves": len(split),
+            "moments_quarter": quarter,
+            "split_leaves": sum(any(s) for s in by_key.values()),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_tp(torch, np, serve_ref: dict, k1_seen: set,
+             k2_seen: set) -> list:
+    """Phases tp_serve_9b and tp_train: one spawn of ``TP_RANKS`` children
+    sharing the card over gloo runs both (``child_tp_serve``, then
+    ``child_tp_train``).  Four processes on one card: their times are a
+    record, not a speed."""
+    t0 = time.perf_counter()
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    (TP_DIR / "serve_rows.json").write_text(json.dumps(
+        {m: r["rows"] for m, r in serve_ref.items()}))
+    train_ref = tp_train_reference(torch, np)
+    res = run_children("tp", TP_RANKS, TP_CHILD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    for r in res:
+        k1_seen.update(tuple_key(k) for k in r["serve"]["k1"])
+        k2_seen.update(tuple(k) for k in r["serve"]["k2"])
+    # tp_serve_9b
+    out_serve = {"phase": "tp_serve_9b", "config": "deer_9b", "tp": TP_RANKS,
+                 "ranks_on_one_card": TP_RANKS, "runs": {},
+                 "tol_arm_max_abs": CROSS_TOL_BF16["arm_max_abs"],
+                 "margin_factor": TP_MARGIN,
+                 "draw_s": [r["serve"]["draw_s"] for r in res],
+                 "local_fp32_gb": [r["serve"]["local_gb"] for r in res],
+                 "peak_memory_gb": [r["serve"]["peak_memory_gb"]
+                                    for r in res],
+                 "seconds": [r["serve"]["seconds"] for r in res]}
+    for name, want in serve_ref.items():
+        got = [r["serve"]["modes"][name] for r in res]
+        diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                   for g in got for a, b in zip(g["actions"],
+                                                want["actions"]))
+        ratios = [x for g in got for x in g["ratios"]]
+        out_serve["runs"][name] = {
+            "exits": got[0]["exits"], "reference_exits": want["exits"],
+            "max_abs_diff": diff,
+            "nearest_delta_over_threshold": [
+                max([x for x in ratios if x <= 1], default=None),
+                min([x for x in ratios if x > 1], default=None)],
+            "step_ms": {i: g["step_ms"] for i, g in enumerate(got)},
+            "reference_step_ms": want["step_ms"],
+            "build_s": [g["build_s"] for g in got],
+            "launches": {n: sum(g["launches"][n] for g in got)
+                         for n in got[0]["launches"]},
+            "launches_by_rank": [g["launches"] for g in got]}
+        k = DECODER_KERNEL[None if name == "bf16" else name]
+        for i, g in enumerate(got):
+            check(g["exits"] == want["exits"],
+                  f"tp_serve_9b {name} rank {i}: exits {g['exits']} against "
+                  f"one process's {want['exits']}")
+            check(g["launches"][k] > 0 and (name == "bf16" or
+                                            g["launches"]["indexed_matmul"]
+                                            == 0),
+                  f"tp_serve_9b {name} rank {i}: launches {g['launches']}")
+        check(diff <= CROSS_TOL_BF16["arm_max_abs"],
+              f"tp_serve_9b {name}: actions differ by {diff}")
+    emit(out_serve)
+    # tp_train
+    ranks = [r["train"] for r in res]
+    trained = torch.load(TP_DIR / "trained.pt", map_location="cuda")
+    worst = 0.0
+    for k, want in train_ref["after"].items():
+        err = float(torch.linalg.vector_norm((trained[k] - want).double()))
+        bound = (TP_TRAIN_TOL["param_rel_l2"]
+                 * float(torch.linalg.vector_norm(want.double()))
+                 + TP_TRAIN_TOL["update_rel_l2"] * float(
+                     torch.linalg.vector_norm(
+                         (want - train_ref["before"][k]).double())))
+        worst = max(worst, err / max(bound, 1e-30))
+    loss_rel = abs(ranks[0]["losses"][0] - train_ref["losses"][0]) \
+        / abs(train_ref["losses"][0])
+    norm_rel = abs(ranks[0]["grad_norms"][0] - train_ref["grad_norms"][0]) \
+        / train_ref["grad_norms"][0]
+    out_train = {"phase": "tp_train", "config": "deer_9b fp32, "
+                 f"{TP_TRAIN_DEPTH} layers, a {TP_TRAIN_VIT_DEPTH}-layer "
+                 f"ViT, W={CALIB_CROSS_WINDOW}",
+                 "mesh": dict(zip(("dp", "fsdp", "tp"), TP_TRAIN_MESH)),
+                 "ranks_on_one_card": TP_RANKS,
+                 "losses": [r["losses"] for r in ranks],
+                 "grad_norms": [r["grad_norms"] for r in ranks],
+                 "one_process_losses": train_ref["losses"],
+                 "one_process_grad_norms": train_ref["grad_norms"],
+                 "first_loss_rel": loss_rel, "first_grad_norm_rel": norm_rel,
+                 "param_err_over_bound": worst, "tol": TP_TRAIN_TOL,
+                 "trainable_leaves": len(trained),
+                 "split_trainable_leaves": ranks[0]["split_trainable_leaves"],
+                 "split_leaves": ranks[0]["split_leaves"],
+                 "frozen_leaves": ranks[0]["frozen_leaves"],
+                 "step_s": [r["step_s"] for r in ranks],
+                 "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+                 "one_process_seconds": train_ref["seconds"],
+                 "seconds": [r["seconds"] for r in ranks],
+                 "spawn_total_s": spawn_s}
+    emit(out_train)
+    check(loss_rel <= TP_TRAIN_TOL["loss_rel"],
+          f"tp_train: first loss {ranks[0]['losses'][0]} against "
+          f"{train_ref['losses'][0]}")
+    check(norm_rel <= TP_TRAIN_TOL["grad_norm_rel"],
+          f"tp_train: grad_norm {ranks[0]['grad_norms'][0]} against "
+          f"{train_ref['grad_norms'][0]}")
+    check(worst <= 1.0, f"tp_train: updated leaves {worst} of the bound")
+    for i, r in enumerate(ranks):
+        check(r["losses"] == ranks[0]["losses"]
+              and r["grad_norms"] == ranks[0]["grad_norms"],
+              f"tp_train rank {i}: losses {r['losses']} differ")
+        check(r["frozen_bit_unchanged"], f"tp_train rank {i}: a frozen "
+                                         "leaf changed")
+        check(r["moments_quarter"] and r["split_trainable_leaves"] > 0,
+              f"tp_train rank {i}: moments are not a quarter of a split "
+              "leaf")
+    del trained, train_ref
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    released_gb(torch)
+    return [out_serve, out_train]
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--child"]:
         return child_main(sys.argv[2], int(sys.argv[3]), sys.argv[4])
@@ -6375,12 +6986,13 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    builder = start_build()
     import numpy as np
 
     from deer_vla_tpu_torch.core.config import deer_3b
 
     smi = phase_device(torch)
-    tc = phase_build()
+    tc = phase_build(builder)
     cfg = deer_3b()
     summary = phase_kernels(torch, vit_batches(cfg))
     summary.update(phase_kernels_9b(torch, summary["k2_checked"]))
@@ -6389,8 +7001,10 @@ def main() -> int:
     with k1_calls(k1_seen), k2_calls(k2_seen), \
             k1_backward_calls(bwd_inputs):
         serve, quantized, calib, paths = drive_paths(torch, np, cfg)
-        paths_9b, path_launches = drive_9b(torch, np)
-        paths += paths_9b + drive_llama(torch, np)
+        paths_9b, path_launches, tp_ref = drive_9b(torch, np)
+        paths += paths_9b + phase_tp(torch, np, tp_ref, k1_seen, k2_seen)
+        del tp_ref
+        paths += drive_llama(torch, np)
         vl_inputs = {}
         with k1_calls(k1_seen, keep=vl_inputs):
             paths += drive_vl(torch, np, cfg)
@@ -6430,6 +7044,11 @@ def main() -> int:
                         ("indexed_matmul_q8", "serve_9b_int8"),
                         ("indexed_matmul_q4", "serve_9b_int4")):
         launches[name + "_9b"] = path_launches[phase][name]
+    for name, mode in (("indexed_matmul", "bf16"),
+                       ("indexed_matmul_q8", "int8"),
+                       ("indexed_matmul_q4", "int4")):
+        launches[name + "_9b_tp4"] = \
+            path_launches[f"tp_serve_9b_{mode}"][name]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(summary, launches, tc, path_launches))
     print(smi, flush=True)

@@ -26,6 +26,16 @@ window-folded variants); ``dispatch_batch`` / ``finish_batch`` split
 window variant of the JAX package is served: state models take a proprio
 row an image row (``state=``), 'vit_concat' and ``use_hist`` take each
 stream's rolling W-frame window as W image rows (``folded_window``).
+
+Tensor parallelism (``tp``, this rank's ``parallel.mesh.AxisGroup`` of the
+tp axis): the engine takes this rank's local tree
+(``parallel.sharding.shard_params(..., tp=True)``) and stacks it, so K2-K4
+read contiguous (L, K_loc, N_loc) stacks (quantized as the whole weight
+would be, then split: ``ops/quant.py``); the row-parallel products are
+summed over the group.  Every exit test reads values that are equal on
+every rank (the heads run on the summed hidden state, replicated), so the
+ranks break out of the layer loop together; ``check_tp_exits`` gathers
+the exit layers after each step and raises where the ranks differ.
 """
 
 from __future__ import annotations
@@ -164,7 +174,7 @@ def folded_window(cfg: DeerConfig) -> int:
 def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     threshold_type: str = "L2",
                     max_layer: Optional[int] = None,
-                    indexed_mm: bool = False):
+                    indexed_mm: bool = False, tp=None):
     """Returns (exits, encode, decode, encode_frame, decode_tokens), routed
     by ``cfg.head_type`` (``models/heads``; for diffusion the "arm" is the
     chosen exit's conditioning feature and the gripper a zero).
@@ -188,7 +198,8 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
     ``state`` rows match the image rows.
     ``indexed_mm`` raises on a llama decoder: the layer-indexed kernels
     compute the MPT block's products (fused wqkv, out_proj, mlp_up,
-    mlp_down), which a llama block does not have."""
+    mlp_down), which a llama block does not have.  ``tp``: the stacks are a
+    tp rank's local ones (the module docstring)."""
     llama = cfg.mpt.arch == "llama"
     if indexed_mm and llama:
         raise ValueError("indexed_mm covers the MPT block's products "
@@ -218,7 +229,7 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
 
     def encode(params, stacked, img, grip, ids, state=None):
         media = encode_vision(params, img, grip, cfg, state, stacked,
-                              window_size=enc_w)
+                              window_size=enc_w, tp=tp)
         x = embed_tokens(params["decoder"], ids, cfg.dtypes.cdt)
         return media, x, ids == cfg.media_token_id
 
@@ -228,14 +239,14 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
     def decode_tokens(params, stacked, tok_rgb, tok_grip, ids, mask, carry,
                       thresholds, state=None):
         media = fuse_vision_tokens(params, tok_rgb, tok_grip, cfg, state,
-                                   stacked, window_size=enc_w)
+                                   stacked, window_size=enc_w, tp=tp)
         x = embed_tokens(params["decoder"], ids, cfg.dtypes.cdt)
         return decode(params, stacked, media, x, ids == cfg.media_token_id,
                       mask, carry, thresholds, state)
 
     def decode(params, stacked, media, x, mloc, mask, carry, thresholds,
                state=None):
-        attn_bias = make_attn_bias(mask, cfg.mpt, x.dtype)
+        attn_bias = make_attn_bias(mask, cfg.mpt, x.dtype, tp)
         rope = (rope_tables(x.shape[1], cfg.mpt.head_dim, device=x.device)
                 if llama else None)
         head = params[head_key]
@@ -264,7 +275,8 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                 x = gated_xattn_forward(
                     layer_slice(stacked["xattn"], int(xidx[i])), x, media,
                     mloc, heads=cfg.xattn_heads, dim_head=cfg.xattn_dim_head,
-                    only_attend_immediate_media=cfg.only_attend_immediate_media)
+                    only_attend_immediate_media=cfg.only_attend_immediate_media,
+                    tp=tp)
             if llama:
                 return x_in, llama_block_forward(
                     layer_slice(stacked["blocks"], i), x, attn_bias, cfg.mpt,
@@ -272,9 +284,9 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
             if indexed_mm:
                 return x_in, mpt_block_forward_stacked(
                     stacked["blocks"], i, x, attn_bias, cfg.mpt,
-                    stacked["layer_idx"][i])
+                    stacked["layer_idx"][i], tp)
             return x_in, mpt_block_forward(layer_slice(stacked["blocks"], i),
-                                           x, attn_bias, cfg.mpt)
+                                           x, attn_bias, cfg.mpt, tp)
 
         st = {"done": torch.zeros(b, dtype=torch.bool, device=dev),
               "ref": torch.zeros(b, adim, device=dev),
@@ -286,7 +298,9 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
         def check(i, is_first, x, x_prev) -> bool:
             """Speculative head + delta at exit layer i, commit for the
             streams that take it; True when every stream has exited (the
-            step's one host sync per exit)."""
+            step's one host sync per exit).  Under tp, x is the summed
+            hidden state, equal on every rank, so every rank reads the
+            same answer and leaves the loop at the same layer."""
             arm, grip, cand = eval_head(x)
             ref = eval_head(x_prev)[0] if is_first else st["ref"]
             delta = get_delta(arm, ref, threshold_type)
@@ -367,22 +381,28 @@ class ScanDeerPolicy(nn.Module, HostInputs):
     one of ``ops.quant.QUANT_MODES``: "int8" and "int4" serve the decoder
     through K3 / K4 when ``indexed_mm`` is on, the w8a8 modes through
     int8 x int8 -> int32 products.  ``indexed_mm`` needs an MPT decoder:
-    on a llama one it raises (``build_scan_step``)."""
+    on a llama one it raises (``build_scan_step``).  ``tp``: ``params`` is
+    this tp rank's local tree and the engine one rank of a tensor-parallel
+    group (the module docstring); with ``check_tp_exits`` every step
+    checks that the group's ranks took the same exits."""
 
     def __init__(self, params: dict, cfg: DeerConfig,
                  exit_ids: Optional[List[int]] = None,
                  thresholds=None, threshold_type: str = "L2",
                  max_layer: Optional[int] = None, steps_per_stage: int = 1,
                  indexed_mm: bool = False, quantize: Optional[str] = None,
-                 device=None):
+                 device=None, tp=None, check_tp_exits: bool = False):
         super().__init__()
         check_serving_supported(cfg, allow_window_folded=True,
                                 allow_any_head=True)
         exit_ids = list(exit_ids or cfg.all_exit_ids())
         (self.exits, self._encode, self._decode, self._encode_frame,
          self._decode_tokens) = build_scan_step(
-            cfg, exit_ids, threshold_type, max_layer, indexed_mm=indexed_mm)
+            cfg, exit_ids, threshold_type, max_layer, indexed_mm=indexed_mm,
+            tp=tp)
         self.cfg = cfg
+        self.tp = tp
+        self.check_tp_exits = check_tp_exits
         self.device = resolve_device(device)
         params = to_torch(params, self.device)
         # quantized serving (ops/quant.py QUANT_MODES): the decoder,
@@ -390,7 +410,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         # exit head stay in full precision
         stacked = quantize_serving_stacked(
             stack_decoder_layers(params, cfg, include_encoders=True),
-            quantize)
+            quantize, tp=tp)
         self._stacked_def = self._register_tree("stacked", stacked)
         self._params_def = self._register_tree(
             "params", prune_serving_params(params, cfg))
@@ -507,7 +527,19 @@ class ScanDeerPolicy(nn.Module, HostInputs):
             self.params, self.stacked, media, x, mloc,
             self._upload(attention_mask), self.carry, thresholds,
             self._state(state))
+        self._check_exits(exit_layer)
         return arm, grip, exit_layer
+
+    def _check_exits(self, exit_layer: torch.Tensor) -> None:
+        """With ``check_tp_exits``: every rank of the tp group took the
+        same exit layers (a debug check: one gather a step)."""
+        if not self.check_tp_exits or self.tp is None or self.tp.size == 1:
+            return
+        from deer_vla_tpu_torch.parallel.collectives import all_gather
+        every = all_gather(exit_layer[None], self.tp, 0)
+        if not bool((every == exit_layer[None]).all()):
+            raise RuntimeError(f"the tp ranks {list(self.tp.ranks)} took "
+                               f"different exits: {every.tolist()}")
 
     # -- serving -----------------------------------------------------------
     @torch.inference_mode()
@@ -567,6 +599,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
                                 ids, self._upload(attention_mask),
                                 self.carry, self._stage_thresholds(),
                                 self._state(state))
+        self._check_exits(exit_layer)
         self.last_exit_layer = int(exit_layer[0])
         return self._postprocess(arm, grip)
 

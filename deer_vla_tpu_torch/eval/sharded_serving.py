@@ -13,6 +13,13 @@ result is the single-process step's either way.
 ``eval/batched_rollout.evaluate_policy_batched`` drives it unchanged: every
 rank runs the same rollout over all B envs, and the gathered actions keep
 the ranks' envs in step.
+
+A mesh with tp > 1: the ranks of one tp group share a data shard and its
+streams, and their engine is a tensor-parallel one (``ScanDeerPolicy(...,
+tp=)``) on their shards of the weights; ``from_shards`` builds it from a
+tree placed by ``parallel.sharding.shard_params``.  fsdp shards are
+gathered once, when the engine is built: JAX all-gathers them inside each
+step, so here serving does not keep fsdp shards at rest (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from deer_vla_tpu_torch.parallel.mesh import Mesh, make_mesh
+from deer_vla_tpu_torch.parallel.sharding import Layout, gather_params
 from deer_vla_tpu_torch.parallel.multihost import (gather_objects,
                                                    process_index)
 
@@ -54,6 +62,18 @@ class ShardedBatchedPolicy:
         self.thresholds = inner.thresholds
         self.last_exit_layer = -1
         self.reset()
+
+    @classmethod
+    def from_shards(cls, local: dict, layout: Layout, cfg, **engine_kw):
+        """The rank of ``layout`` serving from its local tree: the fsdp
+        shards gathered (every rank of each fsdp group joins), then a
+        ``ScanDeerPolicy`` on the rank's tp shards with the tp group
+        (``engine_kw`` go to it)."""
+        from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+        tp_local = gather_params(local, layout.placements, layout.mesh,
+                                 layout.groups, axes=("fsdp",))
+        inner = ScanDeerPolicy(tp_local, cfg, tp=layout.tp, **engine_kw)
+        return cls(inner, layout.mesh, layout.rank)
 
     def __copy__(self):
         """A wrapper over a shallow copy of the engine: the weights are

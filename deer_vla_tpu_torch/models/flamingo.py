@@ -7,6 +7,13 @@ batch, their latents concatenated on the token dim), 'pre', 'two_way' and
 'vit_concat', each with a second resampler (``sep_resampler``), a proprio
 token (``use_state``), per-frame embeddings (``use_hist``) and a gripper
 camera at its native size (``gripper_res``).
+
+Tensor parallelism: ``encode_vision``, ``forward_train`` and
+``forward_fixed_exit`` take ``tp``, this rank's group of the tp axis
+(``parallel.mesh.axis_groups``), over a tree of this rank's shards
+(``parallel.sharding.shard_params``); the perceiver, the cross-attention
+and the MPT blocks split by heads, the rest is replicated.  ``tp=None``
+is the single process, at no added cost.
 """
 
 from __future__ import annotations
@@ -104,7 +111,7 @@ def encode_vision(params: dict, vision_rgb: torch.Tensor,
                   vision_gripper: Optional[torch.Tensor], cfg: DeerConfig,
                   state_tensor: Optional[torch.Tensor] = None,
                   stacked: Optional[dict] = None,
-                  window_size: int = 1) -> torch.Tensor:
+                  window_size: int = 1, tp=None) -> torch.Tensor:
     """Camera fusion (flamingo_mpt.py:585-777) by ``cfg.fusion_mode``, from
     (B, T, F, 3, H, W) cameras:
 
@@ -122,7 +129,7 @@ def encode_vision(params: dict, vision_rgb: torch.Tensor,
     tok_rgb, tok_grip = dual_camera_tokens(params, vision_rgb,
                                            vision_gripper, cfg, stacked)
     return fuse_vision_tokens(params, tok_rgb, tok_grip, cfg, state_tensor,
-                              stacked, window_size)
+                              stacked, window_size, tp)
 
 
 def dual_camera_tokens(params: dict, vision_rgb: torch.Tensor,
@@ -177,7 +184,7 @@ def fuse_vision_tokens(params: dict, tok_rgb: torch.Tensor,
                        tok_grip: Optional[torch.Tensor], cfg: DeerConfig,
                        state_tensor: Optional[torch.Tensor] = None,
                        stacked: Optional[dict] = None,
-                       window_size: int = 1) -> torch.Tensor:
+                       window_size: int = 1, tp=None) -> torch.Tensor:
     """Frame embeddings, perceiver resampling, the fusion fold and the state
     token, from (possibly cached) ViT tokens: ``encode_vision`` is this on
     ``dual_camera_tokens``' output."""
@@ -186,8 +193,8 @@ def fuse_vision_tokens(params: dict, tok_rgb: torch.Tensor,
     def run_perceiver(pkey, tok):
         if pkey in stacked:
             return perceiver_forward_stacked(params[pkey], stacked[pkey], tok,
-                                             cfg.perceiver)
-        return perceiver_forward(params[pkey], tok, cfg.perceiver)
+                                             cfg.perceiver, tp)
+        return perceiver_forward(params[pkey], tok, cfg.perceiver, tp)
 
     def add_frame_embs(tokens):
         """(B*W, T, F, v, d) + frame_embs[w] at window position w
@@ -268,7 +275,7 @@ def forward_train(params: dict, vision_x: torch.Tensor,
                   only_extra_exit: bool = False, train: bool = True,
                   rand_layer_ids: Optional[torch.Tensor] = None,
                   switch_layer_ids: Optional[torch.Tensor] = None,
-                  dropout: Optional[Dropout] = None) -> TrainOutputs:
+                  dropout: Optional[Dropout] = None, tp=None) -> TrainOutputs:
     """The Flamingo training forward (flamingo_mpt.py:308-517):
     vision_x / vision_gripper (B*W, 1, 1, 3, H, W), lang_x and
     attention_mask (B*W, S), state_tensor (B*W, 1, 1, state_dim) or None.
@@ -293,9 +300,10 @@ def forward_train(params: dict, vision_x: torch.Tensor,
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not no_backbone_grad):
         media = encode_vision(params, vision_x, vision_gripper, cfg,
-                              state_tensor, window_size=cfg.window_size)
+                              state_tensor, window_size=cfg.window_size,
+                              tp=tp)
         hidden, _ = decoder_forward(params["decoder"], lang_x,
-                                    attention_mask, media, cfg)
+                                    attention_mask, media, cfg, tp=tp)
     st = (None if state_tensor is None
           else state_tensor.reshape(-1, state_tensor.shape[-1]))
     if st is not None and cfg.fusion_mode == "vit_concat":
@@ -358,7 +366,7 @@ def forward_fixed_exit(params: dict, vision_x: torch.Tensor,
                        cfg: DeerConfig, exit_id: int,
                        vision_gripper: Optional[torch.Tensor] = None,
                        state_tensor: Optional[torch.Tensor] = None,
-                       carry=None) -> Tuple[HeadOutput, object]:
+                       carry=None, tp=None) -> Tuple[HeadOutput, object]:
     """One streaming frame at a fixed exit: layers [0, exit_id] only (the
     layers above it never run), then the exit's head (``resolve_head``) in
     fp32 with its carry.  Returns (head output, new carry)."""
@@ -368,11 +376,11 @@ def forward_fixed_exit(params: dict, vision_x: torch.Tensor,
         raise ValueError(f"exit_id {exit_id} out of range for a "
                          f"{cfg.n_layers}-layer decoder")
     media = encode_vision(params, vision_x, vision_gripper, cfg,
-                          state_tensor)
+                          state_tensor, tp=tp)
     x = embed_tokens(params["decoder"], lang_x, cfg.dtypes.cdt)
     _, x = decoder_segment_forward(params["decoder"], x, attention_mask,
                                    media, cfg, 0, exit_id + 1,
-                                   lang_x == cfg.media_token_id)
+                                   lang_x == cfg.media_token_id, tp)
     st = (None if state_tensor is None
           else state_tensor.reshape(-1, state_tensor.shape[-1]))
     return any_head_step(resolve_head(params, cfg, exit_id), x.float(),

@@ -5,6 +5,11 @@ Text token i attends to media t iff cumsum(media_locations)[i] == t + 1
 ``NEG_INF``: text before the first media token gets a fully masked row,
 whose output is zeroed after the attention.  A -inf mask would give NaN in
 that row instead.
+
+Under tensor parallelism (``tp``) ``to_q`` and ``to_kv`` hold this rank's
+heads' columns (``to_kv`` as [k_r | v_r]) and ``to_out`` their rows: the
+rank attends over its heads, and ``to_out`` is summed over the group.  The
+feed-forward ``ff`` matches no tp rule and stays replicated.
 """
 
 from __future__ import annotations
@@ -15,8 +20,9 @@ import torch
 
 from deer_vla_tpu_torch.models.perceiver import ff_forward, init_ff
 from deer_vla_tpu_torch.ops.attention import dot_attention
-from deer_vla_tpu_torch.ops.layers import init_layernorm, init_linear, \
-    layernorm, linear
+from deer_vla_tpu_torch.ops.layers import (col_parallel_linear,
+                                           init_layernorm, init_linear,
+                                           layernorm, row_parallel_linear)
 
 NEG_INF = -1e9
 
@@ -40,14 +46,19 @@ def masked_cross_attention(p: dict, x: torch.Tensor, media: torch.Tensor,
                            media_locations: Optional[torch.Tensor], *,
                            heads: int, dim_head: int,
                            only_attend_immediate_media: bool = True,
-                           text_time: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           text_time: Optional[torch.Tensor] = None,
+                           tp=None) -> torch.Tensor:
     """x: (B, T_txt, D); media: (B, T_img, n, D_vis)."""
     b, t_txt, _ = x.shape
     _, t_img, n_media, _ = media.shape
-    q = linear(p["to_q"], layernorm(p["norm"], x))
+    if tp is not None and tp.size > 1:
+        if heads % tp.size:
+            raise ValueError(f"{heads} heads do not split over "
+                             f"tp={tp.size}")
+        heads //= tp.size
+    q = col_parallel_linear(p["to_q"], layernorm(p["norm"], x), tp)
     media_f = media.reshape(b, t_img * n_media, media.shape[-1])
-    k, v = linear(p["to_kv"], media_f).chunk(2, dim=-1)
+    k, v = col_parallel_linear(p["to_kv"], media_f, tp, 2).chunk(2, dim=-1)
 
     def to_heads(t):
         bb, s, _ = t.shape
@@ -73,18 +84,18 @@ def masked_cross_attention(p: dict, x: torch.Tensor, media: torch.Tensor,
     out = out.transpose(1, 2).reshape(b, t_txt, heads * dim_head)
     if zero_out is not None:
         out = out.masked_fill(zero_out[:, :, None], 0.0)
-    return linear(p["to_out"], out)
+    return row_parallel_linear(p["to_out"], out, tp)
 
 
 def gated_xattn_forward(p: dict, x: torch.Tensor, media: torch.Tensor,
                         media_locations: Optional[torch.Tensor], *,
                         heads: int = 8, dim_head: int = 64,
                         only_attend_immediate_media: bool = True,
-                        text_time: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        text_time: Optional[torch.Tensor] = None,
+                        tp=None) -> torch.Tensor:
     attn = masked_cross_attention(
         p, x, media, media_locations, heads=heads, dim_head=dim_head,
         only_attend_immediate_media=only_attend_immediate_media,
-        text_time=text_time)
+        text_time=text_time, tp=tp)
     x = attn * torch.tanh(p["attn_gate"].to(x.dtype)) + x
     return ff_forward(p["ff"], x) * torch.tanh(p["ff_gate"].to(x.dtype)) + x

@@ -4,6 +4,10 @@ q from the latents; k/v from concat(media tokens, latents); q scaled by
 dim_head**-0.5; bias-free projections; FeedForward = LN -> Linear -> exact
 GELU -> Linear; residual after attention and after the feed-forward; final
 LayerNorm.  Frames (T) fold into the batch.
+
+Under tensor parallelism (``tp``) ``to_q`` / ``to_kv`` hold this rank's
+heads' columns (``to_kv`` as [k_r | v_r]) and ``to_out`` their rows,
+summed over the group; the feed-forward stays replicated.
 """
 
 from __future__ import annotations
@@ -12,9 +16,11 @@ import torch
 
 from deer_vla_tpu_torch.core.config import PerceiverConfig
 from deer_vla_tpu_torch.ops.attention import dot_attention
-from deer_vla_tpu_torch.ops.layers import (gelu, init_layernorm, init_linear,
+from deer_vla_tpu_torch.ops.layers import (col_parallel_linear, gelu,
+                                           init_layernorm, init_linear,
                                            layer_slice, layernorm, linear,
-                                           normal, stack_layer_tree)
+                                           normal, row_parallel_linear,
+                                           stack_layer_tree)
 
 
 def init_ff(gen, dim: int, mult: int, device="cpu",
@@ -52,36 +58,44 @@ def init_perceiver(gen, cfg: PerceiverConfig, device="cpu",
 
 
 def _perceiver_attn(p: dict, x: torch.Tensor, latents: torch.Tensor,
-                    cfg: PerceiverConfig) -> torch.Tensor:
+                    cfg: PerceiverConfig, tp=None) -> torch.Tensor:
     """x: (B, v, D) media tokens; latents: (B, n, D)."""
+    n_heads = cfg.heads
+    if tp is not None and tp.size > 1:
+        if n_heads % tp.size:
+            raise ValueError(f"{n_heads} perceiver heads do not split over "
+                             f"tp={tp.size}")
+        n_heads //= tp.size
     xm = layernorm(p["norm_media"], x)
     lt = layernorm(p["norm_latents"], latents)
-    q = linear(p["to_q"], lt)
-    k, v = linear(p["to_kv"], torch.cat([xm, lt], dim=-2)).chunk(2, dim=-1)
+    q = col_parallel_linear(p["to_q"], lt, tp)
+    k, v = col_parallel_linear(p["to_kv"], torch.cat([xm, lt], dim=-2), tp,
+                               2).chunk(2, dim=-1)
 
     def heads(t):
         b, s, _ = t.shape
-        return t.reshape(b, s, cfg.heads, cfg.dim_head).transpose(1, 2)
+        return t.reshape(b, s, n_heads, cfg.dim_head).transpose(1, 2)
 
     out = dot_attention(heads(q), heads(k), heads(v),
                         scale=cfg.dim_head ** -0.5)
     b, h, n, d = out.shape
-    return linear(p["to_out"], out.transpose(1, 2).reshape(b, n, h * d))
+    return row_parallel_linear(p["to_out"],
+                               out.transpose(1, 2).reshape(b, n, h * d), tp)
 
 
-def _layer_forward(layer: dict, x, latents, cfg):
-    latents = _perceiver_attn(layer, x, latents, cfg) + latents
+def _layer_forward(layer: dict, x, latents, cfg, tp=None):
+    latents = _perceiver_attn(layer, x, latents, cfg, tp) + latents
     return ff_forward(layer["ff"], latents) + latents
 
 
 def perceiver_forward(params: dict, x: torch.Tensor,
-                      cfg: PerceiverConfig) -> torch.Tensor:
+                      cfg: PerceiverConfig, tp=None) -> torch.Tensor:
     """x: (B, T, F, v, D) image features -> (B, T, num_latents, D)."""
     b, t, f, v, d = x.shape
     x = x.reshape(b * t, f * v, d)
     latents = params["latents"].to(x.dtype).expand(b * t, cfg.num_latents, d)
     for layer in params["layers"]:
-        latents = _layer_forward(layer, x, latents, cfg)
+        latents = _layer_forward(layer, x, latents, cfg, tp)
     return layernorm(params["norm"], latents).reshape(b, t, cfg.num_latents, d)
 
 
@@ -91,7 +105,7 @@ def stack_perceiver_layers(params: dict, dtype=None) -> dict:
 
 def perceiver_forward_stacked(params: dict, stacked_layers: dict,
                               x: torch.Tensor,
-                              cfg: PerceiverConfig) -> torch.Tensor:
+                              cfg: PerceiverConfig, tp=None) -> torch.Tensor:
     """perceiver_forward over stacked (depth, ...) layer weights.  The depth
     is read from a LayerNorm scale, which quantization leaves as it is (a
     quantized tree has ``q``/``q4`` where ``w`` was)."""
@@ -100,5 +114,5 @@ def perceiver_forward_stacked(params: dict, stacked_layers: dict,
     latents = params["latents"].to(x.dtype).expand(b * t, cfg.num_latents, d)
     for i in range(stacked_layers["norm_latents"]["scale"].shape[0]):
         latents = _layer_forward(layer_slice(stacked_layers, i), x, latents,
-                                 cfg)
+                                 cfg, tp)
     return layernorm(params["norm"], latents).reshape(b, t, cfg.num_latents, d)

@@ -131,12 +131,17 @@ def init_layernorm(dim: int, bias: bool = True, device="cpu",
 # ---------------------------------------------------------------------------
 
 
-def int8_rows(x: torch.Tensor):
+def int8_rows(x: torch.Tensor, tp=None):
     """Dynamic symmetric per-row int8 activations: (xi int8, sx fp32
-    (..., 1)), with the scale computed as ``quant.quantize_weight`` does."""
+    (..., 1)), with the scale computed as ``quant.quantize_weight`` does.
+    ``tp``: x holds this rank's slice of each row (a row-parallel
+    product's input), and the row's abs-max is the group's."""
     x32 = x.float()
-    sx = torch.clamp(x32.abs().amax(-1, keepdim=True) * fp32_reciprocal(127),
-                     min=1e-12)
+    amax = x32.abs().amax(-1, keepdim=True)
+    if tp is not None:
+        from deer_vla_tpu_torch.parallel.collectives import all_reduce
+        amax = all_reduce(amax, tp, "max")
+    sx = torch.clamp(amax * fp32_reciprocal(127), min=1e-12)
     return torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8), sx
 
 
@@ -173,17 +178,10 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
                      rescaled in fp32 by ``sx * s8``;
       ``q4``/``s48`` the same as two int32 products over the halves.
     """
-    if "s8" in p:
+    if "s8" in p or "s48" in p:
         xi, sx = int8_rows(x)
-        y = (int8_matmul(xi, p["q"]).float() * sx
-             * p["s8"].float()).to(x.dtype)
-    elif "s48" in p:
-        kp = p["q4"].shape[-2]
-        xi, sx = int8_rows(x)
-        lo, hi = unpack_nibbles(p["q4"])
-        acc = (int8_matmul(xi[..., :kp], lo.to(torch.int8))
-               + int8_matmul(xi[..., kp:], hi.to(torch.int8)))
-        y = (acc.float() * sx * p["s48"].float()).to(x.dtype)
+        y = (_int8_acc(p, xi).float() * sx
+             * p["s8" if "s8" in p else "s48"].float()).to(x.dtype)
     elif "q4" in p:
         kp = p["q4"].shape[-2]
         lo, hi = unpack_nibbles(p["q4"])
@@ -193,6 +191,55 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
         y = (x @ p["q"].to(x.dtype)) * p["s"].to(x.dtype)
     else:
         y = x @ p["w"].to(x.dtype)
+    if p.get("b") is not None:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def _int8_acc(p: dict, xi: torch.Tensor) -> torch.Tensor:
+    """The w8a8 / w4a8 int32 accumulator of int8 rows ``xi``."""
+    if "s8" in p:
+        return int8_matmul(xi, p["q"])
+    kp = p["q4"].shape[-2]
+    lo, hi = unpack_nibbles(p["q4"])
+    return (int8_matmul(xi[..., :kp], lo.to(torch.int8))
+            + int8_matmul(xi[..., kp:], hi.to(torch.int8)))
+
+
+def col_parallel_linear(p: dict, x: torch.Tensor, tp=None,
+                        chunks: int = 1) -> torch.Tensor:
+    """``linear`` of a column-parallel product under tensor parallelism
+    (``tp``, a ``parallel.mesh.AxisGroup``): x is replicated, ``p`` holds
+    this rank's output columns (head-grouped over ``chunks`` fused
+    products) and the whole bias, of which it adds its columns."""
+    if tp is None or tp.size == 1:
+        return linear(p, x)
+    from deer_vla_tpu_torch.parallel.collectives import copy_to_tp
+    from deer_vla_tpu_torch.parallel.sharding import tp_local
+    y = linear({k: v for k, v in p.items() if k != "b"}, copy_to_tp(x, tp))
+    if p.get("b") is not None:
+        y = y + tp_local(p["b"], tp, -1, chunks).to(x.dtype)
+    return y
+
+
+def row_parallel_linear(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``linear`` of a row-parallel product under tensor parallelism: x and
+    ``p`` hold this rank's slice of K; the partial products are summed
+    over the group, then the bias is added once.  The w8a8 modes quantize
+    each row by its abs-max over the whole row (the group's), and sum the
+    int32 accumulators exactly, so the result is the single process's."""
+    if tp is None or tp.size == 1:
+        return linear(p, x)
+    from deer_vla_tpu_torch.parallel.collectives import (all_reduce,
+                                                         reduce_from_tp)
+    if "s8" in p or "s48" in p:
+        xi, sx = int8_rows(x, tp)
+        acc = all_reduce(_int8_acc(p, xi), tp)
+        y = (acc.float() * sx
+             * p["s8" if "s8" in p else "s48"].float()).to(x.dtype)
+    else:
+        y = reduce_from_tp(linear({k: v for k, v in p.items() if k != "b"},
+                                  x), tp)
     if p.get("b") is not None:
         y = y + p["b"].to(x.dtype)
     return y

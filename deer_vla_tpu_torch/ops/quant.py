@@ -18,6 +18,14 @@ int4 packing is a halves split along the contraction axis: the low nibble of
 packed row k holds row k of [0, K/2), the high nibble row K/2 + k.  The
 byte is built in int32 from masked nibbles and mapped to int8, so no shift
 of a negative value is involved.
+
+Under tensor parallelism (``tp``, a ``parallel.mesh.AxisGroup``) a rank
+quantizes its local stacks as the whole weight would be quantized, then
+split (``parallel/sharding``): a column-parallel shard holds whole
+channels, so its scales are the whole weight's; a row-parallel shard holds
+a slice of each channel's K rows, so the channel's abs-max is taken over
+the tp group (all-reduce MAX) before the scale.  Every rank's codes are
+then the single process's codes' slice, bit for bit.
 """
 
 from __future__ import annotations
@@ -48,19 +56,24 @@ def fp32_reciprocal(levels: float) -> float:
     return float(np.float32(1.0) / np.float32(levels))
 
 
-def _absmax_quantize(w: torch.Tensor, levels: float):
-    """(codes in [-levels, levels] as fp32, fp32 scale over axis -2)."""
+def _absmax_quantize(w: torch.Tensor, levels: float, tp=None):
+    """(codes in [-levels, levels] as fp32, fp32 scale over axis -2); with
+    ``tp`` the abs-max over the group's K rows (a row-parallel shard)."""
     w32 = w.float()
-    s = torch.clamp(w32.abs().amax(dim=-2) * fp32_reciprocal(levels),
-                    min=1e-12)
+    amax = w32.abs().amax(dim=-2)
+    if tp is not None:
+        from deer_vla_tpu_torch.parallel.collectives import all_reduce
+        amax = all_reduce(amax, tp, "max")
+    s = torch.clamp(amax * fp32_reciprocal(levels), min=1e-12)
     q = torch.clamp(torch.round(w32 / s.unsqueeze(-2)), -levels, levels)
     return q, s
 
 
-def quantize_weight(w: torch.Tensor):
+def quantize_weight(w: torch.Tensor, tp=None):
     """Symmetric per-output-channel int8 over the contraction axis (-2) of a
-    (..., K, N) weight: (q int8 (..., K, N), s fp32 (..., N))."""
-    q, s = _absmax_quantize(w, 127.0)
+    (..., K, N) weight: (q int8 (..., K, N), s fp32 (..., N)); ``tp`` for a
+    row-parallel shard (the module docstring)."""
+    q, s = _absmax_quantize(w, 127.0, tp)
     return q.to(torch.int8), s
 
 
@@ -77,12 +90,13 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     return torch.where(b >= 128, b - 256, b).to(torch.int8)
 
 
-def quantize_weight4(w: torch.Tensor):
+def quantize_weight4(w: torch.Tensor, tp=None):
     """Symmetric per-output-channel int4 (codes in [-7, 7]), packed two rows
-    per byte: (q4 int8 (..., K/2, N), s fp32 (..., N)).  K must be even."""
+    per byte: (q4 int8 (..., K/2, N), s fp32 (..., N)).  K must be even;
+    ``tp`` as for ``quantize_weight``."""
     k = w.shape[-2]
     assert k % 2 == 0, f"int4 packing needs an even contraction dim, got {k}"
-    q, s = _absmax_quantize(w, 7.0)
+    q, s = _absmax_quantize(w, 7.0, tp)
     return pack_int4(q), s
 
 
@@ -104,40 +118,46 @@ def dequantize_weight4(q4: torch.Tensor, s: torch.Tensor,
     return (unpack_int4(q4).float() * s.unsqueeze(-2)).to(dtype)
 
 
-def quantize_tree(tree, scale_key: str = "s"):
+def quantize_tree(tree, scale_key: str = "s", tp=None, _row: bool = False):
     """Replace every floating ``{"w": (..., K, N)}`` leaf (ndim >= 2) with
     ``{"q" or "q4", scale_key}``; everything else passes through.  In the int4 modes an odd K falls back to int8
     (``s4`` -> ``q``/``s``, ``s48`` -> ``q``/``s8``).  Only for the
     serving engine's stacked trees, whose weights are all read through
-    ``linear`` or the stacked decoder products."""
+    ``linear`` or the stacked decoder products.  ``tp``: a tp rank's local
+    tree, whose row-parallel products take the group's abs-max."""
     if isinstance(tree, dict):
+        from deer_vla_tpu_torch.parallel.sharding import _TP_COLS
         out = {}
         for k, v in tree.items():
             if (k == "w" and isinstance(v, torch.Tensor) and v.ndim >= 2
                     and v.is_floating_point()):
+                g = tp if _row else None
                 if scale_key in ("s4", "s48") and v.shape[-2] % 2 == 0:
-                    out["q4"], out[scale_key] = quantize_weight4(v)
+                    out["q4"], out[scale_key] = quantize_weight4(v, g)
                 elif scale_key == "s4":
-                    out["q"], out["s"] = quantize_weight(v)
+                    out["q"], out["s"] = quantize_weight(v, g)
                 elif scale_key == "s48":
-                    out["q"], out["s8"] = quantize_weight(v)
+                    out["q"], out["s8"] = quantize_weight(v, g)
                 else:
-                    out["q"], out[scale_key] = quantize_weight(v)
+                    out["q"], out[scale_key] = quantize_weight(v, g)
             else:
-                out[k] = quantize_tree(v, scale_key)
+                out[k] = quantize_tree(v, scale_key, tp,
+                                       _row or k in _TP_COLS)
         return out
     if isinstance(tree, (list, tuple)):
-        return type(tree)(quantize_tree(v, scale_key) for v in tree)
+        return type(tree)(quantize_tree(v, scale_key, tp, _row)
+                          for v in tree)
     return tree
 
 
 def quantize_serving_stacked(stacked: dict, mode: Optional[str],
-                             parts=SERVING_QUANT_PARTS) -> dict:
+                             parts=SERVING_QUANT_PARTS, tp=None) -> dict:
     """Quantize the weight-heavy subtrees of the engine's stacked tree.
 
     mode: None or "none" (no change) or one of ``QUANT_MODES``.  parts: a
     tuple of subtree names or a ``QUANT_PART_GROUPS`` key; subtrees not
-    named are passed through as the same objects."""
+    named are passed through as the same objects.  ``tp``: the stacks are
+    a tp rank's local ones (the module docstring)."""
     if not mode or mode == "none":
         return stacked
     if mode not in QUANT_MODES:
@@ -155,7 +175,7 @@ def quantize_serving_stacked(stacked: dict, mode: Optional[str],
     out = dict(stacked)
     for k in parts:
         if k in out:
-            out[k] = quantize_tree(out[k], scale_key=_SCALE_KEY[mode])
+            out[k] = quantize_tree(out[k], _SCALE_KEY[mode], tp)
     return out
 
 

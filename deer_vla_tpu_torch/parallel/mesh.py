@@ -11,15 +11,16 @@ The axes:
        HYBRID_SHARD;
   tp   tensor parallel.
 
-The port serves dp.  Placing weights by the fsdp / tp rules
-(``parallel/sharding.param_placements``) is ROADMAP.md M15b: the layout
-and the rules are here, the placement is not.
+``axis_groups`` builds the process groups of each axis, which the
+collectives of weight placement (``parallel/collectives``) run over;
+``parallel/sharding.shard_params`` places the weights by the fsdp / tp
+rules.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -53,6 +54,62 @@ class Mesh:
         """Which batch shard ``rank`` holds (tp ranks share one)."""
         d, f, _ = self.coords(rank)
         return d * self.fsdp + f
+
+
+    def axis_ranks(self, rank: int, axes: Tuple[str, ...]) -> List[int]:
+        """The ranks that share ``rank``'s coordinates on every axis not in
+        ``axes``, in rank order: ``rank``'s group over ``axes``."""
+        mine = dict(zip(("dp", "fsdp", "tp"), self.coords(rank)))
+        return [r for r in range(self.size)
+                if all(c == mine[a] for a, c in
+                       zip(("dp", "fsdp", "tp"), self.coords(r))
+                       if a not in axes)]
+
+
+# the groups of one rank: each axis, the data shards (dp x fsdp: the ranks
+# that hold one tp coordinate) and the model shards (fsdp x tp: the ranks
+# of one dp replica)
+GROUP_AXES = {"tp": ("tp",), "fsdp": ("fsdp",), "dp": ("dp",),
+              "data": ("dp", "fsdp"), "model": ("fsdp", "tp")}
+
+
+@dataclass(frozen=True)
+class AxisGroup:
+    """One of ``rank``'s groups: its ranks in order, this rank's index
+    among them, and the ``torch.distributed`` group (None when the group
+    has one rank: nothing to communicate)."""
+    ranks: Tuple[int, ...]
+    index: int
+    group: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def axis_groups(mesh: Mesh, rank: int) -> Dict[str, AxisGroup]:
+    """``rank``'s group of each ``GROUP_AXES`` entry.  Every rank of the
+    process group must call this, with the same mesh: ``new_group`` is a
+    collective, so each rank creates every group of more than one rank, in
+    one order, also the groups it is not in.  Without a process group (a
+    mesh of one) the groups carry no ``torch.distributed`` group."""
+    out = {}
+    for name, axes in GROUP_AXES.items():
+        mine = None
+        seen = set()
+        for r in range(mesh.size):
+            ranks = tuple(mesh.axis_ranks(r, axes))
+            if ranks in seen:
+                continue
+            seen.add(ranks)
+            group = None
+            if len(ranks) > 1:
+                import torch.distributed as dist
+                group = dist.new_group(list(ranks))
+            if rank in ranks:
+                mine = AxisGroup(ranks, ranks.index(rank), group)
+        out[name] = mine
+    return out
 
 
 def make_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,

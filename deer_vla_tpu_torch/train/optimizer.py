@@ -152,11 +152,16 @@ class GroupedAdamW:
 
     @torch.no_grad()
     def update(self, params: dict, grads: Dict[str, torch.Tensor],
-               state: dict) -> torch.Tensor:
+               state: dict, gnorm: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """One step on the leaves of ``params`` named in ``grads`` (every
-        non-frozen leaf, fp32).  Returns the unclipped global norm."""
+        non-frozen leaf, fp32).  Returns the unclipped global norm,
+        ``global_norm(grads)`` unless given (the sharded step's norm of the
+        global gradients).  Every other operation is elementwise, so the
+        leaves, gradients and moments may be a rank's shards (ZeRO-3)."""
         flat = flat_leaves(params)
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         clip = not bool(gnorm < self.clip_norm)
         count = state["count"] + 1
         bc1 = float(1 - torch.tensor(B1, dtype=torch.float32) ** count)

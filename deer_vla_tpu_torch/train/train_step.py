@@ -16,6 +16,21 @@ global batch, and the trainable gradients and scalar metrics are averaged
 across ranks by one ``all_reduce`` over a flat fp32 buffer before the
 update.  The random draws are the global batch's when the caller hands a
 ``ops.draws.RowShard`` of a generator seeded alike on every rank.
+
+With a ``parallel.sharding.Layout`` (``layout=``) the step is fsdp x tp x
+dp over a tree of this rank's shards (``shard_params``), and so are the
+masters and the Adam moments (ZeRO-3):
+  * each microbatch's forward gathers the fsdp shards
+    (``sharding.gather_fsdp``), whose backward reduce-scatters, and runs
+    the model on its tp shards (``tp=``);
+  * the gradients of fsdp-sharded leaves, already summed over fsdp, are
+    summed over dp; every other leaf's over dp x fsdp (the data shards;
+    tp ranks hold equal gradients of the replicated leaves); all are then
+    divided by the data shards, as ``average_across_ranks`` averages;
+  * ``grad_norm`` is the norm of the global gradients: each shard's
+    squares summed over fsdp x tp, a leaf replicated on an axis counted
+    on that axis's rank 0 only, as JAX's norm over the global arrays.
+The clip and the weight-decay masks keep optax's order.
 """
 
 from __future__ import annotations
@@ -27,7 +42,9 @@ import torch
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.models.flamingo import forward_train
 from deer_vla_tpu_torch.ops.draws import RowShard
+from deer_vla_tpu_torch.parallel.collectives import all_reduce
 from deer_vla_tpu_torch.parallel.multihost import process_count
+from deer_vla_tpu_torch.parallel.sharding import Layout, gather_fsdp
 from deer_vla_tpu_torch.train.losses import (multi_exit_diffusion_loss,
                                              multi_exit_loss)
 from deer_vla_tpu_torch.train.optimizer import GroupedAdamW, flat_leaves
@@ -89,7 +106,8 @@ def loss_and_grads(params: dict, keys: Sequence[str], batch: Dict,
                    grad_accum: int = 1,
                    gen: Optional[Union[torch.Generator, RowShard]] = None,
                    draws: Optional[Sequence[dict]] = None,
-                   vl_batch: Optional[Dict] = None, vl_weight: float = 1.0
+                   vl_batch: Optional[Dict] = None, vl_weight: float = 1.0,
+                   layout: Optional[Layout] = None
                    ) -> Tuple[torch.Tensor, Dict, Dict[str, object]]:
     """(loss, metrics, {key: grad}) for the leaves named in ``keys``; a
     leaf the loss does not reach gets ``None``.  The random draws of each
@@ -100,7 +118,16 @@ def loss_and_grads(params: dict, keys: Sequence[str], batch: Dict,
     (``multi_exit_diffusion_loss``), the others on ``multi_exit_loss``.
     With ``vl_batch`` (co-training) each microbatch's loss adds
     ``vl_weight`` times ``pretrain.lm_loss`` on the matching microbatch
-    of the vision-language batch, and its metrics join the step's."""
+    of the vision-language batch, and its metrics join the step's.
+    ``layout``: ``params`` are this rank's shards (the module docstring);
+    the gradients are of the shards, before any reduce over the mesh."""
+    if layout is not None and (vl_batch is not None
+                               or cfg.head_type == "diffusion"):
+        raise NotImplementedError("the sharded step trains the action "
+                                  "heads without co-training; the "
+                                  "diffusion head and the VL loss take "
+                                  "no layout")
+    tp = None if layout is None else layout.tp
     flat = flat_leaves(params)
     leaves = [flat[k] for k in keys]
     micro = [batch] if grad_accum == 1 else _split_micro(batch, grad_accum,
@@ -117,12 +144,15 @@ def loss_and_grads(params: dict, keys: Sequence[str], batch: Dict,
     try:
         for i, mb in enumerate(micro):
             with torch.enable_grad():
+                model = (params if layout is None
+                         else gather_fsdp(params, layout))
                 out = forward_train(
-                    params, mb["image"], mb["input_ids"],
+                    model, mb["image"], mb["input_ids"],
                     mb["attention_mask"], cfg, gen,
                     vision_gripper=mb.get("gripper"),
                     state_tensor=mb.get("state"),
                     no_backbone_grad=phase == "exit_only", train=True,
+                    tp=tp,
                     **({k: v for k, v in draws[i].items()
                         if k not in DIFFUSION_DRAWS}
                        if draws is not None else {}))
@@ -193,23 +223,82 @@ def average_across_ranks(grads: Dict[str, torch.Tensor], metrics: Dict
     return out, metrics
 
 
+def _flat_reduce(tensors: List[torch.Tensor], g) -> List[torch.Tensor]:
+    """The sums over ``g`` of fp32 tensors, by one all-reduce of a flat
+    buffer."""
+    if not tensors:
+        return []
+    flat = all_reduce(torch.cat([t.float().reshape(-1) for t in tensors]),
+                      g)
+    out, pos = [], 0
+    for t in tensors:
+        out.append(flat[pos:pos + t.numel()].view(t.shape))
+        pos += t.numel()
+    return out
+
+
+def average_sharded(grads: Dict[str, torch.Tensor], metrics: Dict,
+                    layout: Layout) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """The mean over the data shards (dp x fsdp) of every shard's gradient
+    and every scalar metric (the module docstring)."""
+    specs = layout.specs
+    n = layout.mesh.data_shards
+    split = [k for k in grads if "fsdp" in specs[k]]
+    whole = [k for k in grads if "fsdp" not in specs[k]]
+    mkeys = [k for k, v in metrics.items() if v.ndim == 0]
+    dev = next(iter(grads.values())).device
+    summed = _flat_reduce([grads[k] for k in split], layout.groups["dp"])
+    rest = _flat_reduce([grads[k] for k in whole]
+                        + ([torch.stack([metrics[k].to(dev, torch.float32)
+                                         for k in mkeys])] if mkeys else []),
+                        layout.groups["data"])
+    out = {k: g / n for k, g in zip(split + whole, summed + rest)}
+    metrics = dict(metrics)
+    if mkeys:
+        for j, k in enumerate(mkeys):
+            metrics[k] = rest[-1][j] / n
+    return {k: out[k] for k in grads}, metrics
+
+
+def sharded_norm(grads: Dict[str, torch.Tensor],
+                 layout: Layout) -> torch.Tensor:
+    """The norm of the global gradients from this rank's shards: each
+    leaf's squares on the ranks that hold a distinct piece of it (rank 0
+    of an axis it is replicated on), summed over fsdp x tp."""
+    specs = layout.specs
+    _, f, t = layout.mesh.coords(layout.rank)
+    sq = [g.float().square().sum() for k, g in grads.items()
+          if ("fsdp" in specs[k] or f == 0) and ("tp" in specs[k] or t == 0)]
+    dev = next(iter(grads.values())).device
+    total = torch.stack(sq).sum() if sq else torch.zeros((), device=dev)
+    return all_reduce(total, layout.groups["model"]).sqrt()
+
+
 def _apply_update(optimizer: GroupedAdamW, state: TrainState,
                   grads: Dict[str, torch.Tensor], loss: torch.Tensor,
-                  metrics: Dict) -> Tuple[TrainState, Dict]:
+                  metrics: Dict, layout: Optional[Layout] = None
+                  ) -> Tuple[TrainState, Dict]:
     """The optimizer update (in place on ``state.params``) and the shared
     metrics: ``loss`` and ``grad_norm``, the global norm of the trainable
     gradients (what the reference's clip_grad_norm_ returns), both of the
-    global batch under data parallelism."""
+    global batch under data parallelism (and over the mesh with a
+    ``layout``)."""
     metrics = dict(metrics, loss=loss)
-    grads, metrics = average_across_ranks(grads, metrics)
-    metrics["grad_norm"] = optimizer.update(state.params, grads,
-                                            state.opt_state)
+    if layout is None:
+        grads, metrics = average_across_ranks(grads, metrics)
+        metrics["grad_norm"] = optimizer.update(state.params, grads,
+                                                state.opt_state)
+    else:
+        grads, metrics = average_sharded(grads, metrics, layout)
+        metrics["grad_norm"] = optimizer.update(
+            state.params, grads, state.opt_state,
+            sharded_norm(grads, layout))
     return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
 
 def _make_step(cfg: DeerConfig, optimizer: GroupedAdamW, *, phase: str,
                bin_coef: float, calvin_multiplier: float, grad_accum: int,
-               vl_weight: float = 1.0):
+               vl_weight: float = 1.0, layout: Optional[Layout] = None):
     """``step(state, batch, vl_batch, gen, draws)``: the update of
     ``make_train_step`` (``vl_batch`` None) and of ``make_cotrain_step``."""
     keys = optimizer.trainable_keys()
@@ -220,18 +309,20 @@ def _make_step(cfg: DeerConfig, optimizer: GroupedAdamW, *, phase: str,
         loss, metrics, grads = loss_and_grads(
             state.params, keys, batch, cfg, phase=phase, bin_coef=bin_coef,
             calvin_multiplier=calvin_multiplier, grad_accum=grad_accum,
-            gen=gen, draws=draws, vl_batch=vl_batch, vl_weight=vl_weight)
+            gen=gen, draws=draws, vl_batch=vl_batch, vl_weight=vl_weight,
+            layout=layout)
         flat = flat_leaves(state.params)
         grads = {k: torch.zeros_like(flat[k]) if g is None else g
                  for k, g in grads.items()}
-        return _apply_update(optimizer, state, grads, loss, metrics)
+        return _apply_update(optimizer, state, grads, loss, metrics, layout)
 
     return step
 
 
 def make_train_step(cfg: DeerConfig, optimizer: GroupedAdamW, *,
                     phase: str = "joint", bin_coef: float = 0.01,
-                    calvin_multiplier: float = 1.0, grad_accum: int = 1):
+                    calvin_multiplier: float = 1.0, grad_accum: int = 1,
+                    layout: Optional[Layout] = None):
     """``step(state, batch, gen=None, draws=None) -> (state, metrics)``.
 
     batch: image, gripper (B*W, 1, 1, 3, H, W); input_ids, attention_mask
@@ -241,10 +332,12 @@ def make_train_step(cfg: DeerConfig, optimizer: GroupedAdamW, *,
     masters and are updated in place, so the state passed in is the state
     returned.  ``calvin_multiplier`` scales the loss before the gradient;
     the logged loss is the scaled one (train_utils.py:549).  ``gen`` may be
-    a ``RowShard`` (data parallel: the global batch's draws)."""
+    a ``RowShard`` (data parallel: the global batch's draws).  ``layout``:
+    the fsdp x tp step over this rank's shards (the module docstring); the
+    batch is this rank's data shard, equal on the ranks of a tp group."""
     inner = _make_step(cfg, optimizer, phase=phase, bin_coef=bin_coef,
                        calvin_multiplier=calvin_multiplier,
-                       grad_accum=grad_accum)
+                       grad_accum=grad_accum, layout=layout)
 
     def step(state: TrainState, batch: Dict,
              gen: Optional[Union[torch.Generator, RowShard]] = None,
