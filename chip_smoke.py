@@ -77,8 +77,9 @@ deleted after).  The head families (ROADMAP M10b) run on the same draw with
 heads of their own (``head_weights``): ``serve_heads`` (gpt, fc under
 vit_concat and diffusion at B=1 / B=8 over a six-decade threshold sweep;
 gpt also through ``DeerPolicy`` against the scan engine; the diffusion
-model's feature step, its DDIM and DDPM plans timed with their CUDA launches
-profiled, and ``DiffusionSamplerPolicy`` plans), ``cross_check_heads`` (gpt
+model's feature step, its DDIM plan timed with its CUDA launches
+profiled, ``DiffusionSamplerPolicy`` DDIM plans and one DDPM plan, timed),
+``cross_check_heads`` (gpt
 and fc a full-depth bf16 step against fp32 on the CPU; the U-Net and a DDIM
 plan on the card against the CPU with the same noise), ``calibrate_heads``
 (gpt and diffusion in both regimes, the realized mix on the samples against
@@ -115,6 +116,21 @@ bf16 step against fp32 on the card, and ``cli/eval --debug --model
 llama_9b``.  Every K2-K4 shape the driven paths launch must be one a
 phase checked (``k2_shapes``).  A line before the kernels line gives the
 script's total seconds.
+
+The serving artifact (ROADMAP M14b) runs right after the serve phases, on
+their draw: ``export_3b`` (eight child processes of this script at once
+trace and save deer_3b at 4 ViT and 4 decoder layers, full width, in bf16,
+int8 and int4 at B=1 and B=8 (``serving/export.export_policy``, K1-K4 as
+``deer::`` operator nodes), and deer_tiny traced on the CPU and on the
+card; then each artifact is loaded (``ExportedScanPolicy``) against the
+serve draw cut to that depth and served 8 steps beside the live engine:
+exits identical, actions, carries and hidden states bit-equal, at least two
+exit layers, the same K1-K4 launches, every launch's shape recorded for
+``k1_shapes`` / ``k2_shapes`` as the live engine's are (each wrapper's
+``observer``: ``k1_calls``, ``k2_calls``); the int4 B=1 artifact also as a bundle
+through ``BundledScanPolicy``; deer_tiny traced on the CPU takes the card
+trace's exits on the card, and its fp32 K2 shapes are held against the
+plain version).
 
 Deployment (ROADMAP M14, M9b) runs on the same deer_3b draw after
 calibration: ``serve_http`` (``make_server`` on 127.0.0.1 around
@@ -667,26 +683,39 @@ def k1_key(q, k, bias) -> tuple:
 
 
 @contextlib.contextmanager
-def k1_calls(seen: set, keep: dict = None):
-    """While open, adds the ``k1_key`` of every K1 call the models make on
-    the card (they reach K1 through ``ops.attention``) to ``seen``, and
-    keeps each key's first inputs in ``keep`` when given."""
-    from deer_vla_tpu_torch.ops import attention
-    kernel = attention.flash_attention
+def observed(fn, record):
+    """While open, ``record`` is called with the inputs of every launch of
+    ``fn``'s kernel (the wrapper's ``observer``, called where it counts the
+    launch: the live engine's calls and an exported program's operator
+    calls alike), then the observer that was set before."""
+    before = fn.observer
 
-    def logged(q, k, v, bias=None, scale=None):
-        if q.is_cuda:
-            key = k1_key(q, k, bias)
-            seen.add(key)
-            if keep is not None and key not in keep:
-                keep[key] = detached(q, k, v, bias) + (scale,)
-        return kernel(q, k, v, bias=bias, scale=scale)
+    def both(*inputs):
+        record(*inputs)
+        if before is not None:
+            before(*inputs)
 
-    attention.flash_attention = logged
+    fn.observer = both
     try:
-        yield seen
+        yield
     finally:
-        attention.flash_attention = kernel
+        fn.observer = before
+
+
+@contextlib.contextmanager
+def k1_calls(seen: set, keep: dict = None):
+    """While open, adds the ``k1_key`` of every K1 launch to ``seen``, and
+    keeps each key's first inputs in ``keep`` when given."""
+    from deer_vla_tpu_torch.ops.kernels import flash_attention as fa
+
+    def record(q, k, v, bias, scale):
+        key = k1_key(q, k, bias)
+        seen.add(key)
+        if keep is not None and key not in keep:
+            keep[key] = detached(q, k, v, bias) + (scale,)
+
+    with observed(fa.flash_attention, record):
+        yield seen
 
 
 def detached(*ts) -> tuple:
@@ -707,56 +736,37 @@ def snapshot(*ts) -> tuple:
 @contextlib.contextmanager
 def k1_backward_calls(keep: dict):
     """While open, keeps the last inputs of each ``k1_key`` of every K1
-    backward that training runs on the card (the autograd function of
-    ``ops/kernels/flash_attention`` calls ``flash_attention_backward`` with
-    the row statistics its forward saved), copied, in ``keep``: the last,
-    because the cross-attention's gates start at zero, so its first
-    upstream gradients are all zero.  The wrapper counts by its module
-    name, so while this is open its launches land on the logging wrapper,
-    and go back to it after."""
+    backward launch (the operator's gradient calls
+    ``flash_attention_backward`` with the row statistics its forward
+    saved), copied, in ``keep``: the last, because the cross-attention's
+    gates start at zero, so its first upstream gradients are all zero."""
     from deer_vla_tpu_torch.ops.kernels import flash_attention as fa
-    kernel = fa.flash_attention_backward
 
-    def logged(q, k, v, bias, out, dout, scale=None, stats=None):
-        if q.is_cuda:
-            keep[k1_key(q, k, bias)] = snapshot(q, k, v, bias, out, dout) \
-                + (scale,) + snapshot(stats)
-        return kernel(q, k, v, bias, out, dout, scale, stats)
+    def record(q, k, v, bias, out, dout, scale, stats):
+        keep[k1_key(q, k, bias)] = snapshot(q, k, v, bias, out, dout) \
+            + (scale,) + snapshot(stats)
 
-    logged.__name__ = kernel.__name__
-    logged.launches = kernel.launches
-    fa.flash_attention_backward = logged
-    try:
+    with observed(fa.flash_attention_backward, record):
         yield keep
-    finally:
-        fa.flash_attention_backward = kernel
-        kernel.launches = logged.launches
 
 
 @contextlib.contextmanager
 def k2_calls(seen: set):
     """While open, adds (kernel, m, k, n, x dtype) of every K2 / K3 / K4
-    call the models make on the card (the stacked MPT block reaches them
-    through ``models.mpt``) to ``seen``."""
-    from deer_vla_tpu_torch.models import mpt
-    names = ("indexed_matmul", "indexed_matmul_q8", "indexed_matmul_q4")
-    kernels = {name: getattr(mpt, name) for name in names}
+    launch to ``seen``."""
+    from deer_vla_tpu_torch.ops.kernels import indexed_matmul as imm
 
-    def logged(name):
-        def call(x, *stack, **kw):
-            if x.is_cuda:
-                seen.add((name, x.numel() // x.shape[-1], x.shape[-1],
-                          stack[0].shape[-1], str(x.dtype)[6:]))
-            return kernels[name](x, *stack, **kw)
-        return call
+    def record(name):
+        def add(x, w):
+            seen.add((name, x.numel() // x.shape[-1], x.shape[-1],
+                      w.shape[-1], str(x.dtype)[6:]))
+        return add
 
-    for name in names:
-        setattr(mpt, name, logged(name))
-    try:
+    with contextlib.ExitStack() as stack:
+        for name in ("indexed_matmul", "indexed_matmul_q8",
+                     "indexed_matmul_q4"):
+            stack.enter_context(observed(getattr(imm, name), record(name)))
         yield seen
-    finally:
-        for name, fn in kernels.items():
-            setattr(mpt, name, fn)
 
 
 def vit_strided_qkv(torch, streams: int, dt, images: int = None):
@@ -1344,8 +1354,8 @@ def first_layers(params: dict, cfg) -> dict:
 
 
 def kernel_counters():
-    """Each kernel wrapper by name: the object its ``launches`` count is on
-    (``k1_backward_calls``'s logging wrapper while that is open)."""
+    """Each kernel wrapper by name: the object its ``launches`` count is
+    on."""
     from deer_vla_tpu_torch.ops.kernels import flash_attention as fa
     from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
         indexed_matmul, indexed_matmul_q4, indexed_matmul_q8)
@@ -3569,8 +3579,8 @@ def plan_inputs(torch, np, sampler, b: int, seed: int, device):
 def profiled_launches(torch, fn) -> dict:
     """CUDA kernels launched by one ``fn()`` and their busy time
     (torch.profiler, the device's activity only: the host's op events, a
-    few for each of the DDPM plan's 123,000 launches, cost more to collect
-    than the plan), beside its host-clock time."""
+    few for each of a long plan's launches, cost more to collect than the
+    plan), beside its host-clock time."""
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3593,9 +3603,11 @@ def phase_diffusion_plans(torch, np, cfg, p, pol) -> dict:
     DDIM_STEPS U-Net evaluations is timed on the host clock (median of 5
     after one), profiled once for its CUDA launches, and runs 4 steps of
     ``DiffusionSamplerPolicy`` around the engine; the full 150-evaluation
-    DDPM chain runs once through the wrapper (its step less the feature
-    step's median is its plan time) and is profiled once.  Each wrapper
-    step gives a finite (W - hist, 7) plan with the gripper at +-1."""
+    DDPM chain (``models/diffusion.conditional_sample``) runs once through
+    the wrapper (its step less the feature step's median is its plan
+    time), unprofiled for the script's time limit (the profile of its
+    123,000 launches took most of 20 s).  Each wrapper step gives a finite
+    (W - hist, 7) plan with the gripper at +-1."""
     from deer_vla_tpu_torch.eval.diffusion_policy import \
         DiffusionSamplerPolicy
     from deer_vla_tpu_torch.models.diffusion import sampler_steps
@@ -3642,19 +3654,20 @@ def phase_diffusion_plans(torch, np, cfg, p, pol) -> dict:
         check(all(a.shape == (rows, 7) and bool(np.isfinite(a).all())
                   and set(a[:, 6].tolist()) <= {-1.0, 1.0} for a in plans),
               f"{kind}: sampler plans {[a.shape for a in plans]}")
+        evals = sampler_steps(s.dcfg, steps)
+        record = {"unet_evaluations": evals, "sampler_step_ms": step_ms,
+                  "sampler_plan_rows": rows}
         if kind == "ddpm":
             ms = [step_ms[0] - feat_median]
-        prof = profiled_launches(torch, plan)
-        evals = sampler_steps(s.dcfg, steps)
-        out["plans"][kind] = {
-            "unet_evaluations": evals, "plan_ms": ms,
-            "plan_median_ms": statistics.median(ms),
-            "sampler_step_ms": step_ms,
-            "launches_per_plan": prof["kernel_launches"],
-            "launches_per_unet": prof["kernel_launches"] / evals,
-            "device_busy_ms": prof["device_busy_ms"],
-            "profiled_wall_ms": prof["profiled_wall_ms"],
-            "sampler_plan_rows": rows}
+        else:
+            prof = profiled_launches(torch, plan)
+            record.update(
+                launches_per_plan=prof["kernel_launches"],
+                launches_per_unet=prof["kernel_launches"] / evals,
+                device_busy_ms=prof["device_busy_ms"],
+                profiled_wall_ms=prof["profiled_wall_ms"])
+        out["plans"][kind] = dict(record, plan_ms=ms,
+                                  plan_median_ms=statistics.median(ms))
     emit(out)
     return out
 
@@ -3723,8 +3736,8 @@ def phase_serve_heads(torch, np, cfg, base: dict, serve: dict) -> list:
             plans = phase_diffusion_plans(torch, np, hcfg, p, pol)
             results.append(plans)
             summary[name]["plans"] = {k: {x: v[x] for x in (
-                "plan_median_ms", "launches_per_plan", "unet_evaluations")}
-                for k, v in plans["plans"].items()}
+                "plan_median_ms", "launches_per_plan", "unet_evaluations")
+                if x in v} for k, v in plans["plans"].items()}
         del pol, p
         gc.collect()
         torch.cuda.empty_cache()
@@ -5185,6 +5198,266 @@ def phase_profiling(torch, np, policy) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving artifact (ROADMAP M14b): serving/export.py, cli/export
+# ---------------------------------------------------------------------------
+
+# export_3b: each mode at B=1 and B=8, traced and saved by a child process
+# each, all at once (a trace costs the host milliseconds a graph node, one
+# core each), then served by this process EXPORT_STEPS steps against the
+# live engine (the sweep's thresholds, one row a step); deer_tiny traced on
+# the CPU and on the card by two more children
+EXPORT_RUNS = ((None, 1), (None, 8), ("int8", 1), ("int8", 8), ("int4", 1),
+               ("int4", 8), ("tiny", "cpu"), ("tiny", "cuda"))
+EXPORT_STEPS = 8
+EXPORT_CHILD_TIMEOUT_S = 400
+# the depth the artifacts are exported at: EXPORT_VIT_DEPTH ViT and
+# EXPORT_DEPTH decoder layers (exits [1, 3]) at full width
+EXPORT_DEPTH = 4
+EXPORT_VIT_DEPTH = 4
+
+
+def export_config():
+    from deer_vla_tpu_torch.core.config import deer_3b
+    return cut_depth(deer_3b(), EXPORT_DEPTH, EXPORT_VIT_DEPTH)
+
+
+def export_path(root: str, rank: int) -> str:
+    quantize, b = EXPORT_RUNS[rank]
+    name = (f"deer_tiny_{b}" if quantize == "tiny"
+            else f"deer_3b_{quantize or 'bf16'}_b{b}")
+    return str(Path(root) / f"{name}.step")
+
+
+def child_export(torch, rank: int, root: str) -> dict:
+    """One export of export_3b: EXPORT_RUNS[rank] traced
+    (``export_policy``) on a seeded draw of its config (the programs hold
+    no weights, so any draw of the same shapes gives the same programs)
+    and saved; its seconds and nodes."""
+    from deer_vla_tpu_torch.core.config import deer_tiny
+    from deer_vla_tpu_torch.models.flamingo import init_deer
+    from deer_vla_tpu_torch.serving.export import (export_policy,
+                                                   save_exported)
+    quantize, b = EXPORT_RUNS[rank]
+    if quantize == "tiny":  # b is the device the programs are traced on
+        cfg = deer_tiny()
+        params = init_deer(cfg, seed=SEED, device="cpu")
+        kw = dict(platforms=("cpu", "gpu"), device=b)
+    else:
+        cfg = export_config()
+        params = init_deer(cfg, seed=SEED, device="cuda")
+        kw = dict(batch_size=b, platforms=("gpu",), quantize=quantize)
+    t0 = time.perf_counter()
+    programs, meta = export_policy(params, cfg, **kw)
+    t1 = time.perf_counter()
+    save_exported(export_path(root, rank), programs, meta)
+    return {"export_seconds": t1 - t0,
+            "save_seconds": time.perf_counter() - t1,
+            "program_nodes": sum(len(ep.graph.nodes)
+                                 for ep in programs.values())}
+
+
+def same_carry(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def served_pair(torch, np, cfg, live, aot, b: int, seed: int) -> dict:
+    """EXPORT_STEPS steps of ``aot`` (the artifact) and ``live`` at B=``b``
+    from a reset, each step's threshold row the sweep's: exits equal,
+    actions, carries and last hidden states bit-equal.  Each side's host
+    ms and K1-K4 launches."""
+    counters = kernel_counters()
+    n_exits = len(live.exits)
+    live.reset(), aot.reset()
+    out = {"exit_layers": [], "step_ms": [], "live_step_ms": [],
+           "launches": dict.fromkeys(counters, 0),
+           "live_launches": dict.fromkeys(counters, 0)}
+    for s in range(EXPORT_STEPS):
+        th = [SWEEP[s]] * n_exits
+        live.set_thresholds(th), aot.set_thresholds(th)
+        args = make_policy_inputs(np, cfg, b, seed + s)
+        got = {}
+        for side, pol in (("", aot), ("live_", live)):
+            for f in counters.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            if b == 1:
+                got[side] = (pol.step(*args), [pol.last_exit_layer])
+            else:
+                acts, exits = pol.step_batch(*args)
+                got[side] = (acts, exits.tolist())
+            out[side + "step_ms"].append((time.perf_counter() - t0) * 1e3)
+            for name, f in counters.items():
+                out[side + "launches"][name] += f.launches
+        check(got[""][1] == got["live_"][1]
+              and np.array_equal(got[""][0], got["live_"][0])
+              and same_carry(torch, aot.carry, live.carry)
+              and torch.equal(aot.last_hidden, live.last_hidden),
+              f"artifact B={b} step {s}: exits {got[''][1]} against the "
+              f"live engine's {got['live_'][1]}, or actions / carry differ")
+        out["exit_layers"].append(got[""][1])
+    out["b"] = b
+    out["median_ms"] = statistics.median(out["step_ms"])
+    out["live_median_ms"] = statistics.median(out["live_step_ms"])
+    return out
+
+
+def cross_device_tiny(torch, np, root: str, checked: set) -> dict:
+    """deer_tiny traced on the CPU loads onto the card (its programs moved
+    by ``move_to_device_pass``) and takes the exits of the same artifact
+    traced on the card, over a threshold sweep; its K2 shapes (fp32, tiny)
+    are held against the plain version and join ``checked``."""
+    from deer_vla_tpu_torch.core.config import deer_tiny
+    from deer_vla_tpu_torch.models.flamingo import init_deer
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import (
+        indexed_matmul, indexed_matmul_reference)
+    from deer_vla_tpu_torch.serving.export import ExportedScanPolicy
+    cfg = deer_tiny()
+    params = init_deer(cfg, seed=SEED, device="cpu")
+    pols = {where: ExportedScanPolicy(export_path(root, rank), params, cfg)
+            for rank, (kind, where) in enumerate(EXPORT_RUNS)
+            if kind == "tiny"}
+    seen = set()
+    exits, err = {"cpu": [], "cuda": []}, 0.0
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    with k2_calls(seen):
+        for s, th in enumerate(([1e8, 1e8], [-1e8, 1e8], [1e-3, 1e8],
+                                [1e-2, 1e8])):
+            args = make_policy_inputs(np, cfg, 1, 900 + s)
+            acts = {}
+            for where, pol in pols.items():
+                pol.set_thresholds(th)
+                acts[where] = pol.step(*args)
+                exits[where].append(pol.last_exit_layer)
+            err = max(err, float(np.abs(acts["cpu"] - acts["cuda"]).max()))
+    launches = {name: f.launches for name, f in counters.items()}
+    check(exits["cpu"] == exits["cuda"] and len(set(exits["cuda"])) > 1,
+          f"deer_tiny traced on the CPU took exits {exits['cpu']} on the "
+          f"card, the card's trace {exits['cuda']}")
+    rows = []
+    idxs = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(12)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for kernel, m, kk, n, dts in sorted(seen):
+        check(kernel == "indexed_matmul", f"deer_tiny ran {kernel}")
+        dt = getattr(torch, dts)
+        x = torch.randn(m, kk, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(12, kk, n, generator=gen, device="cuda")
+             * kk ** -0.5).to(dt)
+        rows.append(indexed_case(
+            torch, kernel, f"deer_tiny_{m}x{kk}x{n}_{dts}", x, n,
+            (kk * n + m * kk + m * n) * x.element_size(),
+            lambda i: indexed_matmul(x, w, i),
+            lambda i: indexed_matmul_reference(x, w, i),
+            lambda i: x @ w[i], idxs, checked))
+    return {"exit_layers": exits["cuda"], "cpu_traced_max_abs_diff": err,
+            "launches": launches, "k2_cases": rows}
+
+
+def phase_export_3b(torch, np, cfg, params) -> dict:
+    """The serving artifact: each mode of deer_3b at B=1 and B=8 at
+    EXPORT_VIT_DEPTH ViT and EXPORT_DEPTH decoder layers, full width,
+    traced and saved by a child process each (``child_export``, all at
+    once), then loaded here (``ExportedScanPolicy``) against the serve
+    phase's draw cut to that depth (its cross-attention gates drawn, so
+    the exits differ by step) and served EXPORT_STEPS steps against the
+    live ``ScanDeerPolicy(indexed_mm=True)`` on the same inputs
+    (``served_pair``), every K1-K4 call of the artifact recorded; the int4
+    B=1 artifact also as a bundle (the live engine's packed trees written
+    beside it) through ``BundledScanPolicy``; deer_tiny traced on the CPU
+    served on the card (``cross_device_tiny``).  All of it under a
+    temporary directory, deleted after."""
+    import tempfile
+
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.ops.quant import tree_bytes
+    from deer_vla_tpu_torch.serving.export import (BundledScanPolicy,
+                                                   ExportedScanPolicy,
+                                                   artifact_bytes,
+                                                   save_weights)
+    t_phase = time.perf_counter()
+    ecfg = export_config()
+    eparams = first_layers(params, ecfg)
+    k1_seen, k2_seen, checked = set(), set(), set()
+    runs, tmp = [], tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        t0 = time.perf_counter()
+        children = run_children("export", len(EXPORT_RUNS),
+                                EXPORT_CHILD_TIMEOUT_S, store=tmp)
+        children_s = time.perf_counter() - t0
+        live = None
+        for rank, (quantize, b) in enumerate(EXPORT_RUNS):
+            if quantize == "tiny":
+                continue
+            mode = quantize or "bf16"
+            if live is None or live.quantize != quantize:
+                del live
+                gc.collect()
+                torch.cuda.empty_cache()
+                live = ScanDeerPolicy(eparams, ecfg, indexed_mm=True,
+                                      quantize=quantize)
+            path = export_path(tmp, rank)
+            t0 = time.perf_counter()
+            aot = ExportedScanPolicy(path, eparams, ecfg, quantize=quantize)
+            load_s = time.perf_counter() - t0
+            with k1_calls(k1_seen), k2_calls(k2_seen):
+                run = served_pair(torch, np, ecfg, live, aot, b, 800)
+            run.update(children[rank], mode=mode, load_seconds=load_s,
+                       artifact_bytes=artifact_bytes(path),
+                       weight_bytes=tree_bytes(aot.params)
+                       + tree_bytes(aot.stacked))
+            every = {e for row in run["exit_layers"] for e in row}
+            check(len(every) > 1, f"artifact {mode} B={b}: every step "
+                                  f"exited at {every}")
+            decoder = DECODER_KERNEL[quantize]
+            check(run["launches"]["flash_attention"] > 0
+                  and run["launches"][decoder] > 0
+                  and run["launches"] == run["live_launches"],
+                  f"artifact {mode} B={b}: launches {run['launches']} "
+                  f"against the live engine's {run['live_launches']}")
+            del aot
+            if quantize == "int4" and b == 1:
+                t0 = time.perf_counter()
+                save_weights(path, live)
+                write_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                bundled = BundledScanPolicy(path)
+                bundle_load_s = time.perf_counter() - t0
+                brun = served_pair(torch, np, ecfg, live, bundled, b, 870)
+                run["bundle"] = {
+                    "write_seconds": write_s, "load_seconds": bundle_load_s,
+                    "weights_file_bytes":
+                        Path(path + ".weights").stat().st_size,
+                    "exit_layers": brun["exit_layers"],
+                    "step_ms": brun["step_ms"],
+                    "median_ms": brun["median_ms"],
+                    "launches": brun["launches"]}
+                del bundled
+            runs.append(run)
+        del live
+        gc.collect()
+        torch.cuda.empty_cache()
+        tiny = cross_device_tiny(torch, np, tmp, checked)
+        tiny["children"] = [c for c, (kind, _) in zip(children, EXPORT_RUNS)
+                            if kind == "tiny"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "export_3b", "config": "deer_3b",
+           "depth": {"vit": EXPORT_VIT_DEPTH, "decoder": EXPORT_DEPTH},
+           "children_seconds": children_s,
+           "artifacts": runs, "deer_tiny_cpu_to_card": tiny,
+           "k1_keys": sorted(map(str, k1_seen)),
+           "k2_keys": sorted(map(str, k2_seen)),
+           "seconds": time.perf_counter() - t_phase,
+           "launches": {name: sum(r["launches"][name] for r in runs)
+                        for name in runs[0]["launches"]}}
+    emit(out)
+    out["k2_checked"] = checked
+    return out
+
+
 def drive_tooling(torch, np, cfg) -> list:
     """The tooling phases, on the training phase's checkpoints (before
     they are deleted): convert_3b, bayes_opt_3b, eval_ckpts, then
@@ -5250,6 +5523,7 @@ def drive_paths(torch, np, cfg) -> tuple:
     serve = phase_serve(torch, np, cfg, pol)
     quantized = phase_serve_quantized(torch, np, cfg, params,
                                       serve["stacked_bytes"])
+    export = phase_export_3b(torch, np, cfg, params)
     cpu_params = to_torch(params, "cpu")
     phase_cross_check(torch, np, cfg, params, cpu_params, pol)
     deer = DeerPolicy(params, cfg, controller=ExitController(
@@ -5291,7 +5565,7 @@ def drive_paths(torch, np, cfg) -> tuple:
     check(piped == plain, f"--pipeline 2 --env_workers 2 changed the "
                           f"report: {piped} against {plain}")
     rollouts["rollout_tcp"] = phase_rollout_tcp(torch, np)
-    paths = variants + list(rollouts.values()) + [
+    paths = [export] + variants + list(rollouts.values()) + [
         phase_train(torch, np), phase_train_eval(torch, np),
         phase_serve_cli(torch, np)]
     paths += drive_tooling(torch, np, cfg)
@@ -6177,14 +6451,16 @@ def phase_pretrain_cross_check(torch, np) -> dict:
 
 
 def run_children(name: str, ranks: int = SCALE_RANKS,
-                 timeout_s: float = SCALE_CHILD_TIMEOUT_S) -> list:
+                 timeout_s: float = SCALE_CHILD_TIMEOUT_S,
+                 store: str = None) -> list:
     """``ranks`` processes of this script (``--child name rank store``) on
-    the card, joined through a file store; each must exit 0 with a
-    CHILD_RESULT line within ``timeout_s``.  Their results, in rank
-    order."""
-    SCALE_DIR.mkdir(parents=True, exist_ok=True)
-    store = SCALE_DIR / f"{name}.store"
-    store.unlink(missing_ok=True)
+    the card, joined through a file store (or given ``store``, a path
+    they share); each must exit 0 with a CHILD_RESULT line within
+    ``timeout_s``.  Their results, in rank order."""
+    if store is None:
+        SCALE_DIR.mkdir(parents=True, exist_ok=True)
+        store = SCALE_DIR / f"{name}.store"
+        store.unlink(missing_ok=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for rank in range(ranks):
@@ -6366,8 +6642,10 @@ def child_train(torch, np, rank: int, store: str) -> dict:
 
 
 def child_main(name: str, rank: int, store: str) -> int:
-    """A child of the two-rank phases: joins the group (serving: here;
-    training: through cli/train), runs, prints one CHILD_RESULT line."""
+    """A child of the multi-process phases: joins the group (serving: here;
+    training: through cli/train) or exports one artifact into the
+    directory ``store`` (``child_export``), prints one CHILD_RESULT
+    line."""
     import torch
     if not torch.cuda.is_available():
         return 1
@@ -6385,6 +6663,8 @@ def child_main(name: str, rank: int, store: str) -> int:
         res = {"serve": child_tp_serve(torch, np, rank),
                "train": child_tp_train(torch, np, rank)}
         multihost.shutdown()
+    elif name == "export":
+        res = child_export(torch, rank, store)
     else:
         res = child_train(torch, np, rank, store)
     print("CHILD_RESULT " + json.dumps({"ok": True, "rank": rank, **res}),
@@ -7009,6 +7289,8 @@ def main() -> int:
         with k1_calls(k1_seen, keep=vl_inputs):
             paths += drive_vl(torch, np, cfg)
             paths += drive_scale_out(torch, np, k1_seen, k2_seen)
+    export = next(r for r in paths if r["phase"] == "export_3b")
+    summary["k2_checked"] |= export.pop("k2_checked")
     summary["k1_vl"] = phase_k1_vl(torch, vl_inputs, summary["k1_checked"])
     summary["k1_backward"] = phase_k1_backward(torch, bwd_inputs)
     unchecked = k1_seen - summary["k1_checked"]

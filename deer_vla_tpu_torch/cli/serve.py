@@ -15,10 +15,15 @@ stem) solved at ``--exit_ratio``, or full depth with a warning.
 ``--batch_lanes N`` serves through the micro-batching core
 (``serving/batcher.py``); ``--quantize`` runs the decoder through K3 / K4.
 
+``--artifact`` serves the exported programs of ``cli/export`` against the
+checkpoint's (or the seeded) weights; ``--bundle`` serves an artifact with
+its packed weights (``cli/export --bundle``), with no checkpoint and no
+model-building Python (``serving/export.py``).  Both bake the batch size,
+so ``--batch_lanes`` refuses them.
+
 ``main(argv, device=None)`` serves on the card; ``device="cpu"`` runs the
-plain versions on the CPU.  The AOT artifact (``--artifact``, ``--bundle``)
-waits for ROADMAP.md M14b and a transformers tokenizer for M9: those flags
-raise SystemExit naming the item.
+plain versions on the CPU.  ``--tokenizer_path`` waits for a transformers
+tokenizer (ROADMAP.md M9) and raises SystemExit naming the item.
 """
 
 from __future__ import annotations
@@ -33,9 +38,6 @@ from deer_vla_tpu_torch.utils.errors import record
 # JAX flags not served yet: (flag, ROADMAP.md item); a non-empty value
 # raises
 UNSERVED = (
-    ("--artifact", "M14b (the serving artifact: serving/export, "
-                   "cli/export)"),
-    ("--bundle", "M14b (the serving artifact: serving/export, cli/export)"),
     ("--tokenizer_path", "M9 (a transformers tokenizer)"),
 )
 
@@ -47,6 +49,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--evaluate_from_checkpoint", default="")
     p.add_argument("--model", default="tiny", choices=sorted(MODELS),
                    help="config name when no checkpoint is given")
+    p.add_argument("--artifact", default="",
+                   help="serving artifact (cli/export): the exported "
+                        "programs, run against the checkpoint's weights")
+    p.add_argument("--bundle", default="",
+                   help="self-contained bundle (cli/export --bundle): "
+                        "artifact + packed weights, no checkpoint and no "
+                        "model-building Python on this host")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max_streams", type=int, default=64)
@@ -117,28 +126,59 @@ def build_core(args, device=None):
     from deer_vla_tpu_torch.serving.server import DeerActionServer
 
     check_served(args)
-    if args.batch_lanes > 0 and args.tcp_rel:  # before drawing weights
+    # before drawing weights
+    if args.batch_lanes > 0 and (args.artifact or args.bundle):
+        raise SystemExit("--batch_lanes serves the live engine only (an "
+                         "artifact bakes a fixed batch; export with --batch "
+                         "matching and use the per-stream core)")
+    if args.batch_lanes > 0 and args.tcp_rel:
         raise SystemExit("--batch_lanes does not apply the tcp->world "
                          "action-frame conversion; serve tcp_rel models "
                          "with the per-stream core")
     dev = resolve_device(device)
-    cfg, params = load_model(args, dev)
-    tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size, max_length=cfg.text_len)
-    cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
-    if args.vit_tome_r > 0:  # weight-free, so safe after loading
-        cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
-            cfg.vit, tome_r=args.vit_tome_r))
-    if args.gripper_res >= 0:  # -1 keeps the (sidecar) config's
-        if args.gripper_res % cfg.vit.patch_size:
-            raise SystemExit(f"--gripper_res must be a multiple of the ViT "
-                             f"patch size {cfg.vit.patch_size}")
-        cfg = dataclasses.replace(cfg, gripper_res=args.gripper_res)
-    quantize = None if args.quantize == "none" else args.quantize
-    policy = ScanDeerPolicy(
-        params, cfg, threshold_type=args.threshold_type,
-        max_layer=args.max_layer if args.max_layer > 0 else None,
-        steps_per_stage=args.steps_per_stage,
-        indexed_mm=cfg.mpt.arch == "mpt", quantize=quantize, device=dev)
+    if args.bundle:
+        # the bundle's config and packed weights; the tokenizer is rebuilt
+        # from its config
+        from deer_vla_tpu_torch.serving.export import BundledScanPolicy
+        policy = BundledScanPolicy(args.bundle,
+                                   steps_per_stage=args.steps_per_stage,
+                                   device=dev)
+        cfg, params = policy.cfg, None
+        tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size,
+                            max_length=cfg.text_len)
+        if tok.media_token_id != cfg.media_token_id:
+            raise SystemExit(
+                f"bundle media_token_id {cfg.media_token_id} != tokenizer's "
+                f"{tok.media_token_id}: serve with the tokenizer the model "
+                "was trained with")
+        if cfg.head_type == "diffusion":
+            raise SystemExit("diffusion-head serving needs the U-Net "
+                             "params; serve from the checkpoint instead of a "
+                             "bundle")
+    else:
+        cfg, params = load_model(args, dev)
+        tok = HashTokenizer(vocab_size=cfg.mpt.vocab_size,
+                            max_length=cfg.text_len)
+        cfg = dataclasses.replace(cfg, media_token_id=tok.media_token_id)
+        if args.vit_tome_r > 0:  # weight-free, so safe after loading
+            cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
+                cfg.vit, tome_r=args.vit_tome_r))
+        if args.gripper_res >= 0:  # -1 keeps the (sidecar) config's
+            if args.gripper_res % cfg.vit.patch_size:
+                raise SystemExit(f"--gripper_res must be a multiple of the "
+                                 f"ViT patch size {cfg.vit.patch_size}")
+            cfg = dataclasses.replace(cfg, gripper_res=args.gripper_res)
+        quantize = None if args.quantize == "none" else args.quantize
+        kw = dict(threshold_type=args.threshold_type,
+                  max_layer=args.max_layer if args.max_layer > 0 else None,
+                  steps_per_stage=args.steps_per_stage, quantize=quantize,
+                  device=dev)
+        if args.artifact:
+            from deer_vla_tpu_torch.serving.export import ExportedScanPolicy
+            policy = ExportedScanPolicy(args.artifact, params, cfg, **kw)
+        else:
+            policy = ScanDeerPolicy(params, cfg,
+                                    indexed_mm=cfg.mpt.arch == "mpt", **kw)
     policy.set_thresholds(resolve_thresholds(args, policy))
     diffusion = dict(seed=args.seed, sample_steps=args.diff_steps,
                      ddim_eta=args.ddim_eta)
@@ -194,6 +234,7 @@ def main(argv=None, device: Optional[str] = None) -> int:
     print(json.dumps({"serving": f"http://{host}:{port}",
                       "exits": core.healthz()["exits"],
                       "head_type": cfg.head_type,
+                      "aot": bool(args.artifact or args.bundle),
                       "device": str(core.device)}), flush=True)
     try:
         if args.oneshot_healthz:

@@ -1,14 +1,19 @@
 """Dynamic-exit serving engine: the port of ``eval/scan_policy.py``.
 
 The JAX engine runs the decoder as one ``lax.while_loop``; here the loop is
-a host loop over SEGMENTS (``stride`` layers, then one exit check).  Each
-check ends in one host read of "have all streams exited?", so a step syncs
-at most once per exit (6 times for deer_3b).  The layer index reaches the
-indexed-matmul kernel as a device tensor, so nothing else in the loop
-depends on the host.  The kernels (K2, or K3 / K4 quantized) implement the
-MPT block's four products; a llama decoder (bc_llama) runs each layer's
-slice through ``linear``, as the JAX engine computes it outside any Pallas
-kernel, and refuses ``indexed_mm``.
+a host loop over SEGMENTS (``decode_segments``).  Segment j is a function
+of explicit tensors: it runs the layers after exit j - 1 up to exit j,
+then the exit check (head, delta, commit), and returns the hidden state
+and the exit state (``done``, ``ref``, ``arm``, ``grip``, ``carry``,
+``exit``).  The loop reads "have all streams exited?" once after each
+segment, so a step syncs at most once per exit (6 times for deer_3b).  The
+layer index reaches the indexed-matmul kernel as a device tensor, so
+nothing else in a segment depends on the host, and each segment (and the
+encode prefix) can be exported as one program (``serving/export.py``),
+which the artifact runs in the same loop.  The kernels (K2, or K3 / K4
+quantized) implement the MPT block's four products; a llama decoder
+(bc_llama) runs each layer's slice through ``linear``, as the JAX engine
+computes it outside any Pallas kernel, and refuses ``indexed_mm``.
 
 Semantics kept exactly:
   * the first exit of every timestep compares against the pseudo action
@@ -40,7 +45,7 @@ the exit layers after each step and raises where the ranks differ.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -171,13 +176,45 @@ def folded_window(cfg: DeerConfig) -> int:
             if cfg.fusion_mode == "vit_concat" or cfg.use_hist else 1)
 
 
+class ScanStep(NamedTuple):
+    """What ``build_scan_step`` returns (its docstring has the
+    signatures)."""
+    exits: List[int]
+    encode: Callable
+    decode: Callable
+    encode_frame: Callable
+    decode_tokens: Callable
+    first_segment: Callable
+    segments: Sequence[Callable]
+
+
+def decode_segments(first_segment, segments, params, stacked, media, x,
+                    mloc, mask, carry, thresholds, state=None):
+    """The dynamic-exit decode as a host loop over exit segments:
+    ``first_segment`` (the step's context, then segment 0), then each of
+    ``segments`` (1, 2, ...) until every stream has exited.  The one host
+    read a segment is ``bool(done.all())``.  Returns (arm, grip, carry,
+    exit layer, hidden state after the last layer run).  The live engine
+    and the serving artifact both decode through it, with the same segment
+    functions or the programs exported from them."""
+    x, ctx, st = first_segment(params, stacked, media, mloc, x, mask, carry,
+                               thresholds, state)
+    if not bool(st["done"].all()):
+        for segment in segments:
+            x, st = segment(params, stacked, media, mloc, ctx, thresholds,
+                            x, st)
+            if bool(st["done"].all()):
+                break
+    return st["arm"], st["grip"], st["carry"], st["exit"], x
+
+
 def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
                     threshold_type: str = "L2",
                     max_layer: Optional[int] = None,
-                    indexed_mm: bool = False, tp=None):
-    """Returns (exits, encode, decode, encode_frame, decode_tokens), routed
-    by ``cfg.head_type`` (``models/heads``; for diffusion the "arm" is the
-    chosen exit's conditioning feature and the gripper a zero).
+                    indexed_mm: bool = False, tp=None) -> ScanStep:
+    """A ``ScanStep`` routed by ``cfg.head_type`` (``models/heads``; for
+    diffusion the "arm" is the chosen exit's conditioning feature and the
+    gripper a zero).
 
     ``encode(params, stacked, img, grip, ids, state=None)`` -> (media, x,
     media locations); ``decode(params, stacked, media, x, mloc, mask,
@@ -189,6 +226,16 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
     tokens of the frames given, and ``decode_tokens(params, stacked,
     tok_rgb, tok_grip, ids, mask, carry, thresholds, state=None)`` fuses a
     window of such tokens and decodes (the rolling frame cache).
+
+    ``decode`` is ``decode_segments`` over ``first_segment(params, stacked,
+    media, mloc, x, mask, carry, thresholds, state)`` -> (x, ctx, st) and
+    ``segments[j - 1](params, stacked, media, mloc, ctx, thresholds, x,
+    st)`` -> (x, st) for j >= 1: segment j runs the layers after exit j - 1
+    up to exit j, then the exit check.  ``ctx`` holds the step's attention
+    bias, rope tables (llama), the head's proprio rows and the incoming
+    carry; ``st`` the exit state, a dict of ``done``, ``ref``, ``arm``,
+    ``grip``, ``carry`` and ``exit`` tensors.  Uniformly spaced and
+    non-uniform exits are the same loop.
 
     Window-folded models (``folded_window`` W > 1) take B*W stream-major
     frame rows: 'vit_concat' with B text rows (the window folded into the
@@ -211,15 +258,7 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
         raise ValueError(
             f"max_layer={max_layer} sits below the first exit layer "
             f"{exit_ids[0] + 1} (exit ids {list(exit_ids)})")
-    last_exit = exits[-1]
-    is_exit = np.zeros(cfg.n_layers, bool)
-    is_exit[exits] = True
-    # uniform exit spacing: one segment = `stride` layers + one head check
     seg_bounds = [-1] + exits
-    seg_lens = {seg_bounds[i + 1] - seg_bounds[i] for i in range(len(exits))}
-    use_strided = len(seg_lens) == 1
-    stride = seg_lens.pop() if use_strided else 1
-    n_segments = len(exits)
     xidx = xattn_index(cfg)
     has_xattn = [cfg.has_xattn(i) for i in range(cfg.n_layers)]
     head_key = "lm_head" if cfg.share_exit else "extra_exit"
@@ -244,91 +283,104 @@ def build_scan_step(cfg: DeerConfig, exit_ids: List[int],
         return decode(params, stacked, media, x, ids == cfg.media_token_id,
                       mask, carry, thresholds, state)
 
-    def decode(params, stacked, media, x, mloc, mask, carry, thresholds,
-               state=None):
-        attn_bias = make_attn_bias(mask, cfg.mpt, x.dtype, tp)
-        rope = (rope_tables(x.shape[1], cfg.mpt.head_dim, device=x.device)
-                if llama else None)
-        head = params[head_key]
+    def begin(x, mask, carry, state):
+        """(ctx, st) before the first layer: the step's attention bias, rope
+        tables, head proprio rows and incoming carry (every exit's head
+        steps from it), and the exit state of no exit yet."""
         # streams: the text rows, a window of them each under use_hist
         b = x.shape[0] // (enc_w if cfg.use_hist else 1)
         dev = x.device
         hstate = state
         if state is not None and enc_w > 1 and cfg.fusion_mode == "vit_concat":
             hstate = state.reshape((b, enc_w) + state.shape[1:])[:, -1]
-
-        def eval_head(x_in):
-            if cfg.use_hist:
-                out = any_head_forward(head, x_in.float(), cfg, hstate,
-                                       window=enc_w, last_action=True)
-                cand = carry
-            else:
-                out, cand = any_head_step(head, x_in.float(), carry, cfg,
-                                          hstate)
-            return (out.actions[:, 0].float(), out.gripper_probs[:, 0].float(),
-                    cand)
-
-        def run_layer(i, x):
-            """(layer input == hidden_states[i-1], layer output)."""
-            x_in = x
-            if has_xattn[i]:
-                x = gated_xattn_forward(
-                    layer_slice(stacked["xattn"], int(xidx[i])), x, media,
-                    mloc, heads=cfg.xattn_heads, dim_head=cfg.xattn_dim_head,
-                    only_attend_immediate_media=cfg.only_attend_immediate_media,
-                    tp=tp)
-            if llama:
-                return x_in, llama_block_forward(
-                    layer_slice(stacked["blocks"], i), x, attn_bias, cfg.mpt,
-                    rope)
-            if indexed_mm:
-                return x_in, mpt_block_forward_stacked(
-                    stacked["blocks"], i, x, attn_bias, cfg.mpt,
-                    stacked["layer_idx"][i], tp)
-            return x_in, mpt_block_forward(layer_slice(stacked["blocks"], i),
-                                           x, attn_bias, cfg.mpt, tp)
-
+        ctx = {"attn_bias": make_attn_bias(mask, cfg.mpt, x.dtype, tp),
+               "rope": (rope_tables(x.shape[1], cfg.mpt.head_dim,
+                                    device=x.device) if llama else None),
+               "hstate": hstate, "carry": carry}
         st = {"done": torch.zeros(b, dtype=torch.bool, device=dev),
               "ref": torch.zeros(b, adim, device=dev),
               "arm": torch.zeros(b, adim, device=dev),
               "grip": torch.zeros(b, gdim, device=dev),
               "carry": carry,
               "exit": torch.full((b,), -1, dtype=torch.int32, device=dev)}
+        return ctx, st
 
-        def check(i, is_first, x, x_prev) -> bool:
-            """Speculative head + delta at exit layer i, commit for the
-            streams that take it; True when every stream has exited (the
-            step's one host sync per exit).  Under tp, x is the summed
-            hidden state, equal on every rank, so every rank reads the
-            same answer and leaves the loop at the same layer."""
-            arm, grip, cand = eval_head(x)
-            ref = eval_head(x_prev)[0] if is_first else st["ref"]
-            delta = get_delta(arm, ref, threshold_type)
-            done = st["done"]
-            take = ~done & (delta <= thresholds[..., i])
-            st["ref"] = torch.where(done[:, None], st["ref"], arm)
-            st["arm"] = torch.where(take[:, None], arm, st["arm"])
-            st["grip"] = torch.where(take[:, None], grip, st["grip"])
-            st["carry"] = select_carry(cfg, take, cand, st["carry"])
-            st["exit"] = st["exit"].masked_fill(take, i)
-            st["done"] = done | take
-            return bool(st["done"].all())
-
-        if use_strided:
-            for j in range(n_segments):
-                x_prev = x
-                for off in range(stride):
-                    x_prev, x = run_layer(j * stride + off, x)
-                if check(j * stride + stride - 1, j == 0, x, x_prev):
-                    break
+    def eval_head(params, ctx, x_in):
+        head = params[head_key]
+        if cfg.use_hist:
+            out = any_head_forward(head, x_in.float(), cfg, ctx["hstate"],
+                                   window=enc_w, last_action=True)
+            cand = ctx["carry"]
         else:
-            for i in range(last_exit + 1):
-                x_prev, x = run_layer(i, x)
-                if is_exit[i] and check(i, i == exits[0], x, x_prev):
-                    break
-        return st["arm"], st["grip"], st["carry"], st["exit"], x
+            out, cand = any_head_step(head, x_in.float(), ctx["carry"], cfg,
+                                      ctx["hstate"])
+        return (out.actions[:, 0].float(), out.gripper_probs[:, 0].float(),
+                cand)
 
-    return exits, encode, decode, encode_frame, decode_tokens
+    def run_layer(stacked, i, x, media, mloc, ctx):
+        """Layer i's output (its input is hidden_states[i-1])."""
+        if has_xattn[i]:
+            x = gated_xattn_forward(
+                layer_slice(stacked["xattn"], int(xidx[i])), x, media,
+                mloc, heads=cfg.xattn_heads, dim_head=cfg.xattn_dim_head,
+                only_attend_immediate_media=cfg.only_attend_immediate_media,
+                tp=tp)
+        if llama:
+            return llama_block_forward(layer_slice(stacked["blocks"], i), x,
+                                       ctx["attn_bias"], cfg.mpt,
+                                       ctx["rope"])
+        if indexed_mm:
+            return mpt_block_forward_stacked(
+                stacked["blocks"], i, x, ctx["attn_bias"], cfg.mpt,
+                stacked["layer_idx"][i], tp)
+        return mpt_block_forward(layer_slice(stacked["blocks"], i), x,
+                                 ctx["attn_bias"], cfg.mpt, tp)
+
+    def check(params, ctx, thresholds, i, is_first, x, x_prev, st):
+        """Speculative head + delta at exit layer i, committed for the
+        streams that take it; the new exit state.  Under tp, x is the
+        summed hidden state, equal on every rank, so every rank reads the
+        same ``done`` and leaves the loop at the same layer."""
+        arm, grip, cand = eval_head(params, ctx, x)
+        ref = eval_head(params, ctx, x_prev)[0] if is_first else st["ref"]
+        delta = get_delta(arm, ref, threshold_type)
+        done = st["done"]
+        take = ~done & (delta <= thresholds[..., i])
+        return {"done": done | take,
+                "ref": torch.where(done[:, None], st["ref"], arm),
+                "arm": torch.where(take[:, None], arm, st["arm"]),
+                "grip": torch.where(take[:, None], grip, st["grip"]),
+                "carry": select_carry(cfg, take, cand, st["carry"]),
+                "exit": st["exit"].masked_fill(take, i)}
+
+    def make_segment(j):
+        layers = range(seg_bounds[j] + 1, seg_bounds[j + 1] + 1)
+
+        def segment(params, stacked, media, mloc, ctx, thresholds, x, st):
+            x_prev = x
+            for i in layers:
+                x_prev, x = x, run_layer(stacked, i, x, media, mloc, ctx)
+            return x, check(params, ctx, thresholds, exits[j], j == 0, x,
+                            x_prev, st)
+        return segment
+
+    segment_fns = [make_segment(j) for j in range(len(exits))]
+
+    def first_segment(params, stacked, media, mloc, x, mask, carry,
+                      thresholds, state=None):
+        ctx, st = begin(x, mask, carry, state)
+        x, st = segment_fns[0](params, stacked, media, mloc, ctx,
+                               thresholds, x, st)
+        return x, ctx, st
+
+    def decode(params, stacked, media, x, mloc, mask, carry, thresholds,
+               state=None):
+        return decode_segments(first_segment, segment_fns[1:], params,
+                               stacked, media, x, mloc, mask, carry,
+                               thresholds, state)
+
+    return ScanStep(exits, encode, decode, encode_frame, decode_tokens,
+                    first_segment, segment_fns[1:])
 
 
 class HostInputs:
@@ -396,10 +448,11 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         check_serving_supported(cfg, allow_window_folded=True,
                                 allow_any_head=True)
         exit_ids = list(exit_ids or cfg.all_exit_ids())
+        self.scan_step = build_scan_step(cfg, exit_ids, threshold_type,
+                                         max_layer, indexed_mm=indexed_mm,
+                                         tp=tp)
         (self.exits, self._encode, self._decode, self._encode_frame,
-         self._decode_tokens) = build_scan_step(
-            cfg, exit_ids, threshold_type, max_layer, indexed_mm=indexed_mm,
-            tp=tp)
+         self._decode_tokens) = self.scan_step[:5]
         self.cfg = cfg
         self.tp = tp
         self.check_tp_exits = check_tp_exits
@@ -424,12 +477,15 @@ class ScanDeerPolicy(nn.Module, HostInputs):
     # -- weights -----------------------------------------------------------
     def _register_tree(self, prefix: str, tree):
         """Register every tensor leaf as a buffer named by its path; return
-        the tree with buffer names in place of the tensors."""
+        the tree with buffer names in place of the tensors, its dicts in
+        sorted key order (so the trees an exported program takes do not
+        depend on the order a checkpoint or a draw built them in)."""
         def walk(node, path):
             if node is None:
                 return None
             if isinstance(node, dict):
-                return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+                return {k: walk(node[k], path + (str(k),))
+                        for k in sorted(node, key=str)}
             if isinstance(node, (list, tuple)):
                 return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
             name = "__".join(path)

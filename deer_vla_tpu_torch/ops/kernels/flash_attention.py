@@ -8,18 +8,28 @@ cp.async ring, mma.sync with P kept in registers); in fp32 the first,
 CUDA-core version.  Its bound on the card and what the design does about it
 are noted in that file.
 
-``flash_attention`` launches the kernel for CUDA tensors and raises for
-anything it cannot take; for CPU tensors it runs
+The kernel is the operator ``torch.ops.deer.flash_attention`` (and
+``deer::flash_attention_with_stats``, the same launch writing its row
+statistics), so ``torch.export`` records it as one node; ``flash_attention``
+and ``flash_attention_with_stats`` are its only Python entries.  Its CUDA
+implementation launches the kernel and raises for anything it cannot take,
+counts each launch on ``flash_attention.launches`` and hands the launch's
+inputs (q, k, v, bias, scale, as given) to ``flash_attention.observer``
+where a caller set one (``None`` by default; ``flash_attention_backward``
+has the same pair); its CPU implementation is
 ``flash_attention_reference``, which repeats the TPU kernel's arithmetic
-step by step.
+step by step; its fake implementation gives the output's shape, dtype and
+strides.
 
-On the card, with grad mode on and q, k or v requiring grad, the call goes
-through an autograd function whose backward is the kernel pair of
-``csrc/flash_attention_bwd.cu`` (``flash_attention_backward``; its plain
-version ``flash_attention_backward_reference``).  The TPU kernel has no
-backward; the port's decoder trains through K1 on text of 128 tokens or
-more, and ``--unfreeze_vit`` trains the ViT through it.  A bias that
-requires grad is refused: no model trains one.  In bf16 the forward saves
+With grad mode on and q, k or v requiring grad, ``flash_attention`` calls
+``deer::flash_attention_with_stats``, whose gradient (registered on the
+operator with ``torch.library.register_autograd``) is
+``flash_attention_backward``: on the card the kernel pair of
+``csrc/flash_attention_bwd.cu``, on the CPU its plain version
+``flash_attention_backward_reference``.  The TPU kernel has no backward;
+the port's decoder trains through K1 on text of 128 tokens or more, and
+``--unfreeze_vit`` trains the ViT through it.  A bias that requires grad is
+refused: no model trains one.  In bf16 the forward saves
 each row's max m and 1 / l (``flash_attention_with_stats``: a (2, B, H, Sq)
 fp32 tensor) and the backward reads them instead of recomputing them: a dQ
 kernel (which also writes delta = rowsum(dout * out)) and a dK / dV kernel,
@@ -51,7 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from deer_vla_tpu_torch.ops.kernels.build import function
-from deer_vla_tpu_torch.ops.kernels.guard import check_no_grad
+from deer_vla_tpu_torch.ops.kernels.guard import check_device, check_no_grad
 
 MAX_D = 256
 TC_HEAD_DIMS = (64, 128)  # the bf16 kernel's instantiations
@@ -143,17 +153,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides (see the module note); fp32 with D % 4 == 0, D <= 256.  With
     grad mode on and q, k or v requiring grad, differentiable through
     ``flash_attention_backward``."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, scale)
+    check_device("flash_attention", q)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         check_no_grad("flash_attention", bias)
-        return _FlashAttention.apply(q, k, v, bias, scale)
-    return _forward(q, k, v, bias, scale)
+        return torch.ops.deer.flash_attention_with_stats(q, k, v, bias,
+                                                         scale)[0]
+    return torch.ops.deer.flash_attention(q, k, v, bias, scale)
 
 
 flash_attention.launches = 0
+flash_attention.observer = None
 
 
 def flash_attention_with_stats(q: torch.Tensor, k: torch.Tensor,
@@ -163,18 +174,20 @@ def flash_attention_with_stats(q: torch.Tensor, k: torch.Tensor,
     """``(out, stats)``: K1's output and the row statistics the backward
     reads, (2, B, H, Sq) fp32 (m and 1 / l); on the card the bf16 kernel
     writes them in the same launch, and the fp32 kernel writes none (its
-    backward recomputes them: ``stats`` is None).  No autograd."""
+    backward recomputes them: ``stats`` is None)."""
+    check_device("flash_attention", q)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, scale,
-                                         with_stats=True)
-    return _forward(q, k, v, bias, scale, with_stats=True)
+    return torch.ops.deer.flash_attention_with_stats(q, k, v, bias, scale)
 
 
 def _forward(q, k, v, bias, scale, with_stats=False):
-    """K1's launch; counts on ``flash_attention``.  With ``with_stats``,
-    ``(out, stats)`` (stats None in fp32)."""
+    """The operators' implementation: the plain version for CPU tensors,
+    else K1's launch, counted on ``flash_attention``.  With
+    ``with_stats``, ``(out, stats)`` (stats None in fp32 on the card)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, scale, with_stats)
+    given = (q, k, v, bias, scale)
     bias = _check(q, k, v, bias)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -214,6 +227,8 @@ def _forward(q, k, v, bias, scale, with_stats=False):
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    if flash_attention.observer is not None:
+        flash_attention.observer(*given)
     out = out[..., :d] if out.shape[-1] != d else out
     return (out, stats) if with_stats else out
 
@@ -228,24 +243,68 @@ def _bias_args(bias, q, b, h, sq, sk):
     return bias.data_ptr(), _DTYPE_CODE[bias.dtype], bias.stride()
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K1 forward, saving its row statistics, and
-    ``flash_attention_backward`` reading them; the bias takes no
-    gradient."""
+def _fake_out(q):
+    """The output as the implementation lays it out: on the card in bf16
+    the (B, H, Sq, D) view of a (B, Sq, H, D) buffer (cut from the kernel's
+    head dim), else contiguous."""
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        b, h, sq, d = q.shape
+        dk = kernel_head_dim(d)
+        out = q.new_empty(b, sq, h, dk).transpose(1, 2)
+        return out[..., :d] if dk != d else out
+    return q.new_empty(q.shape)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
-        out, stats = _forward(q, k, v, bias, scale, with_stats=True)
-        ctx.save_for_backward(q, k, v, bias, out, stats)
-        ctx.scale = scale
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, bias, out, stats = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, bias, out, dout,
-                                              ctx.scale, stats)
-        return dq, dk, dv, None, None
+def _fake_stats(q):
+    if q.device.type == "cuda" and q.dtype != torch.bfloat16:
+        return None
+    return q.new_empty((2,) + tuple(q.shape[:3]), dtype=torch.float32)
+
+
+_LIB = torch.library.Library("deer", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? bias, "
+            "float scale) -> Tensor")
+_LIB.define("flash_attention_with_stats(Tensor q, Tensor k, Tensor v, "
+            "Tensor? bias, float scale) -> (Tensor, Tensor?)")
+for _key in ("CPU", "CUDA"):
+    # looked up at call time, so a test may stand in for the launch
+    _LIB.impl("flash_attention",
+              lambda q, k, v, bias, scale: _forward(q, k, v, bias, scale),
+              _key)
+    _LIB.impl("flash_attention_with_stats",
+              lambda q, k, v, bias, scale: _forward(q, k, v, bias, scale,
+                                                    with_stats=True),
+              _key)
+
+
+@torch.library.register_fake("deer::flash_attention")
+def _flash_attention_fake(q, k, v, bias, scale):
+    return _fake_out(q)
+
+
+@torch.library.register_fake("deer::flash_attention_with_stats")
+def _flash_attention_with_stats_fake(q, k, v, bias, scale):
+    return _fake_out(q), _fake_stats(q)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, bias, scale = inputs
+    out, stats = output
+    ctx.save_for_backward(q, k, v, bias, out, stats)
+    ctx.scale = scale
+
+
+def _backward(ctx, dout, dstats):
+    """K1's gradient: ``flash_attention_backward`` given the forward's row
+    statistics; the bias and the statistics take none."""
+    q, k, v, bias, out, stats = ctx.saved_tensors
+    dq, dk, dv = flash_attention_backward(q, k, v, bias, out, dout,
+                                          ctx.scale, stats)
+    return dq, dk, dv, None, None
+
+
+torch.library.register_autograd("deer::flash_attention_with_stats",
+                                _backward, setup_context=_setup_context)
 
 
 def _check_backward(q, k, v, bias, out, dout, stats):
@@ -310,6 +369,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, bias, out, dout,
                                                   scale, stats)
+    given = (q, k, v, bias, out, dout, scale, stats)
     bias = _check_backward(q, k, v, bias, out, dout, stats)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_backward: unsupported device "
@@ -358,9 +418,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash_attention_backward launch failed: CUDA "
                            f"error {err}")
     flash_attention_backward.launches += 1
+    if flash_attention_backward.observer is not None:
+        flash_attention_backward.observer(*given)
     if kd != d:
         return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.observer = None

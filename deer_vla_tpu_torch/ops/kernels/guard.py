@@ -2,10 +2,11 @@
 gives no bias gradient: they write their outputs through ``ctypes`` into
 buffers autograd never sees, so an output would carry no ``grad_fn`` and
 every gradient behind it would be silently zero.  Each wrapper therefore
-refuses a CUDA input that requires grad while grad mode is on, where it
-has no backward for that input.  Serving (``torch.inference_mode``),
-calibration and the frozen ViT of training (``torch.no_grad``) never trip
-it; there is no quiet fallback to the plain version.
+refuses an input that requires grad while grad mode is on, where it has no
+backward for that input (the layer-indexed operators register none).
+Serving (``torch.inference_mode``), calibration and the frozen ViT of
+training (``torch.no_grad``) never trip it; there is no quiet fallback to
+the plain version.
 """
 
 from __future__ import annotations
@@ -34,3 +35,11 @@ def check_no_grad(kernel: str, *tensors) -> None:
             f"backward for it (ROADMAP.md {item}); call it under "
             "torch.no_grad() "
             "or torch.inference_mode(), or keep its inputs frozen")
+
+
+def check_device(kernel: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` for a tensor neither on the CPU (the plain
+    version) nor on the card (the kernel): the operators' fake
+    implementations would answer for it, and nothing may fall back."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {t.device}")

@@ -13,10 +13,17 @@ CUDA sources are ``deer_vla_tpu_torch/csrc/indexed_matmul.cu`` (K2) and
 ``indexed_matmul_quant.cu`` (K3, K4); their bounds on the card and what the
 designs do about them are noted there.
 
-Each wrapper launches its kernel for CUDA tensors and raises for anything
-the kernel cannot take; for CPU tensors it runs its ``*_reference``, which
-computes what the TPU kernel body computes (fp32 accumulation; for K3/K4
-the scale applied in fp32 and one rounding to x.dtype).
+Each kernel is an operator, ``torch.ops.deer.indexed_matmul`` / ``_q8`` /
+``_q4``, so ``torch.export`` records it as one node; the functions of the
+same names are its only Python entries.  An operator's CUDA implementation
+launches the kernel and raises for anything the kernel cannot take,
+counts each launch on the function's ``launches`` and hands the launch's
+x and stacked weights (as given) to its ``observer`` where a caller set
+one (``None`` by default); its CPU implementation is the ``*_reference``,
+which computes what the TPU kernel body computes (fp32 accumulation; for
+K3/K4 the scale applied in fp32 and one rounding to x.dtype); its fake
+implementation gives the (..., N) output.  No operator has a gradient:
+serving only.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from deer_vla_tpu_torch.ops.kernels.build import function
-from deer_vla_tpu_torch.ops.kernels.guard import check_no_grad
+from deer_vla_tpu_torch.ops.kernels.guard import check_device, check_no_grad
 from deer_vla_tpu_torch.ops.quant import unpack_nibbles
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,6 +159,19 @@ def indexed_matmul_reference(x: torch.Tensor, w: torch.Tensor,
     return x @ w[int(idx)].to(x.dtype)
 
 
+def _index(idx: Union[int, torch.Tensor]) -> torch.Tensor:
+    """A host int as a 0-dim int32 CPU tensor (which the CPU operators take
+    and the CUDA ones refuse); a tensor as it is."""
+    if isinstance(idx, torch.Tensor):
+        return idx
+    return torch.tensor(int(idx), dtype=torch.int32)
+
+
+def _plan_args(plan: Optional[Plan]) -> tuple:
+    """(config, splits) for an operator: -1, 0 to take the planned ones."""
+    return (-1, 0) if plan is None else (plan.config, plan.splits)
+
+
 def indexed_matmul(x: torch.Tensor, w: torch.Tensor,
                    idx: Union[int, torch.Tensor], *,
                    plan: Optional[Plan] = None) -> torch.Tensor:
@@ -163,13 +183,22 @@ def indexed_matmul(x: torch.Tensor, w: torch.Tensor,
     if w.ndim != 3 or x.shape[-1] != w.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match stacked w "
                          f"{tuple(w.shape)}")
+    check_device("indexed_matmul", x)
+    check_no_grad("indexed_matmul", x, w)
+    return torch.ops.deer.indexed_matmul(x, w, _index(idx),
+                                         *_plan_args(plan))
+
+
+def _indexed_matmul(x, w, idx, config=-1, splits=0):
+    """The operator's implementation: the plain version for CPU tensors,
+    else K2's launch, counted on ``indexed_matmul``."""
     if x.device.type == "cpu":
         return indexed_matmul_reference(x, w, idx)
     if not x.is_cuda:
         raise ValueError(f"indexed_matmul: unsupported device {x.device}")
     check_no_grad("indexed_matmul", x, w)
-    if not (isinstance(idx, torch.Tensor) and idx.ndim == 0
-            and idx.dtype == torch.int32 and idx.device == x.device):
+    if not (idx.ndim == 0 and idx.dtype == torch.int32
+            and idx.device == x.device):
         raise TypeError("idx must be a 0-dim int32 tensor on x's device")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
         raise TypeError(f"x/w must share float32 or bfloat16, got "
@@ -180,13 +209,15 @@ def indexed_matmul(x: torch.Tensor, w: torch.Tensor,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kdim).contiguous()
     m = x2.shape[0]
-    config, splits = 0, 1
     if x.dtype == torch.bfloat16:
-        plan = plan or indexed_matmul_plan(m, kdim, n)
-        config, splits = plan.config, plan.splits
+        if config < 0:
+            plan = indexed_matmul_plan(m, kdim, n)
+            config, splits = plan.config, plan.splits
         if x2.data_ptr() % 16 or w.data_ptr() % 16:
             raise ValueError("bf16 indexed_matmul needs 16-byte aligned x "
                              "and w")
+    else:
+        config, splits = 0, 1
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     err = function("deer_indexed_matmul", _ARGTYPES)(
         x2.data_ptr(), w.data_ptr(), idx.data_ptr(), y.data_ptr(), m, kdim,
@@ -195,10 +226,13 @@ def indexed_matmul(x: torch.Tensor, w: torch.Tensor,
     if err:
         raise RuntimeError(f"indexed_matmul launch failed: CUDA error {err}")
     indexed_matmul.launches += 1
+    if indexed_matmul.observer is not None:
+        indexed_matmul.observer(x, w)
     return y.reshape(*lead, n)
 
 
 indexed_matmul.launches = 0
+indexed_matmul.observer = None
 
 
 # ---------------------------------------------------------------------------
@@ -271,13 +305,14 @@ def indexed_matmul_q4_reference(x: torch.Tensor, wq4: torch.Tensor,
 
 def _launch_quantized(fn_name: str, x: torch.Tensor, wq: torch.Tensor,
                       s: torch.Tensor, idx: torch.Tensor, kdim: int,
-                      plan: Optional[Plan]) -> torch.Tensor:
-    """Checks and launch shared by K3 and K4 (``wq`` holds K or K/2 rows)."""
+                      config: int, splits: int) -> torch.Tensor:
+    """Checks and launch shared by K3 and K4 (``wq`` holds K or K/2 rows);
+    ``config`` < 0 takes the planned block config and split."""
     if not x.is_cuda:
         raise ValueError(f"{fn_name}: unsupported device {x.device}")
     check_no_grad(fn_name, x, wq, s)
-    if not (isinstance(idx, torch.Tensor) and idx.ndim == 0
-            and idx.dtype == torch.int32 and idx.device == x.device):
+    if not (idx.ndim == 0 and idx.dtype == torch.int32
+            and idx.device == x.device):
         raise TypeError("idx must be a 0-dim int32 tensor on x's device")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{fn_name}: x must be float32 or bfloat16, got "
@@ -295,13 +330,15 @@ def _launch_quantized(fn_name: str, x: torch.Tensor, wq: torch.Tensor,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kdim).contiguous()
     m = x2.shape[0]
-    config, splits = 0, 1
     if x.dtype == torch.bfloat16:
-        plan = plan or indexed_matmul_quant_plan(m, kdim, n, rows != kdim)
-        config, splits = plan.config, plan.splits
+        if config < 0:
+            plan = indexed_matmul_quant_plan(m, kdim, n, rows != kdim)
+            config, splits = plan.config, plan.splits
         if x2.data_ptr() % 16 or wq.data_ptr() % 16 or s.data_ptr() % 16:
             raise ValueError(f"bf16 {fn_name} needs 16-byte aligned x, "
                              "weights and scales")
+    else:
+        config, splits = 0, 1
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     err = function(f"deer_{fn_name}", _Q_ARGTYPES)(
         x2.data_ptr(), wq.data_ptr(), s.data_ptr(), idx.data_ptr(),
@@ -323,11 +360,20 @@ def indexed_matmul_q8(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
     if wq.ndim != 3 or x.shape[-1] != wq.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match stacked int8 "
                          f"weights {tuple(wq.shape)}")
+    check_device("indexed_matmul_q8", x)
+    check_no_grad("indexed_matmul_q8", x, wq, s)
+    return torch.ops.deer.indexed_matmul_q8(x, wq, s, _index(idx),
+                                            *_plan_args(plan))
+
+
+def _indexed_matmul_q8(x, wq, s, idx, config=-1, splits=0):
     if x.device.type == "cpu":
         return indexed_matmul_q8_reference(x, wq, s, idx)
     y = _launch_quantized("indexed_matmul_q8", x, wq, s, idx, wq.shape[1],
-                          plan)
+                          config, splits)
     indexed_matmul_q8.launches += 1
+    if indexed_matmul_q8.observer is not None:
+        indexed_matmul_q8.observer(x, wq)
     return y
 
 
@@ -339,13 +385,48 @@ def indexed_matmul_q4(x: torch.Tensor, wq4: torch.Tensor, s: torch.Tensor,
     if wq4.ndim != 3 or x.shape[-1] != 2 * wq4.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match stacked packed "
                          f"int4 weights {tuple(wq4.shape)}")
+    check_device("indexed_matmul_q4", x)
+    check_no_grad("indexed_matmul_q4", x, wq4, s)
+    return torch.ops.deer.indexed_matmul_q4(x, wq4, s, _index(idx),
+                                            *_plan_args(plan))
+
+
+def _indexed_matmul_q4(x, wq4, s, idx, config=-1, splits=0):
     if x.device.type == "cpu":
         return indexed_matmul_q4_reference(x, wq4, s, idx)
     y = _launch_quantized("indexed_matmul_q4", x, wq4, s, idx,
-                          2 * wq4.shape[1], plan)
+                          2 * wq4.shape[1], config, splits)
     indexed_matmul_q4.launches += 1
+    if indexed_matmul_q4.observer is not None:
+        indexed_matmul_q4.observer(x, wq4)
     return y
 
 
-indexed_matmul_q8.launches = 0
-indexed_matmul_q4.launches = 0
+indexed_matmul_q8.launches = indexed_matmul_q4.launches = 0
+indexed_matmul_q8.observer = indexed_matmul_q4.observer = None
+
+
+_LIB = torch.library.Library("deer", "FRAGMENT")
+_LIB.define("indexed_matmul(Tensor x, Tensor w, Tensor idx, int config=-1, "
+            "int splits=0) -> Tensor")
+for _q in ("q8", "q4"):
+    _LIB.define(f"indexed_matmul_{_q}(Tensor x, Tensor wq, Tensor s, "
+                "Tensor idx, int config=-1, int splits=0) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("indexed_matmul", _indexed_matmul, _key)
+    _LIB.impl("indexed_matmul_q8", _indexed_matmul_q8, _key)
+    _LIB.impl("indexed_matmul_q4", _indexed_matmul_q4, _key)
+
+
+@torch.library.register_fake("deer::indexed_matmul")
+def _indexed_matmul_fake(x, w, idx, config=-1, splits=0):
+    return x.new_empty(*x.shape[:-1], w.shape[2])
+
+
+@torch.library.register_fake("deer::indexed_matmul_q8")
+def _indexed_matmul_q8_fake(x, wq, s, idx, config=-1, splits=0):
+    return x.new_empty(*x.shape[:-1], wq.shape[2])
+
+
+torch.library.register_fake("deer::indexed_matmul_q4",
+                            _indexed_matmul_q8_fake)

@@ -314,3 +314,31 @@ def test_sharded_serving_without_device_raises_when_no_card(monkeypatch):
         ShardedBatchedPolicy(ScanDeerPolicy(params, cfg))
     pol = ShardedBatchedPolicy(ScanDeerPolicy(params, cfg, device="cpu"))
     assert pol.device == torch.device("cpu") and pol.n_shards == 1
+
+
+def test_export_modules_are_walked():
+    """The serving artifact's modules (ROADMAP M14b) are in the import
+    check above: the exporter and its CLI."""
+    mods = port_modules()
+    for m in ("serving.export", "cli.export"):
+        assert f"deer_vla_tpu_torch.{m}" in mods
+
+
+def test_export_entry_points_without_device_raise_when_no_card(
+        monkeypatch, tmp_path):
+    from deer_vla_tpu_torch.cli import export as cli
+    from deer_vla_tpu_torch.core.config import deer_tiny
+    from deer_vla_tpu_torch.models.flamingo import init_deer
+    from deer_vla_tpu_torch.serving.export import (BundledScanPolicy,
+                                                   ExportedScanPolicy)
+
+    params = init_deer(deer_tiny(), seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DEER_ERROR_FILE", os.devnull)
+    out = str(tmp_path / "a.step")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--model", "tiny", "--out", out, "--platforms", "gpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExportedScanPolicy(out, params, deer_tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BundledScanPolicy(out)

@@ -138,9 +138,10 @@ def test_plain_backward_in_bf16(name):
 
 
 def test_autograd_function_wires_the_backward(monkeypatch):
-    """The function the card's wrapper takes for inputs that require grad:
-    its forward is K1's launch asked for its row statistics and its
-    backward ``flash_attention_backward`` given them (here both on their
+    """The operator the wrapper takes for inputs that require grad
+    (``deer::flash_attention_with_stats``): its forward is K1's launch
+    asked for its row statistics and its registered gradient
+    ``flash_attention_backward`` given them (here both on their
     plain versions, as a CPU tensor gets them); q, k and v get autograd's
     gradients, the bias none, on strided views of one fused qkv as the ViT
     hands them over."""
@@ -155,7 +156,7 @@ def test_autograd_function_wires_the_backward(monkeypatch):
 
     def backward(q, k, v, bias, out, dout, scale, stats):
         calls.append("backward")
-        assert stats is saved[0]
+        assert stats.data_ptr() == saved[0].data_ptr()  # not recomputed
         return k1.flash_attention_backward_reference(q, k, v, bias, out,
                                                      dout, scale, stats)
 
@@ -166,7 +167,7 @@ def test_autograd_function_wires_the_backward(monkeypatch):
     d = q.shape[-1]
     views = [fused[..., i * d:(i + 1) * d] for i in range(3)]
     tb = torch.from_numpy(bias)
-    out = k1._FlashAttention.apply(*views, tb, scale)
+    out = k1.flash_attention(*views, tb, scale)
     dout = torch.from_numpy(
         np.random.RandomState(5).randn(*q.shape).astype(np.float32))
     (got,) = torch.autograd.grad(out, fused, dout)

@@ -431,12 +431,20 @@ def test_build_core_serves_a_checkpoint_with_its_sidecar(checkpoint, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--artifact", "m.step"], "M14b"), (["--bundle", "m.step"], "M14b"),
     (["--tokenizer_path", "tok"], "M9")])
 def test_serve_unserved_flags_name_the_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item} "):
         serve_cli.main(["--model", "tiny", "--oneshot_healthz", *flags],
                        device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["--artifact", "--bundle"])
+def test_serve_artifact_refuses_batch_lanes(flag):
+    """An artifact bakes its batch: the micro-batching lanes refuse it
+    before any weights are drawn or read (the JAX CLI's refusal)."""
+    with pytest.raises(SystemExit, match="fixed batch"):
+        serve_cli.main(["--model", "tiny", "--oneshot_healthz",
+                        "--batch_lanes", "4", flag, "m.step"], device="cpu")
 
 
 def test_serve_main_oneshot_healthz(capsys):
