@@ -53,12 +53,24 @@ serve cross-checks and calibration: the host-bucketed ``DeerPolicy`` (8 B=1
 steps, each held against ``ScanDeerPolicy`` with the same products from the
 same carry: equal exits), the vision caches on both engines and the action
 cache (hits counted, every step equal to the uncached step),
-``BatchedDeerPolicy`` at B=8 against ``ScanDeerPolicy.step_batch``, and
+``BatchedDeerPolicy`` at B=8 against ``ScanDeerPolicy.step_batch``,
+``fused_3b`` (the cond-chain oracle ``FusedDeerPolicy`` at full depth, 8
+B=1 steps under the first-exit, last-exit and a data-dependent row placed
+between measured deltas: exits equal to ``ScanDeerPolicy``'s at every
+step, actions within CROSS_TOL_BF16, K1 only, median step time), and
 ToMe (r = 8) at B=1 / B=8 plus a full-depth step against fp32 on the CPU
 with the merges compared layer by layer; the rollouts add one ``cli/eval``
 run per serving option (``ROLLOUT_RUNS``; the pipelined lanes' report must
-equal ``--lanes 4``'s) and ``--layerwise_exit_eval`` on the trained
-checkpoint.  K1 is checked at the ViT batch of every driven path
+equal ``--lanes 4``'s, and phase ``pipeline`` records its asynchronous
+dispatches: the medians for ``dispatch_batch`` to return, ``finish_batch``
+to wait and the step, the share of dispatches that returned before their
+decode ended, which must be most, the rollout's seconds beside
+``--lanes 4``'s, and whether a host read on the card releases the GIL)
+and ``--layerwise_exit_eval`` on the trained checkpoint.  Right after the
+build, ``compile_cache`` starts a child process with DEER_COMPILE_CACHE
+naming a fresh directory that holds a copy of the built library and no
+nvcc on PATH or CUDA_HOME, collected after the kernel phases: it must
+load that library, build nothing, and launch K2 from it.  K1 is checked at the ViT batch of every driven path
 (``vit_batches``), at the ToMe lengths with their bias too, and every shape
 the models hand K1 while the paths run is recorded and must be one of those
 checked.  The vision, state and window variants run on the same deer_3b draw
@@ -106,7 +118,7 @@ actions within CROSS_TOL_BF16, every rank's exits the same) and
 ``tp_train`` (fsdp=2 x tp=2 at deer_9b's width cut to 2 decoder and 8 ViT
 layers, fp32, W=2, two joint-phase steps: the first loss within 1e-5 relative and its
 grad_norm within 1e-4 of one process's over the same global batch, the
-gathered leaves within tests/test_torch_train.py's update tolerance,
+gathered leaves within tests/test_torch_train_steps.py's update tolerance,
 frozen leaves bit-unchanged, a rank's Adam moments of a leaf split on both
 axes a quarter of it); ``kernels_9b`` holds K2-K4 at one rank's local
 stacks (``deer_9b_tp4``) too.
@@ -119,7 +131,7 @@ script's total seconds.
 
 The serving artifact (ROADMAP M14b) runs right after the serve phases, on
 their draw: ``export_3b`` (eight child processes of this script at once
-trace and save deer_3b at 4 ViT and 4 decoder layers, full width, in bf16,
+trace and save deer_3b at 2 ViT and 4 decoder layers, full width, in bf16,
 int8 and int4 at B=1 and B=8 (``serving/export.export_policy``, K1-K4 as
 ``deer::`` operator nodes), and deer_tiny traced on the CPU and on the
 card; then each artifact is loaded (``ExportedScanPolicy``) against the
@@ -468,6 +480,10 @@ def bound(nbytes: int, flops: int, dtype: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# what phase_device read: "smi", the card's name and power limit
+DEVICE = {}
+
+
 def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -475,6 +491,7 @@ def phase_device(torch) -> str:
         timeout=60).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    DEVICE["smi"] = smi
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
@@ -564,6 +581,86 @@ def phase_build(builder=None) -> dict:
           "nvcc_seconds": info["seconds"], "ptxas": usage,
           "tensor_core_sass": tc})
     return tc
+
+
+COMPILE_CACHE_DIR = REPO / "build" / "chip_smoke_compile_cache"
+
+
+def child_compile_cache(torch, cache: str) -> dict:
+    """The compile-cache child: no nvcc on PATH or CUDA_HOME and
+    DEER_COMPILE_CACHE naming ``cache``, which holds a copy of the
+    parent's library.  A main wrapped in ``utils/errors.record`` (as every
+    CLI main is) launches K2 once; the library must come from ``cache``,
+    with no build."""
+    from deer_vla_tpu_torch.ops.kernels import build
+    from deer_vla_tpu_torch.ops.kernels.indexed_matmul import indexed_matmul
+    from deer_vla_tpu_torch.utils.errors import record
+    try:
+        nvcc = build.find_nvcc()
+    except RuntimeError:
+        nvcc = None
+    check(nvcc is None, f"compile_cache child: nvcc reachable at {nvcc}")
+
+    @record
+    def main():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn(64, 256, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(2, 256, 128, generator=gen, device="cuda").bfloat16()
+        idx = torch.ones((), dtype=torch.int32, device="cuda")
+        y = indexed_matmul(x, w, idx).float()
+        ref = x.float() @ w[1].float()
+        return float((y - ref).abs().max() / ref.abs().max())
+
+    rel = main()
+    info = build.build_info()
+    want = Path(cache).resolve()
+    check(info["dir"] == str(want)
+          and info["library"] == str(want / build.library_name())
+          and info["seconds"] == 0.0,
+          f"compile_cache child: build_info {dict(info, log=None)}")
+    check(rel < 1e-2, f"compile_cache child: K2 off by {rel} relative")
+    return {"dir": info["dir"], "library": info["library"],
+            "build_seconds": info["seconds"], "k2_rel_err": rel}
+
+
+def start_compile_cache() -> dict:
+    """Starts the compile-cache child (``--child compile_cache``): a fresh
+    DEER_COMPILE_CACHE directory holding a copy of the library this run
+    built, and no nvcc on PATH or CUDA_HOME (``child_compile_cache``).  It
+    runs while the kernel phases do; ``phase_compile_cache`` collects
+    it."""
+    import os
+    from deer_vla_tpu_torch.ops.kernels import build
+    shutil.rmtree(COMPILE_CACHE_DIR, ignore_errors=True)
+    COMPILE_CACHE_DIR.mkdir(parents=True)
+    lib = build.build_library()  # built by phase_build: only looked up
+    shutil.copy2(lib, COMPILE_CACHE_DIR / lib.name)
+    path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not (Path(d) / "nvcc").exists()]
+    env = dict(os.environ, DEER_COMPILE_CACHE=str(COMPILE_CACHE_DIR),
+               CUDA_HOME=str(COMPILE_CACHE_DIR / "no_cuda"),
+               PATH=os.pathsep.join(path))
+    started = start_children("compile_cache", 1, str(COMPILE_CACHE_DIR), env)
+    started.update(t0=time.perf_counter(), library=lib.name)
+    return started
+
+
+def phase_compile_cache(started: dict) -> dict:
+    """DEER_COMPILE_CACHE on the card: the child started by
+    ``start_compile_cache`` loaded the copied library from the cache
+    directory, built nothing, and launched K2 from it."""
+    try:
+        res = wait_children(started, timeout_s=180)[0]
+    finally:
+        shutil.rmtree(COMPILE_CACHE_DIR, ignore_errors=True)
+    out = {"phase": "compile_cache",
+           "seconds": time.perf_counter() - started["t0"],
+           "copied": started["library"], "child_dir": res["dir"],
+           "child_library": res["library"],
+           "child_build_seconds": res["build_seconds"],
+           "child_k2_rel_err": res["k2_rel_err"]}
+    emit(out)
+    return out
 
 
 def k1_times(torch, q, k, v, scale) -> dict:
@@ -1746,6 +1843,10 @@ def decoder_kernel(args):
     return DECODER_KERNEL[None if args.quantize == "none" else args.quantize]
 
 
+# the phase_rollout running now ("name"), for dispatch_timings
+ROLLOUT_PHASE = {}
+
+
 def phase_rollout(torch, np, phase: str, argv: list) -> dict:
     """``cli/eval.main(argv)`` in-process on the card, bf16: calibrate
     deer_3b on 2 debug batches (unless --exit_id), serve in DebugEnv
@@ -1761,8 +1862,12 @@ def phase_rollout(torch, np, phase: str, argv: list) -> dict:
         f.launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        report = cli.main(argv)
+    ROLLOUT_PHASE["name"] = phase
+    try:
+        with contextlib.redirect_stdout(buf):
+            report = cli.main(argv)
+    finally:
+        ROLLOUT_PHASE.pop("name")
     seconds = time.perf_counter() - t0
     launches = {n: f.launches for n, f in counters.items()}
     text = buf.getvalue()
@@ -3172,6 +3277,10 @@ FOLDED_VARIANTS = (("vit_concat", {"fusion_mode": "vit_concat"}),
 CROSS_VARIANTS = (("vit_concat_use_state", {"fusion_mode": "vit_concat",
                                             "use_state": True}),
                   ("gripper_res84", {"gripper_res": 84}))
+# the window-folded cross-check's ViT layers: the CPU's fp32 ViT runs its
+# W=12 window of both cameras (cut from CROSS_VIT_DEPTH to pay for the
+# fused_3b and pipeline phases)
+FOLDED_CROSS_VIT_DEPTH = 4
 # the frame cache against the uncached step: the same per-frame tokens go
 # into the same fuse and decode, so the exits must be equal and the arm
 # actions within 2e-4 relative L2 (both in bf16 on the card)
@@ -3294,14 +3403,19 @@ def phase_cross_check_variants(torch, np, cfg, base: dict,
     """A full-depth bf16 step of each CROSS_VARIANTS model (and the same
     weights in fp32 on the card) against fp32 on the CPU
     (``phase_cross_check``'s tolerances): vit_concat with state on a
-    W-frame window, and the native-size gripper."""
+    W-frame window (its ViT cut to FOLDED_CROSS_VIT_DEPTH layers), and the
+    native-size gripper."""
     from deer_vla_tpu_torch.bridge import to_torch
-    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    from deer_vla_tpu_torch.eval.scan_policy import (ScanDeerPolicy,
+                                                     folded_window)
     for name, changes in CROSS_VARIANTS:
         vcfg = variant_config(cfg, changes)
         p = variant_weights(torch, base, vcfg)
         cpu_p = dict(cpu_base, **{k: to_torch(v, "cpu") for k, v in p.items()
                                   if v is not base.get(k)})
+        if folded_window(vcfg) > 1:
+            vcfg = cut_depth(vcfg, vcfg.n_layers, FOLDED_CROSS_VIT_DEPTH)
+            p, cpu_p = first_layers(p, vcfg), first_layers(cpu_p, vcfg)
         pol = ScanDeerPolicy(p, vcfg, indexed_mm=True)
         phase_cross_check(torch, np, vcfg, p, cpu_p, pol,
                           name=f"cross_check_{name}",
@@ -5212,9 +5326,11 @@ EXPORT_RUNS = ((None, 1), (None, 8), ("int8", 1), ("int8", 8), ("int4", 1),
 EXPORT_STEPS = 8
 EXPORT_CHILD_TIMEOUT_S = 400
 # the depth the artifacts are exported at: EXPORT_VIT_DEPTH ViT and
-# EXPORT_DEPTH decoder layers (exits [1, 3]) at full width
+# EXPORT_DEPTH decoder layers (exits [1, 3]) at full width (the ViT cut from
+# 4 to 2 layers paid for the fused_3b and pipeline phases: the host traces,
+# saves and loads an artifact node by node)
 EXPORT_DEPTH = 4
-EXPORT_VIT_DEPTH = 4
+EXPORT_VIT_DEPTH = 2
 
 
 def export_config():
@@ -5497,7 +5613,247 @@ def drive_deployment(torch, np, cfg, params, calib) -> list:
     return results
 
 
-def drive_paths(torch, np, cfg) -> tuple:
+# fused_3b: the cond-chain oracle (eval/fused_policy.py) against the scan
+# engine at B=1 on the serve phases' weights and inputs, 8 steps a row
+FUSED_STEPS = 8
+# data-dependent row: rounds of placing each threshold halfway (in log)
+# across the widest gap between neighbouring deltas the last run measured
+# at its exit, until the exits stop changing
+FUSED_ROW_ROUNDS = 4
+
+
+def fused_row(np, deltas: list, row: list) -> list:
+    """Each non-last exit's threshold at the geometric midpoint of the
+    widest gap between neighbouring deltas measured there (``deltas``: a
+    step's per-bucket deltas, +inf where skipped); an exit with fewer than
+    two keeps its threshold."""
+    out = list(row)
+    for k in range(len(row) - 1):
+        d = np.sort([x[k] for x in deltas if np.isfinite(x[k])])
+        if d.size < 2:
+            continue
+        gaps = np.log(d[1:]) - np.log(d[:-1])
+        j = int(np.argmax(gaps))
+        out[k] = float(np.sqrt(d[j] * d[j + 1]))
+    return out
+
+
+def phase_fused_3b(torch, np, cfg, params, scan, k1_checked: set) -> dict:
+    """``FusedDeerPolicy`` (the cond-chain oracle: batch-wide exit, decoder
+    through ``linear``) at deer_3b's full width and depth on the serve
+    phases' weights and B=1 inputs, ``FUSED_STEPS`` steps under three
+    rows: all 1e8 (the first exit), all -1 (the last), and a
+    data-dependent one placed between measured deltas (``fused_row``), so
+    that the bf16 rounding by which the two engines' decoders differ (K2
+    in ``scan``, cuBLAS here) cannot decide an exit.  At every step the
+    exit must equal ``scan``'s (ScanDeerPolicy, the carry threaded alike)
+    and the actions agree within CROSS_TOL_BF16.  The kernel counts are
+    set to 0 before and read after: K1 must run (the ViT), K2-K4 not; every
+    K1 shape must be one the kernel phase checked."""
+    from deer_vla_tpu_torch.eval.fused_policy import FusedDeerPolicy
+    t0 = time.perf_counter()
+    fused = FusedDeerPolicy(params, cfg)
+    n = len(fused.exits)
+    inputs = [make_policy_inputs(np, cfg, 1, 100 + s)
+              for s in range(FUSED_STEPS)]
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    seen = set()
+
+    def run_fused(row):
+        fused.reset()
+        fused.set_thresholds(row)
+        out = {"exits": [], "acts": [], "ms": [], "deltas": []}
+        for s, args in enumerate(inputs):
+            fused.set_timestep(s)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            act = fused.step(*args)
+            out["ms"].append((time.perf_counter() - t1) * 1e3)
+            check(act.shape == (7,) and bool(np.isfinite(act).all()),
+                  f"fused_3b step {s}: action {act}")
+            out["exits"].append(fused.last_exit_layer)
+            out["acts"].append(act)
+            out["deltas"].append(fused.last_deltas.copy())
+        return out
+
+    with k1_calls(seen):
+        runs = {"first": run_fused([1e8] * n), "last": run_fused([-1.0] * n)}
+        row = fused_row(np, runs["last"]["deltas"], [1e8] * n)
+        for _ in range(FUSED_ROW_ROUNDS):
+            runs["data"] = run_fused(row)
+            new = fused_row(np, runs["data"]["deltas"], row)
+            if new == row:
+                break
+            row = new
+        else:
+            runs["data"] = run_fused(row)
+        rows = {"first": [1e8] * n, "last": [-1.0] * n, "data": row}
+    launches = {name: f.launches for name, f in counters.items()}
+    check(launches["flash_attention"] > 0
+          and all(launches[k] == 0 for k in DECODER_KERNEL.values()),
+          f"fused_3b: K1 must run and K2-K4 not: {launches}")
+    unchecked = seen - k1_checked
+    check(not unchecked, f"fused_3b: K1 ran at unchecked shapes {unchecked}")
+    exits_first = set(runs["first"]["exits"])
+    exits_last = set(runs["last"]["exits"])
+    check(exits_first == {fused.exits[0]} and exits_last == {fused.exits[-1]},
+          f"fused_3b: first / last rows exited at {exits_first} / "
+          f"{exits_last}")
+    check(len(set(runs["data"]["exits"])) > 1,
+          f"fused_3b: the data-dependent row {row} exits all at "
+          f"{runs['data']['exits']}")
+    # the scan engine on the same rows, inputs and (threaded) carry
+    report = {}
+    for name, r in rows.items():
+        scan.set_thresholds(r)
+        scan.reset()
+        scan_exits, err, ratio = [], 0.0, []
+        for s, args in enumerate(inputs):
+            scan.set_timestep(s)
+            deltas = []
+            with recorded_deltas(deltas):
+                act = scan.step(*args)
+            scan_exits.append(scan.last_exit_layer)
+            err = max(err, float(np.abs(act - runs[name]["acts"][s]).max()))
+            fd = runs[name]["deltas"][s]
+            ratio += [float(d[0]) / float(fd[k]) for k, d in
+                      enumerate(deltas) if np.isfinite(fd[k]) and fd[k] > 0]
+        check(scan_exits == runs[name]["exits"],
+              f"fused_3b {name}: exits {runs[name]['exits']}, "
+              f"ScanDeerPolicy {scan_exits} (row {r})")
+        check(err <= CROSS_TOL_BF16["arm_max_abs"],
+              f"fused_3b {name}: actions differ by {err}")
+        live = [(x[k], r[k]) for x in runs[name]["deltas"]
+                for k in range(n - 1) if np.isfinite(x[k])]
+        report[name] = {
+            "row": r, "exit_layers": runs[name]["exits"],
+            "step_ms": runs[name]["ms"],
+            "median_step_ms": statistics.median(runs[name]["ms"]),
+            "vs_scan_arm_max_abs": err,
+            "scan_over_fused_delta": [min(ratio, default=None),
+                                      max(ratio, default=None)],
+            # the nearest delta to its threshold, as delta / threshold
+            "nearest_delta_over_threshold": min(
+                (float(d / t) for d, t in live if 0 < t < 1e7),
+                key=lambda x: abs(np.log(x)), default=None)}
+    out = {"phase": "fused_3b", "config": "deer_3b",
+           "engine": "FusedDeerPolicy", "steps": FUSED_STEPS,
+           "nvidia_smi": DEVICE["smi"],
+           "seconds": time.perf_counter() - t0, "rows": report,
+           "median_step_ms": statistics.median(
+               ms for r in runs.values() for ms in r["ms"]),
+           "tolerance": CROSS_TOL_BF16, "launches": launches,
+           "k1_shapes": sorted(map(str, seen))}
+    scan.reset()
+    emit(out)
+    return out
+
+
+@contextlib.contextmanager
+def dispatch_timings(rec: list, phase: str):
+    """While open, each ``ScanDeerPolicy.dispatch_batch`` made during the
+    ``phase_rollout`` of ``phase`` appends (its handle, the host's
+    perf_counter when it was called and when it returned) to ``rec``, and
+    each ``finish_batch`` of such a handle the seconds it waited."""
+    from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+    dispatch, finish = ScanDeerPolicy.dispatch_batch, ScanDeerPolicy.finish_batch
+    live = {}
+
+    def timed_dispatch(self, *args, **kw):
+        t0 = time.perf_counter()
+        handle = dispatch(self, *args, **kw)
+        if ROLLOUT_PHASE.get("name") == phase:
+            live[id(handle)] = {"handle": handle, "called": t0,
+                                "returned": time.perf_counter()}
+            rec.append(live[id(handle)])
+        return handle
+
+    def timed_finish(self, handle, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return finish(self, handle, *args, **kw)
+        finally:
+            r = live.pop(id(handle), None)
+            if r is not None:
+                r["finish_s"] = time.perf_counter() - t0
+
+    ScanDeerPolicy.dispatch_batch = timed_dispatch
+    ScanDeerPolicy.finish_batch = timed_finish
+    try:
+        yield rec
+    finally:
+        ScanDeerPolicy.dispatch_batch = dispatch
+        ScanDeerPolicy.finish_batch = finish
+
+
+def gil_on_host_read(torch) -> dict:
+    """Whether ``bool`` of a CUDA tensor releases the GIL while it waits: a
+    thread reads a flag queued behind ~0.5 s of ``torch.cuda._sleep`` while
+    this thread counts loop turns until the read is done; the turns a
+    second against those beside a thread in ``time.sleep`` (which releases
+    the GIL) for the same loop."""
+    import threading
+
+    def turns_beside(wait) -> tuple:
+        got = []
+        reader = threading.Thread(target=lambda: got.append(wait()))
+        n, t0 = 0, time.perf_counter()
+        reader.start()
+        while not got:
+            n += 1
+        seconds = time.perf_counter() - t0
+        reader.join()
+        return n / seconds, seconds, got[0]
+
+    asleep, _, _ = turns_beside(lambda: time.sleep(0.3))
+    torch.cuda._sleep(1_000_000_000)
+    flag = torch.ones((), device="cuda") > 0
+    reading, wait_s, value = turns_beside(lambda: bool(flag))
+    check(value is True, f"host read: {value}")
+    return {"wait_s": wait_s, "turns_per_s_beside_sleep": asleep,
+            "turns_per_s_beside_read": reading, "share": reading / asleep}
+
+
+def phase_pipeline(torch, dispatches: list, rollouts: dict) -> dict:
+    """The asynchronous ``dispatch_batch`` in the pipelined rollout (its
+    report was held equal to --lanes 4's): the median time for a dispatch
+    to return, for ``finish_batch`` to wait and for the step on the
+    worker; the share of dispatches that returned before their step's
+    decode ended, which must be most; the rollout's seconds against the
+    same lanes with --pipeline 1; and whether the host read that ends a
+    segment releases the GIL (``gil_on_host_read``), which the overlap
+    needs."""
+    done = [r for r in dispatches if "finish_s" in r]
+    check(len(done) > 0, "pipeline: no dispatch timed")
+    early = [r["returned"] < r["handle"].ended for r in done]
+    gil = gil_on_host_read(torch)
+    out = {"phase": "pipeline", "rollout": "rollout_lanes4_pipeline2",
+           "nvidia_smi": DEVICE["smi"], "dispatches": len(done),
+           "dispatch_return_median_ms": statistics.median(
+               1e3 * (r["returned"] - r["called"]) for r in done),
+           "finish_wait_median_ms": statistics.median(
+               1e3 * r["finish_s"] for r in done),
+           "step_median_ms": statistics.median(
+               1e3 * (r["handle"].ended - r["handle"].started)
+               for r in done),
+           "returned_before_decode_end": sum(early) / len(early),
+           "rollout_seconds": {
+               "pipeline2_env_workers2":
+                   rollouts["rollout_lanes4_pipeline2"]["rollout_seconds"],
+               "pipeline1": rollouts["rollout_lanes4"]["rollout_seconds"]},
+           "gil_on_host_read": gil}
+    emit(out)
+    check(sum(early) > len(early) / 2,
+          f"pipeline: dispatch_batch returned after its decode on "
+          f"{len(early) - sum(early)} of {len(early)} dispatches")
+    check(gil["share"] > 0.5, f"pipeline: the host read holds the GIL "
+                              f"while it waits: {gil}")
+    return out
+
+
+def drive_paths(torch, np, cfg, k1_checked: set) -> tuple:
     """The main paths on seeded deer_3b weights: serving in every mode with
     its cross-checks, the serving variants (DeerPolicy, the caches,
     BatchedDeerPolicy, ToMe), the vision, state and window variants on the
@@ -5531,7 +5887,8 @@ def drive_paths(torch, np, cfg) -> tuple:
     scan_plain = ScanDeerPolicy(params, cfg)  # cuBLAS products, no K2
     variants = [phase_serve_bucketed(torch, np, cfg, deer, scan_plain, serve),
                 phase_caches(torch, np, cfg, pol, deer),
-                phase_batched_bucketed(torch, np, cfg, params, scan_plain)]
+                phase_batched_bucketed(torch, np, cfg, params, scan_plain),
+                phase_fused_3b(torch, np, cfg, params, pol, k1_checked)]
     del pol, deer, scan_plain
     torch.cuda.empty_cache()
     variants.append(phase_serve_tome(torch, np, cfg, params, cpu_params))
@@ -5558,12 +5915,15 @@ def drive_paths(torch, np, cfg) -> tuple:
     phase_train_unfreeze_vit(torch, np)
     del params
     torch.cuda.empty_cache()
-    rollouts = {name: phase_rollout(torch, np, name, ROLLOUT_ARGV + flags)
-                for name, flags in ROLLOUT_RUNS + HEAD_ROLLOUTS}
+    dispatches = []
+    with dispatch_timings(dispatches, "rollout_lanes4_pipeline2"):
+        rollouts = {name: phase_rollout(torch, np, name, ROLLOUT_ARGV + flags)
+                    for name, flags in ROLLOUT_RUNS + HEAD_ROLLOUTS}
     piped, plain = (rollouts["rollout_lanes4_pipeline2"]["report"],
                     rollouts["rollout_lanes4"]["report"])
     check(piped == plain, f"--pipeline 2 --env_workers 2 changed the "
                           f"report: {piped} against {plain}")
+    phase_pipeline(torch, dispatches, rollouts)
     rollouts["rollout_tcp"] = phase_rollout_tcp(torch, np)
     paths = [export] + variants + list(rollouts.values()) + [
         phase_train(torch, np), phase_train_eval(torch, np),
@@ -6450,13 +6810,12 @@ def phase_pretrain_cross_check(torch, np) -> dict:
     return out
 
 
-def run_children(name: str, ranks: int = SCALE_RANKS,
-                 timeout_s: float = SCALE_CHILD_TIMEOUT_S,
-                 store: str = None) -> list:
-    """``ranks`` processes of this script (``--child name rank store``) on
-    the card, joined through a file store (or given ``store``, a path
-    they share); each must exit 0 with a CHILD_RESULT line within
-    ``timeout_s``.  Their results, in rank order."""
+def start_children(name: str, ranks: int = SCALE_RANKS, store: str = None,
+                   env: dict = None) -> dict:
+    """Starts ``ranks`` processes of this script (``--child name rank
+    store``) on the card, joined through a file store (or given ``store``,
+    a path they share), with ``env`` as their environment when given;
+    ``wait_children`` collects them, ``stop_children`` ends any left."""
     if store is None:
         SCALE_DIR.mkdir(parents=True, exist_ok=True)
         store = SCALE_DIR / f"{name}.store"
@@ -6468,10 +6827,26 @@ def run_children(name: str, ranks: int = SCALE_RANKS,
         procs.append((subprocess.Popen(
             [sys.executable, str(REPO / "chip_smoke.py"), "--child", name,
              str(rank), str(store)], cwd=REPO, stdout=log,
-            stderr=subprocess.STDOUT, text=True), log))
+            stderr=subprocess.STDOUT, text=True, env=env), log))
+    return {"name": name, "procs": procs}
+
+
+def stop_children(started: dict) -> None:
+    for p, log in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def wait_children(started: dict,
+                  timeout_s: float = SCALE_CHILD_TIMEOUT_S) -> list:
+    """Each started child must exit 0 with a CHILD_RESULT line within
+    ``timeout_s``; their results, in rank order."""
+    name = started["name"]
     results = []
     try:
-        for rank, (p, log) in enumerate(procs):
+        for rank, (p, log) in enumerate(started["procs"]):
             try:
                 code = p.wait(timeout=timeout_s)
             except subprocess.TimeoutExpired:
@@ -6487,12 +6862,15 @@ def run_children(name: str, ranks: int = SCALE_RANKS,
             check(res.get("ok") is True, f"{name} rank {rank}: {res}")
             results.append(res)
     finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
+        stop_children(started)
     return results
+
+
+def run_children(name: str, ranks: int = SCALE_RANKS,
+                 timeout_s: float = SCALE_CHILD_TIMEOUT_S,
+                 store: str = None, env: dict = None) -> list:
+    """``start_children`` then ``wait_children``."""
+    return wait_children(start_children(name, ranks, store, env), timeout_s)
 
 
 def child_serve(torch, np) -> dict:
@@ -6665,6 +7043,8 @@ def child_main(name: str, rank: int, store: str) -> int:
         multihost.shutdown()
     elif name == "export":
         res = child_export(torch, rank, store)
+    elif name == "compile_cache":
+        res = child_compile_cache(torch, store)
     else:
         res = child_train(torch, np, rank, store)
     print("CHILD_RESULT " + json.dumps({"ok": True, "rank": rank, **res}),
@@ -7273,14 +7653,20 @@ def main() -> int:
 
     smi = phase_device(torch)
     tc = phase_build(builder)
-    cfg = deer_3b()
-    summary = phase_kernels(torch, vit_batches(cfg))
-    summary.update(phase_kernels_9b(torch, summary["k2_checked"]))
+    cache_child = start_compile_cache()
+    try:
+        cfg = deer_3b()
+        summary = phase_kernels(torch, vit_batches(cfg))
+        summary.update(phase_kernels_9b(torch, summary["k2_checked"]))
+        phase_compile_cache(cache_child)
+    finally:
+        stop_children(cache_child)
 
     k1_seen, k2_seen, bwd_inputs = set(), set(), {}
     with k1_calls(k1_seen), k2_calls(k2_seen), \
             k1_backward_calls(bwd_inputs):
-        serve, quantized, calib, paths = drive_paths(torch, np, cfg)
+        serve, quantized, calib, paths = drive_paths(
+            torch, np, cfg, summary["k1_checked"])
         paths_9b, path_launches, tp_ref = drive_9b(torch, np)
         paths += paths_9b + phase_tp(torch, np, tp_ref, k1_seen, k2_seen)
         del tp_ref

@@ -6,12 +6,15 @@ pending one, so the card stays busy until the queue drains.
 
 ``pipeline`` > 1 splits the lanes into that many groups, each with its own
 carries: group g's outputs are read (``finish_batch``) and its envs stepped
-while the later groups' steps were dispatched.  The port's
-``dispatch_batch`` reads the host once per exit segment, so it returns
-after its layers have run and defers only the copy of the outputs: the
-overlap is that copy against the other groups' host work, until the exit
-loop runs without host reads (ROADMAP.md M7b).  Per stream the results are
-those of ``pipeline=1``: the groups touch disjoint envs and carries.
+while the later groups' steps run.  ``dispatch_batch`` hands a step to the
+engine's worker thread and returns at once (``eval/step_worker.py``), so
+one group's envs step on the host while another group's layers run on the
+card; the groups share that one thread, so their steps reach the card in
+dispatch order.  A group's carry, threshold rows and stream resets are
+touched only after its handle is finished (the engine raises otherwise),
+and the rollout waits for every step still in flight before it returns or
+raises.  Per stream the results are those of ``pipeline=1``: the groups
+touch disjoint envs and carries.
 
 ``env_workers`` > 1 steps a group's envs through a thread pool; the order of
 steps per lane is kept and all bookkeeping stays on the driving thread, so
@@ -307,8 +310,8 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
 
     # group g's outputs are read and its envs stepped while the groups
     # dispatched after it are in flight
+    handles: List = [None] * n_groups
     try:
-        handles: List = [None] * n_groups
         for g in range(n_groups):
             if group_active(g):
                 handles[g] = dispatch(g)
@@ -322,6 +325,10 @@ def evaluate_policy_batched(policy, envs: List, sequences: List,
                 if group_active(g):
                     handles[g] = dispatch(g)
     finally:
+        # leaving on an error: no step may go on writing a carry
+        for g, h in enumerate(handles):
+            if h is not None and n_groups > 1:
+                gpol[g].settle(h)
         if pool is not None:
             pool.shutdown(wait=True)
 

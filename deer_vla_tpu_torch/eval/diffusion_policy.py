@@ -23,6 +23,7 @@ and its own counter, never on the lanes beside it.
 from __future__ import annotations
 
 import copy
+import functools
 from collections import deque
 from typing import Optional
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from deer_vla_tpu_torch.bridge import to_torch
+from deer_vla_tpu_torch.eval.step_worker import run_inline
 from deer_vla_tpu_torch.models.diffusion import (conditional_sample,
                                                  conditional_sample_ddim,
                                                  ddpm_buffers, sampler_noise)
@@ -226,8 +228,16 @@ class BatchedDiffusionSampler:
     def dispatch_batch(self, image, gripper, input_ids, attention_mask,
                        state=None, active=None):
         """The engine's batched step, then the plans of every lane from
-        the features on the device.  ``active`` (bool (B,)): lanes marked
-        False are parked."""
+        the features on the device, handed to the engine's worker thread
+        as ``ScanDeerPolicy.dispatch_batch`` hands its step: the handle
+        comes back at once.  ``active`` (bool (B,)): lanes marked False
+        are parked."""
+        return self.policy.submit(functools.partial(
+            self._sample_batch, image, gripper, input_ids, attention_mask,
+            state, active))
+
+    def _sample_batch(self, image, gripper, input_ids, attention_mask,
+                      state, active):
         feats, _, exit_layer = self.policy.run_batch(
             image, gripper, input_ids, attention_mask, state)
         b = feats.shape[0]
@@ -241,10 +251,11 @@ class BatchedDiffusionSampler:
         self._counts = self._counts + act
         return x, exit_layer, act
 
-    def finish_batch(self, handles):
+    def finish_batch(self, handle):
         """(B, k, 7) plans and exit layers (B,); each active lane's executed
-        rows become its history."""
-        x, exit_layer, act = handles
+        rows become its history.  A failed step's exception is raised
+        here."""
+        x, exit_layer, act = self.policy.collect(handle)
         plans = self.sampler.plans(x.cpu().numpy(), self.future_act_len)
         k = plans.shape[1]
         if self.hist_len:
@@ -255,7 +266,12 @@ class BatchedDiffusionSampler:
             self._hist = np.where(act[:, None, None], new_hist, self._hist)
         return plans, exit_layer.cpu().numpy().astype(np.int64)
 
+    @torch.inference_mode()
     def step_batch(self, image, gripper, input_ids, attention_mask,
                    state=None, active=None):
-        return self.finish_batch(self.dispatch_batch(
-            image, gripper, input_ids, attention_mask, state, active))
+        """``dispatch_batch`` and ``finish_batch`` with the step run on the
+        calling thread."""
+        self.policy._check_idle("step_batch")
+        return self.finish_batch(run_inline(functools.partial(
+            self._sample_batch, image, gripper, input_ids, attention_mask,
+            state, active), self.device))

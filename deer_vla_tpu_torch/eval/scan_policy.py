@@ -27,7 +27,9 @@ Semantics kept exactly:
 vision cache reuses a prefix); ``encode_frame`` / ``step_from_tokens`` split
 it at the per-frame ViT tokens (the rolling frame cache of the
 window-folded variants); ``dispatch_batch`` / ``finish_batch`` split
-``step_batch`` for the pipelined batched rollout.  Every vision, state and
+``step_batch`` for the pipelined batched rollout: ``dispatch_batch`` hands
+the step to the engine's worker thread (``eval/step_worker.py``) and
+returns at once, as JAX's dispatch does.  Every vision, state and
 window variant of the JAX package is served: state models take a proprio
 row an image row (``state=``), 'vit_concat' and ``use_hist`` take each
 stream's rolling W-frame window as W image rows (``folded_window``).
@@ -45,6 +47,8 @@ the exit layers after each step and raises where the ranks differ.
 
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -54,6 +58,8 @@ from torch import nn
 from deer_vla_tpu_torch.bridge import to_torch
 from deer_vla_tpu_torch.core.config import DeerConfig
 from deer_vla_tpu_torch.core.device import resolve_device
+from deer_vla_tpu_torch.eval.step_worker import (Dispatched, StepWorker,
+                                                 run_inline)
 from deer_vla_tpu_torch.models.flamingo import (dual_camera_tokens,
                                                 encode_vision,
                                                 fuse_vision_tokens)
@@ -469,6 +475,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
             "params", prune_serving_params(params, cfg))
         self.steps_per_stage = steps_per_stage
         self.quantize = quantize
+        self._init_dispatch()
         self.set_thresholds(thresholds if thresholds is not None
                             else [1e8] * len(self.exits))
         self._carry_rows = None
@@ -518,16 +525,19 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         return full
 
     def set_thresholds(self, thresholds) -> None:
+        self._check_idle("set_thresholds")
         self.thresholds = self._upload(self.threshold_row(thresholds))
 
     def set_thresholds_batch(self, rows) -> None:
         """One per-exit threshold list/dict per stream -> (B, n_layers)."""
+        self._check_idle("set_thresholds_batch")
         self.thresholds = self._upload(
             np.stack([self.threshold_row(th) for th in rows]))
 
     def set_threshold_array(self, arr) -> None:
         """Raw (n_layers,) or (B, n_layers) row array, laid out as
         threshold_row builds it."""
+        self._check_idle("set_threshold_array")
         self.thresholds = self._upload(np.asarray(arr, np.float32))
 
     def _stage_thresholds(self) -> torch.Tensor:
@@ -543,6 +553,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
 
     # -- episode state -----------------------------------------------------
     def reset(self) -> None:
+        self._check_idle("reset")
         self.carry = None
         self.cur_step = 0
         self.last_exit_layer = -1
@@ -563,6 +574,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
     def reset_streams(self, stream_mask) -> None:
         """Zero the carry of the streams where ``stream_mask`` is true, by
         carry layout (the fc head has none)."""
+        self._check_idle("reset_streams")
         if self.carry is None:
             return
         m = torch.as_tensor(np.asarray(stream_mask, bool), device=self.device)
@@ -605,6 +617,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         for multi_step_action k > 1).  Window-folded models take the
         stream's W frames as image rows (``folded_window``); ``state``
         (state models) one proprio row an image row."""
+        self._check_idle("step")
         if state is not None and state.shape[0] != image.shape[0]:
             raise ValueError(
                 f"state rows ({state.shape[0]}) must match the image batch "
@@ -628,6 +641,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
     def step_from_encoded(self, media, x, mloc, attention_mask,
                           state=None) -> np.ndarray:
         """``step`` from a (possibly cached) encoded prefix."""
+        self._check_idle("step_from_encoded")
         arm, grip, exit_layer = self._run_decode(media, x, mloc,
                                                  attention_mask,
                                                  self._stage_thresholds(),
@@ -648,6 +662,7 @@ class ScanDeerPolicy(nn.Module, HostInputs):
                          state=None) -> np.ndarray:
         """One env step from a window of cached per-frame ViT tokens:
         perceiver, window fold and the dynamic-exit decode."""
+        self._check_idle("step_from_tokens")
         ids = self._ids(input_ids)
         self._ensure_carry(ids.shape[0])
         arm, grip, self.carry, exit_layer, self.last_hidden = \
@@ -677,19 +692,11 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         return self._run(image, gripper, input_ids, attention_mask,
                          self.thresholds, state)
 
-    def dispatch_batch(self, image, gripper, input_ids, attention_mask,
-                       state=None):
-        """The first half of ``step_batch``: runs the step, commits the
-        carry, and starts copying (arm, grip, exit) to the host.
-
-        The decode reads the host once per exit segment, so this returns
-        only after the layer loop has ended; what it defers is the
-        device-to-host copy of the step's outputs, a ``non_blocking`` copy
-        into pinned memory with an event that ``finish_batch`` waits on.
-        The pipelined rollout steps another lane group's envs meanwhile;
-        true overlap of one group's layers with another's host work waits
-        for a loop without host reads (ROADMAP.md M7b).  The rows are
-        ``run_batch``'s."""
+    def _run_to_host(self, image, gripper, input_ids, attention_mask,
+                     state=None):
+        """``run_batch``, then (arm, grip, exit) started on their way to
+        the host: on the card a ``non_blocking`` copy into pinned memory
+        and the event that marks its end."""
         outs = self.run_batch(image, gripper, input_ids, attention_mask,
                               state)
         if self.device.type != "cuda":
@@ -702,11 +709,78 @@ class ScanDeerPolicy(nn.Module, HostInputs):
         copied.record()
         return host + (copied,)
 
-    def finish_batch(self, handles):
-        """The blocking half: waits for the copy, then (actions (B, 7) or
-        (B, k, 7) plans, exit_layers (B,) int64); a diffusion model's
-        (B, hidden) features in place of the actions."""
-        arm, grip, exit_layer, copied = handles
+    def _init_dispatch(self) -> None:
+        """``dispatch_batch``'s worker thread, shared by shallow copies (the
+        pipelined rollout's lane groups) and stopped when this engine is
+        collected; no step in flight."""
+        self._worker = StepWorker()
+        weakref.finalize(self, self._worker.close)
+        self._in_flight: Optional[Dispatched] = None
+
+    def _check_idle(self, what: str) -> None:
+        """A dispatched step owns this engine's carry and threshold rows
+        until ``finish_batch`` (or ``settle``) has waited on it."""
+        if self._in_flight is not None:
+            raise RuntimeError(f"{what} while a dispatched step is in "
+                               "flight: finish_batch it first")
+
+    def submit(self, fn: Callable) -> Dispatched:
+        """Run ``fn()`` (a step that reads or writes this engine's state) on
+        the engine's worker thread, after the steps dispatched before it;
+        returns its handle at once.  Until the handle is waited on
+        (``collect`` / ``settle``) the engine refuses another dispatch and
+        any change to its carry or threshold rows."""
+        self._check_idle("dispatch_batch")
+        handle = self._worker.submit(fn, self.device)
+        self._in_flight = handle
+        return handle
+
+    def collect(self, handle: Dispatched):
+        """Wait for ``handle`` and return its step's result; the step's
+        exception, if it raised, is raised here."""
+        try:
+            return handle.wait()
+        finally:
+            if self._in_flight is handle:
+                self._in_flight = None
+
+    def settle(self, handle: Dispatched) -> None:
+        """Wait for ``handle`` and drop its result and any error: for a
+        caller that is leaving on another error and must leave no step
+        running (the rollout's ``finally``)."""
+        try:
+            self.collect(handle)
+        except Exception:  # noqa: BLE001 - the caller's error is raised
+            pass
+
+    def close(self) -> None:
+        """Stop the worker thread (after the steps already dispatched); a
+        later ``dispatch_batch`` starts a new one."""
+        self._worker.close()
+
+    def dispatch_batch(self, image, gripper, input_ids, attention_mask,
+                       state=None) -> Dispatched:
+        """The first half of ``step_batch``, asynchronous as JAX's
+        dispatch is: hands the step (``run_batch``, the carry committed,
+        then the outputs' copy into pinned memory) to the engine's worker
+        thread and returns its handle at once, so the caller can step
+        other envs while the layers run.  Steps run in the order they were
+        dispatched, shallow copies included (they share the worker), on
+        the caller's device and CUDA stream under the caller's grad and
+        inference modes.  The inputs must not change until
+        ``finish_batch``; meanwhile the engine refuses another dispatch
+        and any change to its carry or thresholds.  The rows are
+        ``run_batch``'s."""
+        return self.submit(functools.partial(
+            self._run_to_host, image, gripper, input_ids, attention_mask,
+            state))
+
+    def finish_batch(self, handle: Dispatched):
+        """The blocking half: waits for the step and its copy (a step's
+        exception is raised here), then (actions (B, 7) or (B, k, 7)
+        plans, exit_layers (B,) int64); a diffusion model's (B, hidden)
+        features in place of the actions."""
+        arm, grip, exit_layer, copied = self.collect(handle)
         if copied is not None:
             copied.synchronize()
         exits = exit_layer.cpu().numpy().astype(np.int64)
@@ -719,9 +793,13 @@ class ScanDeerPolicy(nn.Module, HostInputs):
     def step_batch(self, image, gripper, input_ids, attention_mask,
                    state=None):
         """B parallel streams with per-stream exits: (actions (B, 7) or
-        (B, k, 7), exit_layers (B,) int64)."""
-        return self.finish_batch(self.dispatch_batch(
-            image, gripper, input_ids, attention_mask, state))
+        (B, k, 7), exit_layers (B,) int64).  The step runs on the calling
+        thread, then goes through ``finish_batch`` as a dispatched one
+        does: the same outputs."""
+        self._check_idle("step_batch")
+        return self.finish_batch(run_inline(functools.partial(
+            self._run_to_host, image, gripper, input_ids, attention_mask,
+            state), self.device))
 
     def _postprocess(self, arm, grip) -> np.ndarray:
         if self.cfg.head_type == "diffusion":

@@ -125,8 +125,10 @@ class ShardedBatchedPolicy:
     # -- serving -------------------------------------------------------------
     def dispatch_batch(self, image, gripper, input_ids, attention_mask,
                        state=None):
-        """This rank's slice of the B streams stepped on the card; the
-        gather waits for ``finish_batch``."""
+        """This rank's slice of the B streams handed to the engine's
+        worker thread (``ScanDeerPolicy.dispatch_batch``, which returns at
+        once); the gather waits for ``finish_batch``, on the calling
+        thread."""
         b = input_ids.shape[0]
         assert b % self.n_shards == 0, \
             (f"stream batch {b} not divisible by the mesh's "
@@ -139,9 +141,9 @@ class ShardedBatchedPolicy:
             image[mine], gripper[mine], input_ids[mine],
             attention_mask[mine], None if state is None else state[mine])
 
-    def finish_batch(self, handles):
+    def finish_batch(self, handle):
         """(actions, exit_layers) of all B streams, on every rank."""
-        acts, exits = self.inner.finish_batch(handles)
+        acts, exits = self.inner.finish_batch(handle)
         parts = gather_objects((self.shard, acts, exits))
         by_shard = {}
         for shard, a, e in parts:  # tp ranks of one data shard agree
@@ -149,6 +151,11 @@ class ShardedBatchedPolicy:
         ordered = [by_shard[s] for s in range(self.n_shards)]
         return (np.concatenate([a for a, _ in ordered]),
                 np.concatenate([e for _, e in ordered]))
+
+    def settle(self, handle) -> None:
+        """Wait for a dispatched step without the gather
+        (``ScanDeerPolicy.settle``)."""
+        self.inner.settle(handle)
 
     def step_batch(self, image, gripper, input_ids, attention_mask,
                    state=None):

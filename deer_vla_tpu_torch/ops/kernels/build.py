@@ -2,9 +2,13 @@
 
 The sources under ``deer_vla_tpu_torch/csrc/`` have a plain C interface.
 ``nvcc`` compiles each one to an object file (all compiles start together),
-links them into one shared library under ``build/torch_kernels/`` at the
-repository root, and ``ctypes`` loads it.  Nothing here runs at import time:
-the first wrapper call on a CUDA tensor builds the library.
+links them into one shared library named by the digest of the sources and
+flags, and ``ctypes`` loads it.  The library's directory is the compile
+cache when one is enabled (``utils/compile_cache.py``, DEER_COMPILE_CACHE),
+else ``build/torch_kernels/`` at the repository root; a library already
+there for the same digest is loaded without running nvcc.  Nothing here
+runs at import time: the first wrapper call on a CUDA tensor builds the
+library.
 """
 
 from __future__ import annotations
@@ -25,12 +29,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+                     / "torch_kernels")
 
 
 class _Loaded:
     """The loaded library and what its build reported (one per process)."""
     lib: Optional[ctypes.CDLL] = None
+    path: Optional[Path] = None
     functions: Dict[str, ctypes._CFuncPtr] = {}
     build_seconds: float = 0.0
     build_log: str = ""
@@ -52,11 +58,23 @@ def _source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """Where the library is built and looked up: the compile cache's
+    directory when one is enabled, else ``DEFAULT_BUILD_DIR``."""
+    from deer_vla_tpu_torch.utils.compile_cache import cache_dir
+    return cache_dir() or DEFAULT_BUILD_DIR
+
+
+def library_name() -> str:
+    return f"libdeer_kernels_{_source_digest()}.so"
+
+
 def build_library() -> Path:
     """Compile every source in parallel and link one shared library.  A
     library already built from the same sources and flags is reused."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libdeer_kernels_{_source_digest()}.so"
+    build_root = build_dir()
+    build_root.mkdir(parents=True, exist_ok=True)
+    lib_path = build_root / library_name()
     if lib_path.exists():
         return lib_path
     nvcc = find_nvcc()
@@ -64,7 +82,7 @@ def build_library() -> Path:
     procs: List[subprocess.Popen] = []
     objs = []
     for name in SOURCES:
-        obj = BUILD_DIR / (Path(name).stem + f".{os.getpid()}.o")
+        obj = build_root / (Path(name).stem + f".{os.getpid()}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)],
@@ -78,7 +96,7 @@ def build_library() -> Path:
             failed.append(name)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
-    tmp = BUILD_DIR / f"{lib_path.name}.{os.getpid()}.tmp"
+    tmp = build_root / f"{lib_path.name}.{os.getpid()}.tmp"
     link = subprocess.run([nvcc, "-shared", *map(str, objs), "-o", str(tmp),
                            "-lcudart"], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
@@ -94,7 +112,8 @@ def build_library() -> Path:
 
 def library() -> ctypes.CDLL:
     if _Loaded.lib is None:
-        _Loaded.lib = ctypes.CDLL(str(build_library()))
+        _Loaded.path = build_library()
+        _Loaded.lib = ctypes.CDLL(str(_Loaded.path))
     return _Loaded.lib
 
 
@@ -111,6 +130,10 @@ def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def build_info() -> dict:
-    """Seconds the build took in this process (0 if it was reused) and the
-    compiler's per-kernel register / shared-memory report."""
-    return {"seconds": _Loaded.build_seconds, "log": _Loaded.build_log}
+    """Seconds the build took in this process (0 if it was reused), the
+    compiler's per-kernel register / shared-memory report, the directory
+    in use (``build_dir``) and the library loaded (None before the first
+    launch)."""
+    return {"seconds": _Loaded.build_seconds, "log": _Loaded.build_log,
+            "dir": str(build_dir()),
+            "library": None if _Loaded.path is None else str(_Loaded.path)}

@@ -476,6 +476,7 @@ class BundledScanPolicy(ScanDeerPolicy):
         self.tp, self.check_tp_exits = None, False
         use_programs(self, programs, meta)
         self.steps_per_stage = steps_per_stage
+        self._init_dispatch()
         self.set_thresholds([1e8] * len(self.exits))
         self._carry_rows = None
         self.reset()

@@ -7,9 +7,9 @@ The reference decorates its mains with torch.distributed.elastic's
 error, traceback, and the process's rank when ``torch.distributed`` is
 initialized) to a JSONL file, then re-raises, so a failed worker can be
 told apart afterwards.  ``KeyboardInterrupt`` and ``SystemExit`` pass
-through unrecorded.  The JAX package's hook for XLA's persistent compile
-cache has no counterpart: the port's kernels are cached by their build
-(``ops/kernels/build.py``).
+through unrecorded.  As in the JAX package, every main passes through here
+first: the hook enables the opt-in compile cache (DEER_COMPILE_CACHE,
+``utils/compile_cache.py``), the directory of the built kernel library.
 """
 
 from __future__ import annotations
@@ -45,6 +45,9 @@ def record(fn: Optional[Callable] = None, *,
     def wrap(f):
         @functools.wraps(f)
         def inner(*args, **kwargs):
+            from deer_vla_tpu_torch.utils.compile_cache import \
+                maybe_enable_compile_cache
+            maybe_enable_compile_cache()
             try:
                 return f(*args, **kwargs)
             except (KeyboardInterrupt, SystemExit):

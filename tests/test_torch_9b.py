@@ -13,7 +13,7 @@ tolerance tests/test_torch_scan_policy.py holds the serving step to), in
 fp32 and int8 / int4; calibration values within 1e-4 relative L2
 (tests/test_torch_calibrate.py) and thresholds within 1e-4 relative or
 1e-7 absolute (``DELTA_ATOL``); a train step within the tolerances of
-tests/test_torch_train.py.  The presets' JSON and both CLIs' parse of
+tests/test_torch_train_steps.py.  The presets' JSON and both CLIs' parse of
 ``--model mpt_9b`` / ``llama_9b`` are checked at full width (config only:
 the full-width runs are ``chip_smoke.py``'s, on the card).
 """
@@ -56,10 +56,10 @@ from deer_vla_tpu_torch.train import train_step as tstep
 from test_torch_calibrate import (debug_batches, jax_batch_draws,
                                   make_media, make_text)
 from test_torch_scan_policy import obs
-from test_torch_train import (GRAD_REL_L2, PARAM_REL_L2, STEP_LOSS_REL,
-                              UPDATE_REL_L2, capture_grads, jax_draws,
-                              jax_flat, make_batch, port_draws, rel_l2,
-                              torch_batch, torch_flat)
+from torch_train_common import (GRAD_REL_L2, PARAM_REL_L2, STEP_LOSS_REL,
+                                UPDATE_REL_L2, capture_grads, jax_draws,
+                                jax_flat, make_batch, port_draws, rel_l2,
+                                torch_batch, torch_flat)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 REL_L2 = 1e-4
@@ -180,7 +180,7 @@ def step_both(jpol, tpol, cfg, seed, b=1):
 def assert_train_steps_match(jcfg, tcfg, params, phase):
     """Two train steps: the loss, every gradient leaf (a trainable leaf the
     loss does not reach: None in the port, zero in JAX) and every param
-    after the update (tests/test_torch_train.py's tolerances)."""
+    after the update (tests/torch_train_common.py's tolerances)."""
     jp = jax.tree.map(jnp.asarray, params)
     tp = to_torch(params, "cpu")
     kw = dict(phase=phase, learning_rate=1e-3, warmup_steps=0,

@@ -12,6 +12,8 @@ lockstep-waste counts) and must be equal: the port's ``pipeline=2`` to its
 ``pipeline=1`` and to JAX's ``pipeline=2``, ``env_workers=2`` to serial.
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -204,3 +206,48 @@ def test_env_workers_match_serial(tiny, reports, pipeline):
 def test_pipeline_rounds_down_to_a_divisor_of_the_lanes(tiny, reports):
     """pipeline 3 over 4 lanes runs 2 groups."""
     assert_same(run_port(tiny, pipeline=3), reports[2])
+
+
+class FailingEnv(trollout.DebugEnv):
+    """A DebugEnv whose ``fail_at``-th step raises."""
+
+    def __init__(self, fail_at: int, **kw):
+        super().__init__(**kw)
+        self.fail_at, self.calls = fail_at, 0
+
+    def step(self, action):
+        self.calls += 1
+        if self.calls == self.fail_at:
+            raise RuntimeError("the env failed")
+        return super().step(action)
+
+
+def test_rollout_that_raises_leaves_no_step_in_flight(tiny, monkeypatch):
+    """An env error mid-rollout while another group's step is still on
+    the worker: the rollout waits for that step before it raises, so no
+    thread writes a carry after it has left."""
+    tok, _, tcfg, params = rollout_setup(tiny)
+    handles = []
+    dispatch, run_batch = (ScanDeerPolicy.dispatch_batch,
+                           ScanDeerPolicy.run_batch)
+
+    def recorded(self, *args, **kw):
+        handles.append(dispatch(self, *args, **kw))
+        return handles[-1]
+
+    def slow(self, *args, **kw):
+        time.sleep(0.2)
+        return run_batch(self, *args, **kw)
+
+    monkeypatch.setattr(ScanDeerPolicy, "dispatch_batch", recorded)
+    monkeypatch.setattr(ScanDeerPolicy, "run_batch", slow)
+    pol = ScanDeerPolicy(params, tcfg, device="cpu")
+    pol.set_thresholds(TH)
+    envs = [FailingEnv(2 if i == 0 else 0, img_hw=40, grip_hw=20)
+            for i in range(4)]
+    with pytest.raises(RuntimeError, match="the env failed"):
+        tbatched.evaluate_policy_batched(
+            pol, envs, trollout.make_debug_sequences(5, seed=2), {},
+            trollout.DebugTaskOracle(0.6), tok, text_len=tcfg.text_len,
+            ep_len=6, n_layers=tcfg.n_layers, pipeline=2)
+    assert len(handles) >= 3 and all(h.done() for h in handles)

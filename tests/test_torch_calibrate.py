@@ -47,6 +47,8 @@ from deer_vla_tpu_torch.ops import lstm as tlstm
 from deer_vla_tpu_torch.ops import rand_shift as tshift
 from deer_vla_tpu_torch.train import checkpoint as tckpt
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REL_L2 = 1e-4
 PIXEL_ATOL = 2e-5
 

@@ -33,6 +33,8 @@ from deer_vla_tpu_torch.train import msgpack_io
 from deer_vla_tpu_torch.train import optimizer as toptim
 from deer_vla_tpu_torch.train.optimizer import make_optimizer
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def flat_np(tree) -> dict:
     return {flat_key(p): (v.float() if v.dtype == torch.bfloat16 else v)

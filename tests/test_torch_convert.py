@@ -22,6 +22,8 @@ from deer_vla_tpu_torch.utils.convert import (load_torch_checkpoint,
                                               read_safetensors)
 from test_convert_cli import artifacts  # noqa: F401  (a fixture)
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def convert_argv(cfg, tmp, out):
     return ["--model", "tiny", "--max_layer", str(cfg.n_layers),

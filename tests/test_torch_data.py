@@ -24,6 +24,8 @@ from deer_vla_tpu_torch.data import debug_data as tdebug
 from deer_vla_tpu_torch.data import native_loader
 from deer_vla_tpu_torch.data.text import HashTokenizer
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 KEYS = ("rgb_static", "rgb_gripper", "rel_actions", "robot_obs", "scene_obs")
 
 

@@ -16,7 +16,7 @@ bridged.  Tolerances: normalizer bit-equal; the pieces within 1e-5; the
 U-Net within 1e-5 relative L2; the plans within 1e-4 relative L2 (the
 U-Net's fp32 rounding through 1 / sqrt(alpha_bar) at the chain's start);
 the losses within 1e-5 relative and gradients within 1e-4 relative L2
-(tests/test_torch_train.py's), on a U-Net of down dims (16, 32) over a
+(tests/test_torch_train_steps.py's), on a U-Net of down dims (16, 32) over a
 horizon of 8 (``DIFF_GRAD``: at the tiny choices both packages' fp32
 gradients are further than that from a float64 one); the engines' exits
 equal and features and carries within 2e-4.
@@ -63,7 +63,7 @@ from test_torch_fusion import full_params, jx, rel_l2
 from test_torch_heads import (check_grads, configs, jax_loss_and_grads,
                               obs)
 from test_torch_state import calib_draws, controllers, same_carry
-from test_torch_train import jax_flat, make_batch, torch_flat
+from torch_train_common import jax_flat, make_batch, torch_flat
 
 PIECE_ATOL = 1e-5
 UNET_REL_L2 = 1e-5

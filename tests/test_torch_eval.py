@@ -47,6 +47,8 @@ from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
 from deer_vla_tpu_torch.models.value_net import solve_thresholds
 from deer_vla_tpu_torch.train.checkpoint import load_calibration_values
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPORT_KEYS = ("avg_seq_len", "chain_sr", "success_exit_hist",
                "fail_exit_hist", "avg_exit_layer", "total_success_steps",
                "task_info")

@@ -35,6 +35,8 @@ from deer_vla_tpu_torch.serving import export as texport
 from test_torch_scan_policy import make_params
 from test_torch_serving import tiny_configs
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 

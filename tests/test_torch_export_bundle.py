@@ -16,6 +16,8 @@ from deer_vla_tpu_torch.eval import scan_policy as tscan
 from deer_vla_tpu_torch.serving import export as texport
 from test_torch_export import Artifacts, assert_matches_jax, live, obs
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def art(tmp_path_factory):

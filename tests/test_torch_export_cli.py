@@ -12,6 +12,8 @@ import pytest
 from deer_vla_tpu_torch.serving import export as texport
 from test_torch_serving import payload
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def cli_artifact(tmp_path_factory):

@@ -11,6 +11,8 @@ import pytest
 
 from test_torch_export import Artifacts, assert_matches_jax, live, obs
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def art(tmp_path_factory):

@@ -12,7 +12,7 @@ Inputs are numpy draws from a seed, fp32.
 
 Tolerances: the position-table resize within 1e-6, the vision path within
 2e-5 (max abs), the training forward's loss within 1e-5 relative and the
-gradient within 1e-4 relative L2 (tests/test_torch_train.py's), both the
+gradient within 1e-4 relative L2 (tests/test_torch_train_steps.py's), both the
 whole trainable gradient and each leaf.  A leaf's error is taken relative
 to its own norm or to a thousandth of the largest leaf's norm, whichever is
 larger: a gate's gradient can be a sum that cancels to 3e-7 from terms a

@@ -14,6 +14,8 @@ from deer_vla_tpu_torch.utils import gp_opt as torch_gp
 from deer_vla_tpu_torch.utils.errors import record
 from deer_vla_tpu_torch.utils.profiling import MetricLogger, Timer, trace
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 BOUNDS = [(-1.0, 1.0), (-0.5, 1.5)]
 
 

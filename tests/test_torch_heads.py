@@ -13,7 +13,7 @@ under ``use_hist``, the gpt head under 'post'.  Tolerances: the heads
 within 1e-5; the engines' exit layers equal, actions and carries within
 2e-4; calibration values within 1e-4 relative L2; a train step's loss
 within 1e-5 relative and each gradient leaf within 1e-4 relative L2
-(tests/test_torch_train.py's).
+(tests/test_torch_train_steps.py's).
 """
 
 import dataclasses
@@ -53,8 +53,8 @@ from test_torch_folded import window_obs
 from test_torch_fusion import (frames, full_params, jx, pair, rel_l2,
                                shape_sig, text)
 from test_torch_state import calib_draws, controllers, same_carry
-from test_torch_train import (jax_flat, make_batch, recorded,
-                              switch_layer_ids, torch_batch, torch_flat)
+from torch_train_common import (jax_flat, make_batch, recorded,
+                                switch_layer_ids, torch_batch, torch_flat)
 
 HEAD_ATOL = 1e-5
 TOL = dict(rtol=2e-4, atol=2e-4)

@@ -32,6 +32,8 @@ from deer_vla_tpu_torch.ops import attention as tattn
 from deer_vla_tpu_torch.ops.kernels import flash_attention as tfa
 from deer_vla_tpu_torch.ops.kernels import indexed_matmul as timm
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 K1_TOL = 2e-2
 K2_REL_TOL = 2 ** -7
 KEY_TILE = 64

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "deer_vla_tpu_torch"
 

@@ -30,6 +30,8 @@ from deer_vla_tpu.ops import attention as jattn
 from deer_vla_tpu_torch.ops.alibi import full_attn_bias
 from deer_vla_tpu_torch.ops.kernels import flash_attention as k1
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2
 

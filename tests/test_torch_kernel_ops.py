@@ -16,6 +16,8 @@ import torch
 from deer_vla_tpu_torch.ops.kernels import flash_attention as k1
 from deer_vla_tpu_torch.ops.kernels import indexed_matmul as imm
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def rand(*shape, seed=0, dtype=torch.float32):
     return torch.from_numpy(np.random.RandomState(seed).randn(*shape)

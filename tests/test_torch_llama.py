@@ -15,7 +15,7 @@ Tolerances: modules within 2e-5 (fp32; the RoPE tables differ from JAX's
 by one fp32 ulp) and bit for bit in bf16; serving, exits equal and actions
 and carries within 2e-4; calibration within 1e-4 relative L2 (thresholds
 also 1e-7 absolute, ``test_torch_9b.DELTA_ATOL``); train steps
-within tests/test_torch_train.py's.
+within tests/test_torch_train_steps.py's.
 """
 
 import dataclasses
@@ -53,7 +53,7 @@ from test_torch_9b import (DELTA_ATOL, REL_L2, TOL, assert_masks_match_jax,
 from test_torch_calibrate import (debug_batches, jax_batch_draws, make_media,
                                   make_text, switch_layer_ids)
 from test_torch_scan_policy import obs
-from test_torch_train import rel_l2, trainer_setup
+from torch_train_common import rel_l2, trainer_setup
 
 MODULE_TOL = dict(rtol=2e-5, atol=2e-5)
 # per-exit thresholds for exits [1, 3, 5, 7]: a row a stream, each taking

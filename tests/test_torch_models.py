@@ -36,6 +36,8 @@ from deer_vla_tpu_torch.models import vit as tvit
 from deer_vla_tpu_torch.ops.layers import stack_layer_tree as tstack
 from deer_vla_tpu_torch.ops.layers import tree_map
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -28,6 +28,8 @@ from deer_vla_tpu_torch.ops import lstm as tlstm
 from deer_vla_tpu_torch.ops.kernels import flash_attention as tfa
 from deer_vla_tpu_torch.ops.kernels import indexed_matmul as timm
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -17,8 +17,8 @@ against each other bit for bit; against JAX (fp32, other summation orders)
 calibration values and thresholds within 1e-4 relative L2 (as
 tests/test_torch_calibrate.py), the dp train step's loss within 1e-5
 relative, its grad_norm within 1e-4 relative and each updated leaf within
-1e-5 of its norm plus 1e-4 of its update's norm (as tests/
-test_torch_train.py); two-process cli/train's first loss within 1e-5
+1e-5 of its norm plus 1e-4 of its update's norm (as
+tests/test_torch_train_steps.py); two-process cli/train's first loss within 1e-5
 relative of one process over the global batch.
 """
 
@@ -55,7 +55,7 @@ from deer_vla_tpu_torch.parallel import sharding as tsharding
 
 from test_torch_calibrate import (configs as calib_configs, debug_batches,
                                   jax_batch_draws, open_gates)
-from test_torch_train import jax_flat, rel_l2, switch_layer_ids
+from torch_train_common import jax_flat, rel_l2, switch_layer_ids
 
 REPO = Path(__file__).resolve().parents[1]
 CALIB_REL_L2 = 1e-4

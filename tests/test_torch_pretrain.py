@@ -9,8 +9,9 @@ held to JAX's in tests/test_torch_pretrain_cli.py.
 
 Tolerances (fp32, other summation orders): losses and accuracies within
 1e-5 relative, ``grad_norm`` within 1e-4 relative and every gradient leaf
-the optimizer takes within 1e-4 relative L2 (as tests/test_torch_train.py;
-the grouped AdamW itself is held to optax there).  The updated weights are
+the optimizer takes within 1e-4 relative L2 (as
+tests/test_torch_train_steps.py; the grouped AdamW itself is held to optax
+there).  The updated weights are
 not compared: the LM loss gives some embedding entries gradients near
 Adam's epsilon (1e-8), where the first update amplifies fp32 rounding.
 """
@@ -38,9 +39,11 @@ from deer_vla_tpu_torch.train import optimizer as toptim
 from deer_vla_tpu_torch.train import pretrain as tpretrain
 from deer_vla_tpu_torch.train import train_step as tstep
 
-from test_torch_train import (capture_grads, jax_draws, jax_flat,
-                              open_gates, port_draws, rel_l2, torch_batch,
-                              torch_flat)
+from torch_train_common import (capture_grads, jax_draws, jax_flat,
+                                open_gates, port_draws, rel_l2, torch_batch,
+                                torch_flat)
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOSS_REL = 1e-5
 GRAD_NORM_REL = 1e-4

@@ -32,7 +32,9 @@ from deer_vla_tpu_torch.models import flamingo as tflamingo
 from deer_vla_tpu_torch.train import trainer as ttrainer
 
 from test_torch_pretrain import LOSS_REL, assert_rel, tiny_params
-from test_torch_train import torch_flat
+from torch_train_common import torch_flat
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 

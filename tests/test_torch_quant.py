@@ -36,6 +36,8 @@ from deer_vla_tpu_torch.ops.kernels import indexed_matmul as timm
 from test_torch_scan_policy import (THRESHOLDS, assert_same_carry,
                                     make_params, obs)
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 # The w8a8 modes round every activation to int8 per row, which is not
 # continuous: an activation within an fp32 ulp of a rounding tie (seen:

@@ -31,6 +31,8 @@ from deer_vla_tpu.ops.pallas import indexed_matmul as jimm
 from deer_vla_tpu_torch.ops import quant as tq
 from deer_vla_tpu_torch.ops.kernels import indexed_matmul as timm
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REL_TOL = 2 ** -7
 DEER_3B_PRODUCTS = {"wqkv": (2048, 6144), "out_proj": (2048, 2048),
                     "mlp_up": (2048, 8192), "mlp_down": (8192, 2048)}

@@ -32,6 +32,8 @@ from deer_vla_tpu_torch.models import action_head as thead
 from deer_vla_tpu_torch.train import trainer as ttrainer
 from deer_vla_tpu_torch.utils import tcp
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TCP_TOL = dict(rtol=1e-5, atol=1e-4)
 
 

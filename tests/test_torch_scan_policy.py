@@ -8,7 +8,11 @@ holds the JAX engines to).  The cross-attention gates are set non-zero so
 that the vision path reaches the actions (the init leaves them at zero).
 """
 
+import copy
 import dataclasses
+import gc
+import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +25,8 @@ from deer_vla_tpu.eval.scan_policy import ScanDeerPolicy as JaxPolicy
 from deer_vla_tpu.models.flamingo import init_deer
 from deer_vla_tpu_torch.core import config as tconfig
 from deer_vla_tpu_torch.eval.scan_policy import ScanDeerPolicy
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 THRESHOLDS = [[1e8, 1e8], [-1.0, 1e8], [0.05, 1e8]]
@@ -238,3 +244,167 @@ def test_threshold_row_layout(tiny):
     with pytest.raises(ValueError):
         tpol.threshold_row([0.1])
     assert dataclasses.asdict(tcfg)["mpt"]["n_layers"] == 4
+
+
+# ---------------------------------------------------------------------------
+# the asynchronous dispatch (eval/step_worker.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fresh(tiny):
+    """A port engine of its own for the dispatch tests, and its weights."""
+    jcfg, tcfg, _ = tiny
+    params = make_params(jcfg)
+    return tcfg, params, ScanDeerPolicy(params, tcfg, device="cpu")
+
+
+def held(pol, gate: threading.Event, seen: list = None):
+    """``pol.run_batch`` held back until ``gate`` is set; ``seen`` gets the
+    thread, modes and intra-op thread count it ran under."""
+    real = pol.run_batch
+
+    def run(*args, **kw):
+        if seen is not None:
+            seen.append((threading.current_thread(),
+                         torch.is_inference_mode_enabled(),
+                         torch.is_grad_enabled(), torch.get_num_threads()))
+        assert gate.wait(60)
+        return real(*args, **kw)
+    return run
+
+
+def test_dispatch_batch_returns_before_the_step_runs(fresh):
+    tcfg, _, pol = fresh
+    pol.reset()
+    gate, seen = threading.Event(), []
+    pol.run_batch = held(pol, gate, seen)
+    try:
+        handle = pol.dispatch_batch(*obs(tcfg, 2, seed=50))
+        assert not handle.done()
+        # the step owns the carry and the thresholds until it is finished
+        for touch in (lambda: pol.reset_streams([True, False]),
+                      lambda: pol.set_thresholds([0.1, 1e8]),
+                      lambda: pol.dispatch_batch(*obs(tcfg, 2, seed=51))):
+            with pytest.raises(RuntimeError, match="in flight"):
+                touch()
+        gate.set()
+        acts, exits = pol.finish_batch(handle)
+    finally:
+        gate.set()
+        del pol.run_batch
+    assert acts.shape == (2, 7) and exits.shape == (2,)
+    assert seen[0][0] is not threading.main_thread()
+    pol.reset_streams([True, False])  # idle again
+
+
+def test_finish_batch_raises_the_steps_error(fresh):
+    tcfg, _, pol = fresh
+
+    def boom(*args, **kw):
+        raise ValueError("the step failed")
+    pol.run_batch = boom
+    try:
+        handle = pol.dispatch_batch(*obs(tcfg, 2, seed=52))
+        with pytest.raises(ValueError, match="the step failed"):
+            pol.finish_batch(handle)
+    finally:
+        del pol.run_batch
+    pol.reset()  # the failed step left the engine idle
+    pol.finish_batch(pol.dispatch_batch(*obs(tcfg, 2, seed=52)))
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference"])
+def test_dispatches_equal_step_batches_under_the_callers_modes(fresh, mode):
+    """Two dispatches on one engine are two step_batch calls, carries
+    included, bit for bit; the worker runs them under the caller's grad
+    and inference modes."""
+    tcfg, params, pol = fresh
+    other = ScanDeerPolicy(params, tcfg, device="cpu")
+    ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference": torch.inference_mode}[mode]
+    rows = [[1e8, 1e8], [2e-3, 1e8]]
+    for p in (pol, other):
+        p.set_thresholds_batch(rows)
+        p.reset()
+    gate, seen = threading.Event(), []
+    gate.set()
+    pol.run_batch = held(pol, gate, seen)
+    try:
+        with ctx():
+            for t in range(2):
+                inputs = obs(tcfg, 2, seed=60 + t)
+                got = pol.finish_batch(pol.dispatch_batch(*inputs))
+                want = other.step_batch(*inputs)
+                np.testing.assert_array_equal(got[0], want[0])
+                np.testing.assert_array_equal(got[1], want[1])
+                for a, b in zip(pol.carry, other.carry):
+                    assert torch.equal(a, b)
+                    assert a.is_inference() == b.is_inference()
+    finally:
+        del pol.run_batch
+    assert all(s[1] == (mode == "inference") for s in seen)
+    assert all(s[2] == (mode == "grad") for s in seen)
+    # OpenMP keeps a thread count a thread: the CPU's sums split by it
+    assert all(s[3] == torch.get_num_threads() for s in seen)
+
+
+def test_copies_share_one_worker_and_closing_stops_it(fresh):
+    """Shallow copies (the rollout's lane groups) share the worker, so
+    their steps run in dispatch order; close() stops the thread, a later
+    dispatch starts one, and a collected engine stops its own."""
+    tcfg, params, pol = fresh
+    a = ScanDeerPolicy(params, tcfg, device="cpu")
+    b = copy.copy(a)
+    a.reset(), b.reset()
+    assert b._worker is a._worker
+    order = []
+    for p, name in ((a, "a"), (b, "b")):
+        real = p.run_batch
+
+        def run(*args, real=real, name=name, **kw):
+            order.append(name)
+            return real(*args, **kw)
+        p.run_batch = run
+    ha = a.dispatch_batch(*obs(tcfg, 2, seed=70))
+    hb = b.dispatch_batch(*obs(tcfg, 2, seed=71))
+    b.finish_batch(hb)
+    a.finish_batch(ha)
+    assert order == ["a", "b"]
+    worker = a._worker
+    assert worker.alive
+    a.close()
+    assert not worker.alive
+    del a.run_batch, b.run_batch
+    a.finish_batch(a.dispatch_batch(*obs(tcfg, 2, seed=72)))
+    assert worker.alive
+    del a, b
+    gc.collect()
+    assert not worker.alive
+
+
+def test_dispatch_stress_many_copies_keep_their_carries(fresh):
+    """More lane groups than cores dispatching together under a short
+    switch interval: every copy's actions and carry equal its own
+    step_batch chain's, so no step wrote another copy's carry."""
+    tcfg, _, pol = fresh
+    copies = [copy.copy(pol) for _ in range(12)]
+    refs = [copy.copy(pol) for _ in range(12)]
+    for p in copies + refs:
+        p.reset()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in range(2):
+            inputs = [obs(tcfg, 2, seed=100 * t + i) for i in range(12)]
+            handles = [p.dispatch_batch(*x) for p, x in zip(copies, inputs)]
+            for h in handles:
+                h.future.result(timeout=120)
+            for i in reversed(range(12)):
+                got = copies[i].finish_batch(handles[i])
+                want = refs[i].step_batch(*inputs[i])
+                np.testing.assert_array_equal(got[0], want[0])
+                for a, b in zip(copies[i].carry, refs[i].carry):
+                    assert torch.equal(a, b)
+    finally:
+        sys.setswitchinterval(interval)

@@ -41,6 +41,8 @@ from deer_vla_tpu_torch.serving.server import (DeerActionServer, ServeError,
                                                make_server)
 from test_torch_scan_policy import make_params
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 INSTRUCTIONS = ("push the red block", "lift the cup", "open the drawer",
                 "turn on the led")

@@ -31,6 +31,8 @@ from test_torch_scan_policy import make_params
 from test_torch_serving import (INSTRUCTIONS, TOL, payload, post, start,
                                 tiny_configs)
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def setup():

@@ -35,6 +35,8 @@ from test_torch_batched import REPORT_KEYS, assert_same
 from test_torch_parallel import run_ranks
 from test_torch_policy import TH, make_params, obs
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 B = 8
 RESET = np.isin(np.arange(B), [0, 3])

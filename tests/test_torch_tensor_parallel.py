@@ -27,8 +27,8 @@ fsdp=2 x tp=2, ``ShardedBatchedPolicy.from_shards`` against JAX's engine
 with the same tolerances, and the train step against JAX's
 ``make_train_step``: loss within
 1e-5 relative, grad_norm within 1e-4 relative, each updated leaf within
-1e-5 of its norm plus 1e-4 of its update's norm (tests/test_torch_train.py),
-frozen leaves bit-unchanged.
+1e-5 of its norm plus 1e-4 of its update's norm
+(tests/test_torch_train_steps.py), frozen leaves bit-unchanged.
 """
 
 import dataclasses
@@ -65,7 +65,9 @@ from test_torch_9b import open_gates, port_config, shrink
 from test_torch_parallel import (CHILD_HEAD, CHILD_TAIL, CHILD_TIMEOUT_S,
                                  REPO, layer_draws, sharding_test_batch)
 from test_torch_scan_policy import obs
-from test_torch_train import jax_flat
+from torch_train_common import jax_flat
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.skipif(
     not (torch.distributed.is_available()

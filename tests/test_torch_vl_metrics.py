@@ -21,6 +21,8 @@ from deer_vla_tpu_torch.data.text import HashTokenizer
 from deer_vla_tpu_torch.eval import eval_models as tem
 from deer_vla_tpu_torch.eval import vl_eval as tvl
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ANSWERS = ["The red block", "red block", "two", "2", "dont know",
            "don't know", "1,000", "3.5", "yes.", "red, white", "riding",
            "rides", "cities", "glass", "Gloves!", "firefighting", "  a  ",

@@ -31,6 +31,8 @@ from deer_vla_tpu_torch.data import webdataset as twds
 from deer_vla_tpu_torch.data.text import HashTokenizer
 from deer_vla_tpu_torch.train import trainer as ttrainer
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 PIXEL_ATOL = 2e-5
 
 
